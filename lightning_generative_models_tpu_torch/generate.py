@@ -1,0 +1,96 @@
+"""Sampling CLI of the port: generate a grid of images from a config.
+
+Counterpart of the repo's ``generate.py``. Samples N images with the EMA weights and
+writes a grid PNG. The weights come from ``--weights`` (an ``.npz`` of the flax
+parameter tree, keys "/"-joined, as ``weights.load_flax_params`` reads it) or, without
+it, are drawn from ``--seed``. Restoring the JAX package's orbax checkpoints waits for
+the checkpoint slice.
+
+    python -m lightning_generative_models_tpu_torch.generate \
+        --config_path configs/diffusion/ddim_cifar10.json --num_samples 64 [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from lightning_generative_models_tpu_torch.config import load_config
+from lightning_generative_models_tpu_torch.experiment.logger import _write_png
+from lightning_generative_models_tpu_torch.ops.common import resolve_device
+from lightning_generative_models_tpu_torch.registry import load_model
+from lightning_generative_models_tpu_torch.utils.grid import make_grid
+from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+from lightning_generative_models_tpu_torch.weights import load_flax_params
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser("Generate samples with the PyTorch port")
+    parser.add_argument("--config_path", type=str, required=True)
+    parser.add_argument("--num_samples", type=int, default=64)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--out", type=str, default=None,
+                        help="output directory (default: experiments/<MODEL>/generated_torch)")
+    parser.add_argument("--weights", type=str, default=None,
+                        help=".npz of the flax parameter tree (default: weights from --seed)")
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--label", type=int, default=None,
+                        help="class label for a conditional DDPM")
+    parser.add_argument("--guidance_scale", type=float, default=None,
+                        help="classifier-free guidance scale for --label (default: the "
+                        "model config's guidance_scale)")
+    parser.add_argument("--sampler", type=str, default="auto",
+                        choices=["auto", "ddpm", "ddim", "dpmpp"],
+                        help="auto: DDIM iff sampling_timesteps < T; dpmpp: DPM-Solver++(2M)")
+    parser.add_argument("--sampling_steps", type=int, default=0,
+                        help="override the sampler's step count (0 = the config's "
+                        "sampling_timesteps); ancestral ddpm always runs the full chain")
+    parser.add_argument("--interpolate", type=int, default=0, metavar="N",
+                        help="not ported yet")
+    parser.add_argument("--fid", type=int, default=0, metavar="N", help="not ported yet")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> np.ndarray:
+    """Run the CLI; returns the sampled images, [N, H, W, C] in [0, 1]."""
+    args = parse_args(argv)
+    if args.fid:
+        raise NotImplementedError(
+            "--fid needs the Inception metrics, not yet ported; see ROADMAP.md")
+    if args.interpolate:
+        raise NotImplementedError(
+            "--interpolate needs the diffusion interpolation, not yet ported; see ROADMAP.md")
+    device = resolve_device(args.device)
+    config = load_config(args.config_path)
+    model = load_model(config["model"], device=device)
+    if args.weights:
+        load_flax_params(model.unet, args.weights)
+        model.copy_params_to_ema()
+    else:
+        model.init_params(torch.Generator().manual_seed(args.seed))
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    method = None if args.sampler == "auto" else args.sampler
+    steps = args.sampling_steps or None
+    if args.label is not None:
+        labels = torch.full((args.num_samples,), args.label, dtype=torch.long)
+        images = model.sample_classes(generator, labels, guidance_scale=args.guidance_scale,
+                                      method=method, steps=steps)
+    else:
+        images = model.sample(generator, args.num_samples, method=method, steps=steps)
+    images = images.float().cpu().numpy()
+
+    out_dir = (Path(args.out) if args.out
+               else EXPERIMENT_DIR / config["model"]["name"] / "generated_torch")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    grid_path = out_dir / "grid.png"
+    _write_png(grid_path, make_grid(images))
+    print(f"Wrote {grid_path}")
+    return images
+
+
+if __name__ == "__main__":
+    main()

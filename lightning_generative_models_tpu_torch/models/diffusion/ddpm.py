@@ -1,0 +1,227 @@
+"""DDPM: UNet + GaussianDiffusion + EMA weights, the sampling side.
+
+Counterpart of ``lightning_generative_models_tpu/models/diffusion/ddpm.py``: the
+constructor's UNet branch with the same argument checks, the apply closures
+(``_apply_fn``, ``_guided_apply_fn`` for classifier-free guidance), ``sample`` and
+``sample_classes``. Sampling uses the EMA weights, held as a second copy of the UNet
+(``ema_unet``); the JAX package keeps them as ``TrainState.ema_params``. The train
+step, Adam and the EMA update come with the training slice.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional, Tuple
+
+import torch
+
+from lightning_generative_models_tpu_torch.models.base import GenerativeModel
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
+    GaussianDiffusion,
+)
+from lightning_generative_models_tpu_torch.models.diffusion.unet import UNet
+from lightning_generative_models_tpu_torch.models.modules.layers import init_params
+from lightning_generative_models_tpu_torch.ops.common import resolve_device
+
+
+class DDPM(GenerativeModel):
+    def __init__(
+        self,
+        img_channels: int = 3,
+        img_size: int = 64,
+        dim: int = 64,
+        diffusion_timesteps: int = 1000,
+        sampling_timesteps: Optional[int] = None,
+        lr: float = 2e-5,
+        betas: Tuple[float, float] = (0.9, 0.99),
+        ema_update_every: int = 10,
+        ema_decay: float = 0.995,
+        ema_update_after_step: int = 100,
+        objective: str = "pred_v",
+        beta_schedule: str = "sigmoid",
+        min_snr_loss_weight: bool = False,
+        min_snr_gamma: float = 5.0,
+        self_condition: bool = False,
+        offset_noise_strength: float = 0.0,
+        use_bf16: bool = True,
+        flash_attn: bool = False,
+        dim_mults: Tuple[int, ...] = (1, 2, 4, 8),
+        num_classes: Optional[int] = None,
+        cond_drop_prob: float = 0.1,
+        guidance_scale: float = 3.0,
+        network: str = "unet",
+        patch_size: int = 2,
+        depth: int = 12,
+        num_heads: int = 6,
+        mlp_ratio: float = 4.0,
+        qkv_layout: str = "s3hd",
+        seq_parallel: bool = False,
+        num_experts: int = 0,
+        capacity_factor: float = 1.25,
+        moe_every: int = 2,
+        moe_aux_weight: float = 0.01,
+        pipeline_stages: int = 0,
+        pipeline_microbatches: int = 0,
+        einsum_attn: bool = False,
+        pp_fused_attn: bool = False,
+        device: str | torch.device = "cuda",
+    ):
+        """The JAX constructor's arguments, plus ``device``. The DiT-only arguments
+        are checked as there; ``network="dit"`` is not ported yet. The optimizer,
+        EMA-schedule and training-loss arguments are accepted for the training
+        slice and not used yet. The weights start from ``init_params`` with seed 0;
+        ``init_params(generator)`` redraws them."""
+        super().__init__(img_channels, img_size)
+        self.device = resolve_device(device)
+        self.num_classes = int(num_classes or 0)
+        self.guidance_scale = guidance_scale
+
+        if network == "dit":
+            raise NotImplementedError(
+                "network='dit' is not yet ported to the PyTorch package, see ROADMAP.md"
+            )
+        if network != "unet":
+            raise ValueError(f"unknown network {network!r}; pick 'unet' or 'dit'")
+        if qkv_layout != "s3hd":
+            raise ValueError(
+                "qkv_layout applies to the DiT backbone only (the UNet "
+                "does not use packed-qkv attention)"
+            )
+        if seq_parallel:
+            raise ValueError("seq_parallel applies to the DiT backbone only")
+        if num_experts:
+            raise ValueError("num_experts (MoE) applies to the DiT backbone only")
+        if pipeline_stages:
+            raise ValueError("pipeline_stages applies to the DiT backbone only")
+        if einsum_attn:
+            raise ValueError(
+                "einsum_attn applies to the DiT backbone only (the "
+                "UNet does not use packed-qkv attention)"
+            )
+        if pp_fused_attn:
+            raise ValueError(
+                "pp_fused_attn applies to the pipeline-parallel DiT "
+                "backbone only (the UNet has no pipeline stages)"
+            )
+        self.unet = UNet(
+            dim=dim,
+            dim_mults=tuple(dim_mults),
+            channels=img_channels,
+            self_condition=self_condition,
+            num_classes=num_classes,
+            flash_attn=flash_attn,
+            dtype=torch.bfloat16 if use_bf16 else torch.float32,
+        )
+        self.init_params()
+
+        if sampling_timesteps is not None:
+            sampling_timesteps = min(sampling_timesteps, diffusion_timesteps)
+        self.diffusion = GaussianDiffusion(
+            img_size=img_size,
+            channels=img_channels,
+            timesteps=diffusion_timesteps,
+            sampling_timesteps=sampling_timesteps,
+            objective=objective,
+            beta_schedule=beta_schedule,
+            min_snr_loss_weight=min_snr_loss_weight,
+            min_snr_gamma=min_snr_gamma,
+            self_condition=self_condition,
+            offset_noise_strength=offset_noise_strength,
+            device=self.device,
+        )
+
+    # -- parameters --------------------------------------------------------------
+    def init_params(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw the UNet's weights from the CPU ``generator`` and copy them to the
+        EMA set, as the JAX ``init_state`` does."""
+        init_params(self.unet, generator)
+        self.unet.to(self.device)
+        self.copy_params_to_ema()
+
+    def copy_params_to_ema(self) -> None:
+        """EMA weights := current weights (the EMA's hard copy)."""
+        self.ema_unet = copy.deepcopy(self.unet).requires_grad_(False)
+
+    # -- apply closures ------------------------------------------------------------
+    def _apply_fn(self, net: UNet, labels: Optional[torch.Tensor] = None):
+        """UNet apply closure for GaussianDiffusion. For a conditional model
+        ``labels`` rides in the closure; unconditional models ignore it."""
+        if self.num_classes:
+            if labels is None:
+                raise ValueError(
+                    "conditional DDPM: _apply_fn requires labels "
+                    "(use null_labels(B) for unconditional)"
+                )
+
+            def apply(x, t, x_self_cond=None):
+                return net(x, t, x_self_cond, labels=labels)
+
+            return apply
+
+        def apply(x, t, x_self_cond=None):
+            return net(x, t, x_self_cond)
+
+        return apply
+
+    def null_labels(self, batch: int) -> torch.Tensor:
+        """The learned null (unconditional) token, broadcast to a batch."""
+        return torch.full((batch,), self.unet.null_class, dtype=torch.long, device=self.device)
+
+    def _guided_apply_fn(self, net: UNet, labels: torch.Tensor, w: float):
+        """Classifier-free-guided closure: one UNet eval on the doubled batch
+        [cond; uncond], combined as u + w*(c - u) on the raw network output."""
+        b = labels.shape[0]
+        lab2 = torch.cat([labels.long(), self.null_labels(b)])
+
+        def apply(x, t, x_self_cond=None):
+            sc2 = None if x_self_cond is None else torch.cat([x_self_cond, x_self_cond])
+            out = net(torch.cat([x, x]), torch.cat([t, t]), sc2, labels=lab2)
+            c, u = out[:b], out[b:]
+            return u + w * (c - u)
+
+        return apply
+
+    # -- sampling ----------------------------------------------------------------
+    @torch.inference_mode()
+    def sample(
+        self,
+        generator: Optional[torch.Generator],
+        num_samples: int,
+        method: Optional[str] = None,
+        steps: Optional[int] = None,
+        x_T: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """EMA-model sampling, [num_samples, H, W, C] in [0, 1]. The default method
+        is DDIM iff sampling_timesteps < timesteps; "dpmpp" selects DPM-Solver++(2M)
+        with ``steps`` model evaluations. Conditional models sample cycling labels
+        0..num_classes-1 with classifier-free guidance."""
+        if self.num_classes:
+            labels = torch.arange(num_samples, device=self.device) % self.num_classes
+            return self.sample_classes(
+                generator, labels, method=method, steps=steps, x_T=x_T
+            )
+        return self.diffusion.sample(
+            self._apply_fn(self.ema_unet), num_samples, generator,
+            method=method, steps=steps, x_T=x_T,
+        )
+
+    @torch.inference_mode()
+    def sample_classes(
+        self,
+        generator: Optional[torch.Generator],
+        labels: torch.Tensor,
+        guidance_scale: Optional[float] = None,
+        method: Optional[str] = None,
+        steps: Optional[int] = None,
+        x_T: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Classifier-free-guided sampling of the given classes (conditional models
+        only). ``guidance_scale`` defaults to the constructor's."""
+        if not self.num_classes:
+            raise ValueError("sample_classes requires DDPM(num_classes=...)")
+        labels = torch.as_tensor(labels, device=self.device).long()
+        w = self.guidance_scale if guidance_scale is None else guidance_scale
+        apply_fn = self._guided_apply_fn(self.ema_unet, labels, w)
+        return self.diffusion.sample(
+            apply_fn, labels.shape[0], generator, method=method, steps=steps, x_T=x_T
+        )

@@ -1,0 +1,1 @@
+"""Ops: kernel wrappers with their plain PyTorch versions, and the kernel build."""
