@@ -1,17 +1,83 @@
-"""PNG output of the experiment logger.
+"""Experiment logging: metrics.jsonl and sample PNGs, mirrored to W&B when asked.
 
-Counterpart of ``_write_png`` in ``lightning_generative_models_tpu/experiment/logger.py``.
-The JAX package writes through PIL and falls back to ``.npy`` without it; this
-writes the PNG with the standard library alone, so the file is a PNG everywhere.
+Counterpart of ``lightning_generative_models_tpu/experiment/logger.py``: the same
+``metrics.jsonl`` records (``step``, ``time`` since the logger started, then the
+metrics) and ``samples/<name>_<step>.png`` grids. The JAX package writes PNGs through
+PIL and falls back to ``.npy`` without it; ``_write_png`` here writes the PNG with the
+standard library alone, so the file is a PNG everywhere.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import struct
+import time
 import zlib
 from pathlib import Path
+from typing import Any, Dict, Optional
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
+
+
+class ExperimentLogger:
+    def __init__(
+        self,
+        experiment_dir: str | Path,
+        project: str = "lightning-generative-models-tpu",
+        name: Optional[str] = None,
+        config: Optional[Dict[str, Any]] = None,
+        use_wandb: bool = False,
+        resume: bool = False,
+        run_id: Optional[str] = None,
+    ):
+        self.experiment_dir = Path(experiment_dir)
+        self.experiment_dir.mkdir(parents=True, exist_ok=True)
+        self.samples_dir = self.experiment_dir / "samples"
+        self.samples_dir.mkdir(exist_ok=True)
+        self._metrics_file = open(self.experiment_dir / "metrics.jsonl", "a")
+        self._t0 = time.time()
+
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb  # noqa: PLC0415 - optional
+
+                self._wandb = wandb.init(
+                    project=project, name=name, dir=str(self.experiment_dir),
+                    config=config, resume="must" if resume else None,
+                    id=run_id if resume else None,
+                )
+            except Exception as e:  # wandb missing or no network
+                logger.warning("wandb unavailable (%s); logging locally only", e)
+
+        if config is not None:
+            with open(self.experiment_dir / "config.json", "w") as f:
+                json.dump(config, f, indent=2, default=str)
+
+    def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
+        record = {"step": int(step), "time": round(time.time() - self._t0, 3)}
+        for k, v in metrics.items():
+            record[k] = v if isinstance(v, str) else float(v)
+        self._metrics_file.write(json.dumps(record) + "\n")
+        self._metrics_file.flush()
+        if self._wandb is not None:
+            self._wandb.log({k: v for k, v in record.items() if k != "step"}, step=step)
+
+    def log_image(self, name: str, image: np.ndarray, step: int) -> None:
+        """Save a uint8 HWC image grid as ``samples/<name>_<step>.png``."""
+        _write_png(self.samples_dir / f"{name}_{step:08d}.png", image)
+        if self._wandb is not None:
+            import wandb  # noqa: PLC0415
+
+            self._wandb.log({name: wandb.Image(np.asarray(image))}, step=step)
+
+    def finish(self) -> None:
+        self._metrics_file.close()
+        if self._wandb is not None:
+            self._wandb.finish()
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

@@ -3,8 +3,9 @@
 Counterpart of the repo's ``generate.py``. Samples N images with the EMA weights and
 writes a grid PNG. The weights come from ``--weights`` (an ``.npz`` of the flax
 parameter tree, keys "/"-joined, as ``weights.load_flax_params`` reads it) or, without
-it, are drawn from ``--seed``. Restoring the JAX package's orbax checkpoints waits for
-the checkpoint slice.
+it, are drawn from ``--seed``. A JAX run's orbax checkpoint reaches the port as an
+``.npz`` written where JAX runs (README, "Continuing a JAX run in the port"; for
+``--weights``, flatten ``state.ema_params`` alone).
 
     python -m lightning_generative_models_tpu_torch.generate \
         --config_path configs/diffusion/ddim_cifar10.json --num_samples 64 [--device cuda]

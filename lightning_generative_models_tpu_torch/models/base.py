@@ -1,17 +1,36 @@
-"""GenerativeModel: what the port's samplers and entry points need of a model.
+"""GenerativeModel: what the port's trainer, samplers and entry points need of a model.
 
-Counterpart of ``lightning_generative_models_tpu/models/base.py``, reduced to the
-sampling side: images are NHWC in [0, 1], and every source of randomness takes an
-explicit ``torch.Generator``.
+Counterpart of ``lightning_generative_models_tpu/models/base.py``: images are NHWC in
+[0, 1], and every source of randomness takes an explicit ``torch.Generator``. Where
+the JAX protocol threads a ``TrainState`` through pure functions, a model here owns
+its modules, optimizer and step counter and updates them in place:
+
+- ``grad_step(batch, generator)`` -> ``(grads, metrics)``: gradient evaluation only;
+  the model's weights and counters do not change;
+- ``apply_grad_step(grads, metrics)`` -> ``metrics``: the optimizer step, the EMA and
+  the step counter;
+- ``train_step(batch, generator)`` = ``apply_grad_step(*grad_step(batch, generator))``;
+- ``eval_step(batch, generator)`` -> ``metrics``;
+- ``sample(generator, n)`` -> images in [0, 1].
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
+
+import torch
+
+Batch = Dict[str, torch.Tensor]
+Metrics = Dict[str, torch.Tensor]
 
 
 class GenerativeModel:
     """Base class for the port's models."""
+
+    #: metric key the checkpointer monitors for the 'best' checkpoint
+    monitor: str = "val_loss"
+    #: False for models whose updates cannot be split into grad_step/apply_grad_step
+    supports_grad_accum: bool = True
 
     def __init__(self, img_channels: int, img_size: int):
         self.img_channels = img_channels
@@ -23,3 +42,30 @@ class GenerativeModel:
 
     def image_shape(self) -> Tuple[int, int, int]:
         return (self.img_size, self.img_size, self.img_channels)
+
+    # -- protocol ------------------------------------------------------------------
+    def grad_step(self, batch: Batch, generator: torch.Generator):
+        raise NotImplementedError
+
+    def apply_grad_step(self, grads, metrics: Metrics) -> Metrics:
+        raise NotImplementedError
+
+    def train_step(self, batch: Batch, generator: torch.Generator) -> Metrics:
+        return self.apply_grad_step(*self.grad_step(batch, generator))
+
+    def eval_step(self, batch: Batch, generator: torch.Generator) -> Metrics:
+        raise NotImplementedError
+
+    def sample(self, generator: torch.Generator, num_samples: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def validation_grids(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Named sample grids logged at every validation: {name: images in [0, 1]}."""
+        return {}
+
+    def state_dict(self) -> dict:
+        """Everything a checkpoint holds: weights, optimizer state, counters."""
+        raise NotImplementedError
+
+    def load_state_dict(self, state: dict) -> None:
+        raise NotImplementedError

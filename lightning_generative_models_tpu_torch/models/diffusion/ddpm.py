@@ -1,17 +1,20 @@
-"""DDPM: UNet + GaussianDiffusion + EMA weights, the sampling side.
+"""DDPM: UNet + GaussianDiffusion + Adam + EMA weights.
 
 Counterpart of ``lightning_generative_models_tpu/models/diffusion/ddpm.py``: the
 constructor's UNet branch with the same argument checks, the apply closures
-(``_apply_fn``, ``_guided_apply_fn`` for classifier-free guidance), ``sample`` and
-``sample_classes``. Sampling uses the EMA weights, held as a second copy of the UNet
-(``ema_unet``); the JAX package keeps them as ``TrainState.ema_params``. The train
-step, Adam and the EMA update come with the training slice.
+(``_apply_fn``, ``_guided_apply_fn`` for classifier-free guidance), the train step as
+``grad_step`` + ``apply_grad_step`` (Adam, then the EMA: a hard copy up to
+``ema_update_after_step``, then a decay every ``ema_update_every`` steps), ``eval_step``
+with the EMA weights, ``sample``, ``sample_classes`` and ``sample_raw``. The EMA
+weights are a second copy of the UNet (``ema_unet``); the JAX package keeps them as
+``TrainState.ema_params``. The model owns its step counter (``step``), as the JAX
+``TrainState.step``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,6 +25,8 @@ from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion i
 from lightning_generative_models_tpu_torch.models.diffusion.unet import UNet
 from lightning_generative_models_tpu_torch.models.modules.layers import init_params
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
+from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
+from lightning_generative_models_tpu_torch.train.state import ema_update, make_adam
 
 
 class DDPM(GenerativeModel):
@@ -67,14 +72,17 @@ class DDPM(GenerativeModel):
         device: str | torch.device = "cuda",
     ):
         """The JAX constructor's arguments, plus ``device``. The DiT-only arguments
-        are checked as there; ``network="dit"`` is not ported yet. The optimizer,
-        EMA-schedule and training-loss arguments are accepted for the training
-        slice and not used yet. The weights start from ``init_params`` with seed 0;
-        ``init_params(generator)`` redraws them."""
+        are checked as there; ``network="dit"`` is not ported yet. The weights start
+        from ``init_params`` with seed 0; ``init_params(generator)`` redraws them."""
         super().__init__(img_channels, img_size)
         self.device = resolve_device(device)
+        self.ema_update_every = ema_update_every
+        self.ema_decay = ema_decay
+        self.ema_update_after_step = ema_update_after_step
         self.num_classes = int(num_classes or 0)
+        self.cond_drop_prob = cond_drop_prob
         self.guidance_scale = guidance_scale
+        self.step = 0
 
         if network == "dit":
             raise NotImplementedError(
@@ -129,6 +137,7 @@ class DDPM(GenerativeModel):
             offset_noise_strength=offset_noise_strength,
             device=self.device,
         )
+        self.optimizer = make_adam(self._trainable(), lr, b1=betas[0], b2=betas[1])
 
     # -- parameters --------------------------------------------------------------
     def init_params(self, generator: Optional[torch.Generator] = None) -> None:
@@ -181,6 +190,115 @@ class DDPM(GenerativeModel):
 
         return apply
 
+    # -- steps ---------------------------------------------------------------------
+    def _on_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def grad_step(
+        self,
+        batch: Dict,
+        generator: Optional[torch.Generator] = None,
+        flip: Optional[torch.Tensor] = None,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        drop: Optional[torch.Tensor] = None,
+    ):
+        """Gradients of the training loss on a uint8 batch, without changing the
+        weights. The random draws (the flip, the classifier-free-guidance label drop,
+        then the loss's t and noise, in that order) come from ``generator`` unless
+        given: ``flip`` [B] bool, ``t`` [B], ``noise`` of the
+        batch's shape, ``drop`` [B] bool. Returns (grads, {"loss": loss})."""
+        batch = self._on_device(batch)
+        prepared = prepare_batch(batch, generator, train=True, flip=flip)
+        x01 = prepared["image"]
+
+        labels = None
+        if self.num_classes:
+            labels = prepared["label"].long()
+            if drop is None:
+                drop = torch.rand(labels.shape, generator=generator,
+                                  device=self.device) < self.cond_drop_prob
+            labels = torch.where(drop.to(self.device), self.null_labels(labels.shape[0]),
+                                 labels)
+
+        params = self._trainable()
+        loss = self.diffusion.p_losses(self._apply_fn(self.unet, labels), x01, generator,
+                                       t=t, noise=noise)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        # Contiguous, as the parameters and Adam's moments are: cuDNN returns the conv
+        # kernels' grads in channels-last strides, and a stride that differs from the
+        # moments' sends Adam's foreach ops down their per-tensor path (a launch per
+        # parameter and op).
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
+                 for p, g in zip(params, grads)]
+        return grads, {"loss": loss.detach()}
+
+    def _trainable(self) -> list:
+        return [p for p in self.unet.parameters() if p.requires_grad]
+
+    def ema_decay_at(self, step: int) -> float:
+        """The EMA's effective decay at 1-based step ``step``: 0 (hard copy) up to
+        ``ema_update_after_step``, then ``ema_decay`` every ``ema_update_every``
+        steps and 1 (keep) in between."""
+        if step <= self.ema_update_after_step:
+            return 0.0
+        return self.ema_decay if step % self.ema_update_every == 0 else 1.0
+
+    def ema_step_needed(self, next_step: int) -> bool:
+        """True when step ``next_step`` (1-based) changes the EMA weights."""
+        return self.ema_decay_at(next_step) != 1.0
+
+    def apply_grad_step(self, grads, metrics: Dict) -> Dict[str, torch.Tensor]:
+        """Adam on ``grads``, then the EMA, then the step counter."""
+        params = self._trainable()
+        for p, g in zip(params, grads):
+            p.grad = g
+        self.optimizer.step()
+        for p in params:
+            p.grad = None
+        self.step += 1
+        decay = self.ema_decay_at(self.step)
+        if decay != 1.0:
+            ema_update(self.ema_unet, self.unet, decay)
+        return {("train_loss" if k == "loss" else f"train_{k}"): v
+                for k, v in metrics.items()}
+
+    def train_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                   **draws) -> Dict[str, torch.Tensor]:
+        return self.apply_grad_step(*self.grad_step(batch, generator, **draws))
+
+    @torch.inference_mode()
+    def eval_step(
+        self,
+        batch: Dict,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Validation loss of the EMA weights on a uint8 batch (no flip, no label
+        drop); t and noise from ``generator`` unless given."""
+        prepared = prepare_batch(self._on_device(batch), train=False)
+        labels = prepared["label"].long() if self.num_classes else None
+        loss = self.diffusion.p_losses(self._apply_fn(self.ema_unet, labels),
+                                       prepared["image"], generator, t=t, noise=noise)
+        return {"val_loss": loss}
+
+    # -- checkpoint state ------------------------------------------------------------
+    def state_dict(self) -> dict:
+        return {
+            "unet": self.unet.state_dict(),
+            "ema_unet": self.ema_unet.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.unet.load_state_dict(state["unet"])
+        self.ema_unet.load_state_dict(state["ema_unet"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
     # -- sampling ----------------------------------------------------------------
     @torch.inference_mode()
     def sample(
@@ -225,3 +343,22 @@ class DDPM(GenerativeModel):
         return self.diffusion.sample(
             apply_fn, labels.shape[0], generator, method=method, steps=steps, x_T=x_T
         )
+
+    def validation_grids(self, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        """Per-class grid (row r: 4 guided samples of class r), conditional models
+        only."""
+        if not self.num_classes:
+            return {}
+        labels = torch.arange(self.num_classes, device=self.device).repeat_interleave(4)
+        return {"per_class_generation": self.sample_classes(generator, labels)}
+
+    @torch.inference_mode()
+    def sample_raw(self, generator: Optional[torch.Generator], num_samples: int,
+                   **kwargs) -> torch.Tensor:
+        """Sampling with the raw (non-EMA) weights, for diagnostics."""
+        if self.num_classes:
+            labels = torch.arange(num_samples, device=self.device) % self.num_classes
+            apply_fn = self._guided_apply_fn(self.unet, labels, self.guidance_scale)
+        else:
+            apply_fn = self._apply_fn(self.unet)
+        return self.diffusion.sample(apply_fn, num_samples, generator, **kwargs)

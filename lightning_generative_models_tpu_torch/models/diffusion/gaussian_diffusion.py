@@ -11,8 +11,9 @@ them. Randomness comes from an explicit ``torch.Generator``; every sampler also 
 ``x_T``, and ``p_sample_loop`` a per-step ``noise_fn``, so that a test can hand both
 implementations the same random numbers.
 
-The model is an ``apply_fn(x, t, self_cond) -> out`` closure. ``q_sample``,
-``p_losses`` and ``interpolate`` come with the training slice.
+The model is an ``apply_fn(x, t, self_cond) -> out`` closure. ``p_losses`` is the
+training objective; its random draws (t, noise, offset noise, the self-conditioning
+coin) can each be passed in. ``interpolate`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -109,8 +110,8 @@ class GaussianDiffusion:
         device: str | torch.device = "cuda",
     ):
         """``x_start_clip`` bounds the denoised x0 estimate to [-clip, clip]; ``None``
-        disables clipping. ``offset_noise_strength`` and the min-SNR settings are
-        kept for the training loss."""
+        disables clipping. ``offset_noise_strength`` and the min-SNR settings shape the
+        training loss."""
         if objective not in OBJECTIVES:
             raise ValueError(f"unknown objective {objective!r}; pick one of {OBJECTIVES}")
         if beta_schedule not in BETA_SCHEDULES:
@@ -156,6 +157,13 @@ class GaussianDiffusion:
                 (1 - alphas_cumprod_prev) * np.sqrt(alphas) / (1 - alphas_cumprod)
             ),
         }
+        snr = alphas_cumprod / (1 - alphas_cumprod)
+        clipped_snr = np.minimum(snr, min_snr_gamma) if min_snr_loss_weight else snr
+        buffers["loss_weight"] = {
+            "pred_noise": clipped_snr / snr,
+            "pred_x0": clipped_snr,
+            "pred_v": clipped_snr / (snr + 1),
+        }[objective]
         for name, value in buffers.items():
             setattr(self, name, torch.as_tensor(value, dtype=torch.float32, device=self.device))
         # Host copy of the f32 alphas_cumprod for the samplers' per-step scalars.
@@ -206,6 +214,13 @@ class GaussianDiffusion:
         log_variance = _extract(self.posterior_log_variance_clipped, t, nd)
         return mean, variance, log_variance
 
+    def q_sample(self, x_start, t, noise):
+        nd = x_start.dim()
+        return (
+            _extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+            + _extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+        )
+
     # -- model wrappers ------------------------------------------------------------
     def model_predictions(
         self,
@@ -243,6 +258,62 @@ class GaussianDiffusion:
             x_start = torch.clamp(x_start, -self.x_start_clip, self.x_start_clip)
         mean, variance, log_variance = self.q_posterior(x_start, x, t)
         return mean, variance, log_variance, x_start
+
+    # -- training loss -------------------------------------------------------------
+    def p_losses(
+        self,
+        apply_fn: ApplyFn,
+        x_start01: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        offset: Optional[torch.Tensor] = None,
+        sc_coin: Optional[bool] = None,
+    ) -> torch.Tensor:
+        """The training objective on a [0, 1] image batch: the loss-weighted mean
+        squared error of the objective's target. ``t`` [B], ``noise`` (the batch's
+        shape), ``offset`` [B, 1, 1, C] (with offset noise) and ``sc_coin`` (with
+        self-conditioning: condition on a no-grad x0 estimate) are drawn from
+        ``generator`` when not given."""
+        b = x_start01.shape[0]
+        dev = x_start01.device
+        x_start = self.normalize(x_start01)
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (b,), generator=generator, device=dev)
+        t = t.to(dev).long()
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=dev)
+        noise = noise.to(dev, torch.float32)
+
+        if self.offset_noise_strength > 0.0:
+            if offset is None:
+                offset = torch.randn((b, 1, 1, x_start.shape[-1]), generator=generator,
+                                     device=dev)
+            noise = noise + self.offset_noise_strength * offset.to(dev, torch.float32)
+
+        x = self.q_sample(x_start, t, noise)
+
+        x_self_cond = None
+        if self.self_condition:
+            if sc_coin is None:
+                sc_coin = bool(torch.rand((), generator=generator, device=dev) < 0.5)
+            if sc_coin:
+                with torch.no_grad():
+                    x_self_cond = self.model_predictions(apply_fn, x, t).pred_x_start
+            else:
+                x_self_cond = torch.zeros_like(x)
+
+        model_out = apply_fn(x, t, x_self_cond)
+
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_start
+        else:
+            target = self.predict_v(x_start, t, noise)
+
+        loss = torch.mean((model_out - target) ** 2, dim=(1, 2, 3))
+        return (loss * self.loss_weight[t]).mean()
 
     # -- sampling ----------------------------------------------------------------
     def _shape(self, batch_size: int) -> tuple:

@@ -6,9 +6,12 @@ over tokens with m learned memory tokens -> per-head context k^T v -> q . contex
 output projection + bias -> RMSNorm -> optional residual.
 
 ``linear_attention`` dispatches on the tensor's device: a CPU tensor takes
-``linear_attention_plain`` (the math of the JAX package's ``linear_attention_xla``), a
-CUDA tensor takes the CUDA kernel in ``csrc/linear_attention.cu`` or raises. There is
-no fallback from one to the other.
+``linear_attention_plain`` (the math of the JAX package's ``linear_attention_xla``),
+whose gradient comes from torch autograd; a CUDA tensor takes ``FusedLinearAttention``,
+the forward kernel in ``csrc/linear_attention.cu`` and the backward kernel in
+``csrc/linear_attention_bwd.cu``, or raises. There is no fallback from one to the
+other. ``linear_attention_bwd_plain`` is the backward kernel's yardstick: the math of
+the JAX package's ``_bwd_kernel``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ KERNEL_DIM_HEAD = 32
 KERNEL_CHANNELS = (64, 128, 256)
 KERNEL_TILE = 32  # n must be a multiple of this
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_BWD_MAX_MEM = 8  # memory tokens the backward kernel takes
 
 
 def _rmsnorm(x: torch.Tensor, g: torch.Tensor, dim: int) -> torch.Tensor:
@@ -78,24 +82,107 @@ def linear_attention_plain(
     return out + x.to(out.dtype) if residual else out
 
 
-def _kernel_library() -> ctypes.CDLL:
-    lib = cuda_build.load("linear_attention")
-    fn = lib.lgm_linear_attention_fwd
-    # Pointers and the stream as c_void_p: as plain ints ctypes would cut them to 32 bits.
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def linear_attention_bwd_plain(
+    x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout,
+    heads: int, dim_head: int, dtype: torch.dtype, residual: bool = False,
+):
+    """The block's gradient in plain PyTorch ops: the math of the JAX package's
+    ``_bwd_kernel``, per head (no [hd, hd] block-diagonal mask), rounded to ``dtype``
+    where it rounds (xn, v, ke, me, memv, context, qs, a, dy, da, du, dp) and f32
+    everywhere else. Returns ``(dx, dg0, dqkv_kernel, dmem_kv, dout_kernel,
+    dout_bias, dg1)``: dx in x's dtype, the weight grads in f32, dmem_kv in the
+    [2, heads, d, m] layout of ``mem_kv``."""
+    b, n, c = x.shape
+    hd = heads * dim_head
+    scale = dim_head**-0.5
+    sqrt_c = c**0.5
+
+    def rnd(t):
+        return t.to(dtype).float()
+
+    x32 = x.float()
+    g0, wqkv, mem, wo, bo, g1 = (
+        t.detach().float() for t in (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1)
+    )
+    d = dout.float()
+
+    # -- the forward again ------------------------------------------------------
+    r0 = torch.rsqrt(torch.sum(x32 * x32, dim=-1, keepdim=True) + _EPS)
+    xn = rnd(x32 * r0 * (g0 * sqrt_c))
+    wqkvc = rnd(wqkv)
+    q, k, v = (xn @ wqkvc).reshape(b, n, 3, heads, dim_head).unbind(2)  # [b, n, h, d]
+    pq = torch.softmax(q, dim=-1)
+    qs = rnd(pq * scale)
+
+    memk = mem[0].permute(2, 0, 1)  # [m, h, d]
+    memv = mem[1].permute(2, 0, 1)
+    kmax = torch.maximum(k.amax(dim=1), memk.amax(dim=0))  # [b, h, d]
+    ke = torch.exp(k - kmax[:, None])                    # [b, n, h, d]
+    me = torch.exp(memk[None] - kmax[:, None])           # [b, m, h, d]
+    z = ke.sum(dim=1) + me.sum(dim=1)                    # [b, h, d]
+    v3, kec, mec, memvc = rnd(v), rnd(ke), rnd(me), rnd(memv)
+    u = (torch.einsum("bnhd,bnhe->bhde", kec, v3)
+         + torch.einsum("bmhd,mhe->bhde", mec, memvc))
+    context = u / z[..., None]                           # [b, h, d, e]
+    contextc = rnd(context)
+    ac = rnd(torch.einsum("bnhd,bhde->bnhe", qs, contextc)).reshape(b, n, hd)
+    woc = rnd(wo)
+    y = ac @ woc + bo
+    r1 = torch.rsqrt(torch.sum(y * y, dim=-1, keepdim=True) + _EPS)
+
+    # -- backward -----------------------------------------------------------------
+    u1 = d * (g1 * sqrt_c)
+    dy = u1 * r1 - y * r1**3 * torch.sum(u1 * y, dim=-1, keepdim=True)
+    dg1 = torch.sum(d * y * r1, dim=(0, 1)) * sqrt_c
+    dyc = rnd(dy)
+    dwo = ac.reshape(-1, hd).T @ dyc.reshape(-1, c)
+    dbo = dy.sum(dim=(0, 1))
+    da3 = rnd(dyc @ woc.T).reshape(b, n, heads, dim_head)
+
+    dqs = torch.einsum("bnhe,bhde->bnhd", da3, contextc)
+    dcontext = torch.einsum("bnhd,bnhe->bhde", qs, da3)
+    du = dcontext / z[..., None]
+    dz = -torch.sum(dcontext * context, dim=-1) / z      # [b, h, d]
+    duc = rnd(du)
+    dke = torch.einsum("bnhe,bhde->bnhd", v3, duc) + dz[:, None]
+    dv = torch.einsum("bnhd,bhde->bnhe", kec, duc)
+    dme = torch.einsum("mhe,bhde->bmhd", memvc, duc) + dz[:, None]
+    dmv = torch.einsum("bmhd,bhde->bmhe", mec, duc)
+    dk = ke * dke  # the stabiliser kmax has exactly zero gradient
+    dmem = torch.stack([(me * dme).sum(dim=0).permute(1, 2, 0),
+                        dmv.sum(dim=0).permute(1, 2, 0)])
+
+    dpq = dqs * scale
+    dq = pq * dpq - pq * torch.sum(dpq * pq, dim=-1, keepdim=True)
+    dpc = rnd(torch.stack([dq, dk, dv], dim=2).reshape(b, n, 3 * hd))
+    dxn = dpc @ wqkvc.T
+    dw = xn.reshape(-1, c).T @ dpc.reshape(-1, 3 * hd)
+
+    u0 = dxn * (g0 * sqrt_c)
+    dx = u0 * r0 - x32 * r0**3 * torch.sum(u0 * x32, dim=-1, keepdim=True)
+    dg0 = torch.sum(dxn * x32 * r0, dim=(0, 1)) * sqrt_c
+    if residual:
+        dx = dx + d
+    return dx.to(x.dtype), dg0, dw, dmem, dwo, dbo, dg1
+
+
+def _library(name: str, fn_name: str, argtypes: list) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return lib
 
 
-def linear_attention_cuda(
-    x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
-    heads: int, dim_head: int, dtype: torch.dtype, residual: bool = False,
-) -> torch.Tensor:
-    """The block through the CUDA kernel. Raises ValueError for what the kernel does
-    not take, and RuntimeError where a gradient would be needed (the backward kernel
-    is not ported yet)."""
+# Pointers and the stream as c_void_p: as plain ints ctypes would cut them to 32 bits.
+_FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _kernel_args(x, params, heads, dim_head, dtype, what):
+    """Check what the kernels take; returns (b, n, c, m) and the f32 parameters."""
     if x.device.type != "cuda":
-        raise ValueError(f"linear_attention_cuda needs a CUDA tensor, got {x.device}")
+        raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
     if x.dim() != 3:
         raise ValueError(f"x must be [b, n, c], got shape {tuple(x.shape)}")
     b, n, c = x.shape
@@ -114,14 +201,8 @@ def linear_attention_cuda(
             f"the CUDA kernel computes in the dtype of x (float32 or bfloat16); "
             f"got x {x.dtype}, compute dtype {dtype}"
         )
-    params = (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
-        raise RuntimeError(
-            "linear_attention on CUDA has no backward kernel yet (see ROADMAP.md); "
-            "run it under torch.inference_mode() or torch.no_grad()"
-        )
     hd = heads * dim_head
-    m = mem_kv.shape[-1]
+    m = params[2].shape[-1]
     shapes = ((c,), (c, 3 * hd), (2, heads, dim_head, m), (hd, c), (c,), (c,))
     for t, shape in zip(params, shapes):
         if tuple(t.shape) != shape or t.device != x.device:
@@ -129,25 +210,96 @@ def linear_attention_cuda(
                 f"parameter of shape {tuple(t.shape)} on {t.device} does not fit "
                 f"{shape} on {x.device}"
             )
-    g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1 = (
-        t.detach().to(torch.float32).contiguous() for t in params
-    )
-    x = x.contiguous()
+    return (b, n, c, m), [t.detach().to(torch.float32).contiguous() for t in params]
+
+
+def linear_attention_cuda(
+    x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
+    heads: int, dim_head: int, dtype: torch.dtype, residual: bool = False,
+) -> torch.Tensor:
+    """The block through the forward CUDA kernel, with no autograd graph (use
+    ``linear_attention`` for that). Raises ValueError for what the kernel does not
+    take. Counts its launches in ``linear_attention.launches``."""
+    (b, n, c, m), params = _kernel_args(
+        x, (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1), heads, dim_head, dtype,
+        "linear_attention_cuda")
+    x = x.detach().contiguous()
     out = torch.empty_like(x)
     ctx = torch.empty((b, heads, dim_head, dim_head), dtype=torch.float32, device=x.device)
 
-    lib = _kernel_library()
+    lib = _library("linear_attention", "lgm_linear_attention_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.lgm_linear_attention_fwd(
-            x.data_ptr(), g0.data_ptr(), qkv_kernel.data_ptr(), mem_kv.data_ptr(),
-            out_kernel.data_ptr(), out_bias.data_ptr(), g1.data_ptr(),
-            out.data_ptr(), ctx.data_ptr(), b, n, c, m, int(residual),
-            int(x.dtype == torch.bfloat16), stream,
+            x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), ctx.data_ptr(),
+            b, n, c, m, int(residual), int(x.dtype == torch.bfloat16), stream,
         )
     cuda_build.check(lib, err, "linear attention kernel")
     linear_attention.launches += 1
     return out
+
+
+def linear_attention_bwd_cuda(
+    x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout,
+    heads: int, dim_head: int, dtype: torch.dtype, residual: bool = False,
+):
+    """The block's gradient through the backward CUDA kernel
+    (``csrc/linear_attention_bwd.cu``): ``(dx, dg0, dqkv_kernel, dmem_kv,
+    dout_kernel, dout_bias, dg1)`` as ``linear_attention_bwd_plain`` returns them.
+    Raises ValueError for what the kernel does not take. Counts its launches in
+    ``linear_attention_bwd.launches``."""
+    (b, n, c, m), params = _kernel_args(
+        x, (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1), heads, dim_head, dtype,
+        "linear_attention_bwd_cuda")
+    if m > KERNEL_BWD_MAX_MEM:
+        raise ValueError(f"the backward kernel takes at most {KERNEL_BWD_MAX_MEM} memory "
+                         f"tokens, got {m}")
+    if tuple(dout.shape) != tuple(x.shape) or dout.device != x.device:
+        raise ValueError(f"dout of shape {tuple(dout.shape)} on {dout.device} does not fit "
+                         f"x of shape {tuple(x.shape)} on {x.device}")
+    x = x.detach().contiguous()
+    dout = dout.detach().to(x.dtype).contiguous()
+    bf16 = int(x.dtype == torch.bfloat16)
+
+    lib = _library("linear_attention_bwd", "lgm_linear_attention_bwd", _BWD_ARGTYPES)
+    lib.lgm_linear_attention_bwd_workspace.argtypes = [ctypes.c_int] * 5
+    lib.lgm_linear_attention_bwd_workspace.restype = ctypes.c_size_t
+    workspace = torch.empty(lib.lgm_linear_attention_bwd_workspace(b, n, c, m, bf16),
+                            dtype=torch.uint8, device=x.device)
+    grads = [torch.empty_like(x)] + [torch.empty_like(t) for t in params]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.lgm_linear_attention_bwd(
+            x.data_ptr(), *(t.data_ptr() for t in params), dout.data_ptr(),
+            *(g.data_ptr() for g in grads), workspace.data_ptr(),
+            b, n, c, m, int(residual), bf16, stream,
+        )
+    cuda_build.check(lib, err, "linear attention backward kernel")
+    linear_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+class FusedLinearAttention(torch.autograd.Function):
+    """The block on the card with its gradient: forward through the forward kernel,
+    backward through the backward kernel. The backward recomputes what it needs from
+    the saved inputs, as the JAX package's custom VJP does; nothing of the forward's
+    intermediates is kept."""
+
+    @staticmethod
+    def forward(ctx, x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
+                heads, dim_head, dtype, residual):
+        out = linear_attention_cuda(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
+                                    heads, dim_head, dtype, residual)
+        ctx.save_for_backward(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1)
+        ctx.config = (heads, dim_head, dtype, residual)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = ctx.saved_tensors
+        grads = linear_attention_bwd_cuda(*inputs, dout, *ctx.config)
+        grads = [g.to(t.dtype) for g, t in zip(grads, inputs)]
+        return (*grads, None, None, None, None)
 
 
 def linear_attention(
@@ -155,10 +307,12 @@ def linear_attention(
     heads: int, dim_head: int, dtype: torch.dtype = torch.float32,
     residual: bool = False,
 ) -> torch.Tensor:
-    """The block on x's device: the CUDA kernel on a CUDA tensor, the plain version
-    on a CPU tensor. ``linear_attention.launches`` counts the kernel's launches."""
+    """The block on x's device: on a CUDA tensor the kernels, through
+    ``FusedLinearAttention``; on a CPU tensor the plain version, differentiated by
+    torch autograd. ``linear_attention.launches`` counts the forward kernel's
+    launches, ``linear_attention_bwd.launches`` the backward kernel's."""
     if x.device.type == "cuda":
-        return linear_attention_cuda(
+        return FusedLinearAttention.apply(
             x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
             heads, dim_head, dtype, residual,
         )
@@ -170,4 +324,20 @@ def linear_attention(
     raise ValueError(f"linear_attention runs on cuda or cpu, got {x.device}")
 
 
+def linear_attention_bwd(
+    x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout,
+    heads: int, dim_head: int, dtype: torch.dtype = torch.float32,
+    residual: bool = False,
+):
+    """The block's gradient on x's device: the backward kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    fn = {"cuda": linear_attention_bwd_cuda, "cpu": linear_attention_bwd_plain}.get(
+        x.device.type)
+    if fn is None:
+        raise ValueError(f"linear_attention_bwd runs on cuda or cpu, got {x.device}")
+    return fn(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout,
+              heads, dim_head, dtype, residual)
+
+
 linear_attention.launches = 0
+linear_attention_bwd.launches = 0

@@ -1,0 +1,4 @@
+from lightning_generative_models_tpu_torch.train.cli import main
+
+if __name__ == "__main__":
+    main()

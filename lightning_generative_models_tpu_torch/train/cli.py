@@ -1,0 +1,151 @@
+"""Training CLI of the port: the counterpart of the repo's ``train.py``.
+
+    python -m lightning_generative_models_tpu_torch.train \
+        --config_path configs/diffusion/ddpm_cifar10.json [--device cuda] [--max_steps N]
+
+The flags keep ``train.py``'s names for what is ported, and add ``--device`` (cuda by
+default; cpu only when asked). What is not ported raises ``NotImplementedError``
+naming ROADMAP.md: ``--strategy`` fsdp/tp/pp (the port trains on one device),
+``--unroll_steps`` above 1, ``--profile_steps``, ``--eval``, bf16 ``--mu_dtype`` /
+``--nu_dtype``, and models other than DDPM. Runs write to
+``experiments/<model name>/<experiment_name>/``: ``metrics.jsonl``,
+``samples/*.png``, ``checkpoints/{last,best}`` and their meta files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+from datetime import datetime
+from pathlib import Path
+
+import torch
+
+from lightning_generative_models_tpu_torch.config import load_config
+from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+from lightning_generative_models_tpu_torch.experiment.logger import ExperimentLogger
+from lightning_generative_models_tpu_torch.ops.common import resolve_device
+from lightning_generative_models_tpu_torch.registry import load_model
+from lightning_generative_models_tpu_torch.train.state import (
+    set_default_mu_dtype,
+    set_default_nu_dtype,
+)
+from lightning_generative_models_tpu_torch.train.trainer import Trainer
+from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+logger = logging.getLogger("train")
+
+
+def setup_arguments(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser("Train with the PyTorch port")
+    parser.add_argument("--config_path", type=str, required=True, help="Path to configs")
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--num_workers", type=int, default=0)
+    parser.add_argument("--check_val_every_n_epoch", type=int, default=5)
+    parser.add_argument("--max_epochs", type=int, default=-1)
+    parser.add_argument("--max_steps", type=int, default=-1)
+    parser.add_argument("--strategy", type=str, default="data_parallel",
+                        choices=("data_parallel", "ddp", "auto", "fsdp", "tp", "pp"),
+                        help="data_parallel/ddp/auto: one device; fsdp/tp/pp are not "
+                        "ported")
+    parser.add_argument("--tp_size", type=int, default=0, help="for --strategy tp")
+    parser.add_argument("--pp_size", type=int, default=0, help="for --strategy pp")
+    parser.add_argument("--accumulate_grad_batches", type=int, default=1)
+    parser.add_argument("--precision", type=str, default=None,
+                        help="'bf16' forces bfloat16 compute, '32' float32, for models "
+                        "with use_bf16")
+    parser.add_argument("--mu_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"], help="only float32 is ported")
+    parser.add_argument("--nu_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"], help="only float32 is ported")
+    parser.add_argument("--ckpt_path", type=str, default=None)
+    parser.add_argument("--seed", type=int, default=10)
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="torch.autograd anomaly detection")
+    parser.add_argument("--sample_every_n_steps", type=int, default=1000,
+                        help="mid-training sample-grid cadence (0 disables)")
+    parser.add_argument("--unroll_steps", type=int, default=1, help="only 1 is ported")
+    parser.add_argument("--profile_steps", type=str, default=None, help="not ported")
+    parser.add_argument("--grad_accum_mode", type=str, default="auto",
+                        choices=("auto", "concat", "scan"))
+    parser.add_argument("--eval", type=str, default=None, choices=("test",),
+                        dest="eval_split", help="not ported")
+    parser.add_argument("--eval_which", type=str, default="last", choices=("last", "best"))
+    parser.add_argument("--project", type=str, default="Lightning generative models")
+    parser.add_argument("--experiment_name", type=str,
+                        default=datetime.now().strftime("%Y-%m-%d_%H:%M"))
+    parser.add_argument("--resume", action="store_true", help="Resume the run.")
+    parser.add_argument("--id", type=str, default=None, help="Run ID to resume from.")
+    parser.add_argument("--wandb", action="store_true", help="Mirror logs to W&B.")
+    args = parser.parse_args(argv)
+    args.config = load_config(args.config_path)
+    args.experiment_dir = os.path.join(
+        EXPERIMENT_DIR, args.config["model"]["name"], args.experiment_name)
+    return args
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    def refuse(what: str) -> None:
+        raise NotImplementedError(f"{what} is not ported to the PyTorch package; see "
+                                  "ROADMAP.md, Queue 1")
+
+    if args.strategy in ("fsdp", "tp", "pp"):
+        refuse(f"--strategy {args.strategy} (#11, scale-out)")
+    if args.unroll_steps > 1:
+        refuse("--unroll_steps > 1")
+    if args.profile_steps:
+        refuse("--profile_steps")
+    if args.eval_split:
+        refuse("--eval")
+    if args.config["model"]["name"].lower() != "ddpm":
+        refuse(f"training model {args.config['model']['name']!r}")
+    set_default_mu_dtype(None if args.mu_dtype == "float32" else args.mu_dtype)
+    set_default_nu_dtype(None if args.nu_dtype == "float32" else args.nu_dtype)
+
+
+def main(argv=None):
+    """Run the CLI; returns the trained model."""
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    args = setup_arguments(argv)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    torch.autograd.set_detect_anomaly(args.debug_nans)
+
+    os.makedirs(args.experiment_dir, exist_ok=True)
+    dump = {k: v for k, v in vars(args).items() if k != "config"}
+    with open(os.path.join(args.experiment_dir, "args.json"), "w") as f:
+        json.dump(dump, f, indent=2, default=str)
+    with open(os.path.join(args.experiment_dir, Path(args.config_path).name), "w") as f:
+        json.dump(args.config, f, indent=2)
+
+    if args.precision:
+        wants_bf16 = args.precision.lower() in ("bf16", "bfloat16", "16")
+        args.config["model"]["args"].setdefault("use_bf16", wants_bf16)
+    model = load_model(args.config["model"], device=device)
+    args.config["dataset"].pop("paired", None)
+    datamodule = DataModule(**args.config["dataset"], num_workers=args.num_workers)
+    exp_logger = ExperimentLogger(
+        args.experiment_dir, project=args.project, name=args.experiment_name,
+        config={**args.config["model"], "dataset": args.config["dataset"]},
+        use_wandb=args.wandb, resume=args.resume, run_id=args.id,
+    )
+    trainer = Trainer(
+        model=model,
+        datamodule=datamodule,
+        experiment_dir=args.experiment_dir,
+        exp_logger=exp_logger,
+        max_epochs=args.max_epochs,
+        max_steps=args.max_steps,
+        check_val_every_n_epoch=args.check_val_every_n_epoch,
+        accumulate_grad_batches=args.accumulate_grad_batches,
+        seed=args.seed,
+        sample_every_n_steps=args.sample_every_n_steps,
+        grad_accum_mode=args.grad_accum_mode,
+        strategy=args.strategy,
+    )
+    try:
+        return trainer.fit(ckpt_path=args.ckpt_path, resume=args.resume)
+    finally:
+        exp_logger.finish()

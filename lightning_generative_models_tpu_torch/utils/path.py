@@ -3,4 +3,5 @@
 from pathlib import Path
 
 PROJECT_ROOT = Path(__file__).resolve().parents[2]
+DATASET_PATH = PROJECT_ROOT / "data" / "dataset"
 EXPERIMENT_DIR = PROJECT_ROOT / "experiments"

@@ -55,7 +55,7 @@ def test_schedule_buffers_equal_jax(schedule):
     td = TGD.GaussianDiffusion(img_size=8, timesteps=1000, beta_schedule=schedule,
                                device="cpu")
     names = [k for k, v in vars(td).items() if isinstance(v, torch.Tensor)]
-    assert len(names) == 12
+    assert len(names) == 13  # the schedule's 12 buffers and the loss weight
     for name in names:  # same float64 math, same f32 rounding: bit for bit
         np.testing.assert_array_equal(getattr(td, name).numpy(), np.asarray(getattr(jd, name)))
 

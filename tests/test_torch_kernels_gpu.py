@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from lightning_generative_models_tpu_torch.data.pipeline import prefetch_to_device
 from lightning_generative_models_tpu_torch.ops import linear_attention as TLA
 
 pytestmark = pytest.mark.gpu
@@ -52,6 +53,97 @@ def test_linear_attention_kernel_rejects_what_it_does_not_take():
     with torch.inference_mode(), pytest.raises(ValueError, match="multiple of"):
         TLA.linear_attention(*args, 4, 32, torch.float32)
     args = _la_args(2, 64, 64, torch.float32)
-    args[1].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        TLA.linear_attention(*args, 4, 32, torch.float32)
+    args[1].requires_grad_(True)  # a gradient flows, through the backward kernel
+    before = TLA.linear_attention_bwd.launches
+    TLA.linear_attention(*args, 4, 32, torch.float32).sum().backward()
+    assert TLA.linear_attention_bwd.launches == before + 1
+    assert args[1].grad is not None and bool(torch.isfinite(args[1].grad).all())
+
+
+def _rel_err(out, ref):
+    """max |k - p| / (1 + max |p|): the weight grads are sums over b * n tokens, so the
+    error is scaled by the tensor's largest magnitude, not element by element."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max() / (1.0 + ref.abs().max())).item()
+
+
+# bf16: the kernel rounds at the plain version's points, but the f32 sums ahead of each
+# rounding run in another order, so a value can land one bf16 ulp (2^-8 = 3.9e-3) away
+# and carry that through the later products.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n,c", [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256)])
+def test_linear_attention_bwd_kernel_matches_plain(n, c, residual, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _la_args(8, n, c, dtype)
+    dout = torch.tensor(np.random.RandomState(1).randn(8, n, c), dtype=dtype, device="cuda")
+    before = TLA.linear_attention_bwd.launches
+    out = TLA.linear_attention_bwd(*args, dout, 4, 32, dtype, residual)
+    ref = TLA.linear_attention_bwd_plain(*args, dout, 4, 32, dtype, residual)
+    assert TLA.linear_attention_bwd.launches == before + 1
+    for k, p in zip(out, ref):
+        assert k.shape == p.shape and k.dtype == p.dtype
+        assert bool(torch.isfinite(k.float()).all())
+        assert _rel_err(k, p) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_bwd_kernel_is_deterministic(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    args = _la_args(16, 256, 64, dtype)
+    dout = torch.tensor(np.random.RandomState(2).randn(16, 256, 64), dtype=dtype,
+                        device="cuda")
+    first = TLA.linear_attention_bwd_cuda(*args, dout, 4, 32, dtype, True)
+    second = TLA.linear_attention_bwd_cuda(*args, dout, 4, 32, dtype, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_fused_linear_attention_grads_match_autograd_through_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = _la_args(4, 256, 128, torch.float32)
+    dout = torch.tensor(np.random.RandomState(3).randn(4, 256, 128), dtype=torch.float32,
+                        device="cuda")
+    grads = []
+    for fn in (TLA.linear_attention, TLA.linear_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        fn(*leaves, 4, 32, torch.float32, True).backward(dout)
+        grads.append([t.grad for t in leaves])
+    for k, p in zip(*grads):
+        assert _rel_err(k, p) <= 1e-4
+
+
+def test_prefetch_to_device_delivers_every_batch_in_order():
+    """The side-stream copies are ordered before use: a kernel that reads each batch
+    at once on the consumer's stream sees the host's bytes, for many small batches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    rs = np.random.RandomState(4)
+    host = [{"image": rs.randint(0, 256, (64, 32, 32, 3)).astype(np.uint8),
+             "label": np.full(64, i, np.int32)} for i in range(200)]
+    sums = []
+    for batch in prefetch_to_device(iter(host), "cuda", size=4):
+        assert batch["image"].is_cuda and batch["image"].dtype == torch.uint8
+        sums.append((batch["image"].int().sum(), batch["label"][0]))
+    assert len(sums) == len(host)
+    for (total, label), h in zip(sums, host):
+        assert int(total) == int(h["image"].astype(np.int64).sum())
+        assert int(label) == int(h["label"][0])
+
+
+def test_prefetch_to_device_stops_its_thread_when_abandoned():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import threading
+
+    host = ({"x": np.full((8,), i, np.float32)} for i in range(1000))
+    it = prefetch_to_device(host, "cuda", size=2)
+    assert float(next(it)["x"][0]) == 0.0
+    it.close()
+    assert not any(t.name == "prefetch_to_device" and t.is_alive()
+                   for t in threading.enumerate())
