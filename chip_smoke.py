@@ -27,7 +27,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      read just after; then a --resume of 10 more steps;
   7. train images/s at batch 128 (median of 3 timings of 20 steps) and one step
      under torch.profiler (full table in chiprun_out/chip_smoke/train_profile.txt);
-  8. a JSON line of the kernels, the card's line, and the last line
+  8. the VQ codebook search (kernel #6) against its plain version at the VQ
+     models' shapes (N = 1,024, 4,096, 16,384 and an odd 1,000; K = 512, D = 64) and
+     on duplicated codebooks: every chosen code's distance within 1e-5 (1 + |d_min|)
+     of the true minimum, indices equal on 99.9% of rows, first indices on ties, bit
+     identical repeats; times of the kernel, the plain version and cuBLAS addmm +
+     argmin, beside the bound;
+  9. card against CPU, f32, batch 4, full width: a VQ-VAE step's loss, metrics and
+     gradients with the plain codebook and with the EMA codebook (and its buffers
+     after the step), and a VQGAN step after disc_start (every metric);
+ 10. VQ training path: the train entry point on configs/vae/vqvae_cifar10.json
+     (bs256) then a --resume, the EMA codebook (the same widths, use_ema, vq_loss 10)
+     and configs/vae/vqgan.json with disc_start inside the run, each with kernel #6's
+     launches counted from 0 and held to the count worked out from the steps and the
+     validation batches; then generate decodes random codes (no search);
+ 11. VQ-VAE train images/s at bs256, f32 (median of 3 timings of 20 steps), and five
+     steps under torch.profiler (full table in chiprun_out/chip_smoke/vq_profile.txt);
+ 12. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -47,10 +63,13 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "diffusion" / "ddim_cifar10.json"
 OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 TRAIN_RUN = "chip_smoke_train"  # experiments/DDPM/<this>: the train entry point's run
+VQVAE_CONFIG = ROOT / "configs" / "vae" / "vqvae_cifar10.json"
+VQGAN_CONFIG = ROOT / "configs" / "vae" / "vqgan.json"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time for a kernel's work.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 CUDA cores
+PEAK_TF32_FLOPS = 494.7e12  # TF32 tensor cores: the bound a TF32 VQ search would have
 
 # Tolerances of a kernel against its plain version, on max |k - p| / (1 + |p|):
 # f32 differs by the order of f32 sums; bf16 by rounding points (the kernel keeps
@@ -70,6 +89,21 @@ TRAIN_BATCH = 128
 TRAIN_STEPS = 120  # past step 100, where the EMA's hard copy ends: one decay at 110
 RESUME_STEPS = 10
 
+# The VQ search: a chosen code's squared distance within VQ_TIE_TOL * (1 + |d_min|) of the
+# row's true minimum (f64), and the kernel's indices equal to the plain version's on at
+# least VQ_AGREE of the rows: the two sum the f32 dot in other orders, so near-tied codes
+# can flip.
+VQ_TIE_TOL = 1e-5
+VQ_AGREE = 0.999
+VQ_SHAPES = [(1024, 512, 64), (4096, 512, 64), (16384, 512, 64), (1000, 512, 64)]
+VQ_MAIN = (4096, 512, 64)  # vqvae_cifar10 at bs256: 256 images x 4 x 4 latents
+VQ_TOL = 1e-3  # f32 VQ steps, card against CPU, as GRAD_TOL
+VQ_STEPS = 48  # four epochs of the synthetic CIFAR-10 at bs256
+VQ_RESUME_STEPS = 12
+# disc_start close to the end: the hinge loss saturates at 0 once the discriminator
+# separates real from fake (20 of its steps did), so the last logged step keeps it > 0.
+VQGAN_STEPS, VQGAN_DISC_START = 40, 36
+
 # (n, c) of the UNet's six linear-attention calls per evaluation (dim 64, 32 px).
 LA_SHAPES = [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256), (1024, 64)]
 MAIN_BATCH = 64
@@ -81,8 +115,9 @@ PROFILE_GROUPS = {
     "linear attention backward (csrc/linear_attention_bwd.cu)": (
         "stats_kernel", "token_a_kernel", "context_grad_kernel", "token_b_kernel",
         "atb_partial_kernel", "reduce_rows_kernel"),
+    "VQ nearest codes (csrc/vq.cu)": ("vq_nearest_kernel",),
     "optimizer and EMA (foreach)": ("multi_tensor_apply",),
-    "convolution (cuDNN)": ("fprop", "convolve", "cudnn", "nhwcAddPadding"),
+    "convolution (cuDNN)": ("fprop", "convolve", "cudnn", "nhwcAddPadding", "wgrad"),
     "matmul (cuBLAS)": ("gemm", "nvjet", "splitKreduce"),
     "elementwise and other": (),
 }
@@ -102,12 +137,16 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn`` by CUDA events. The timed calls queue behind a
+    50 ms spin kernel, so that the host's cost of launching them (tens of µs a call
+    through Python) is not timed where a kernel is shorter than that."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # cycles: ~50 ms at the H100's 1.98 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -549,6 +588,383 @@ def train_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict
     return {"images_per_s": ips, "ms_per_step": 1e3 * wall / steps, **summary}
 
 
+def vq_distances(torch, flat, codebook, idx):
+    """Each row's squared distance (f64) to its chosen code, and to its nearest one."""
+    dist = torch.cdist(flat.double(), codebook.double()) ** 2
+    return dist.gather(1, idx.long()[:, None])[:, 0], dist.min(dim=1).values
+
+
+def vq_bound_ms(n, k, d):
+    """(bytes ms, f32 operations ms, TF32 operations ms) of one search: flat, codebook
+    and the indices read or written once; 2 n k d flops."""
+    nbytes = 4 * (n * d + k * d + n)
+    flops = 2 * n * k * d
+    return (1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS["float32"],
+            1e3 * flops / PEAK_TF32_FLOPS)
+
+
+def check_vq(torch, vq) -> dict:
+    """Kernel #6 against its plain version at the VQ models' shapes, on duplicated
+    codebooks, and repeated; times by CUDA events."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    main, shapes = {}, []
+    for n, k, d in VQ_SHAPES:
+        flat = torch.randn(n, d, device="cuda", generator=gen)
+        codebook = torch.randn(k, d, device="cuda", generator=gen)
+        out = vq.nearest_codes_cuda(flat, codebook)
+        again = vq.nearest_codes_cuda(flat, codebook)
+        ref = vq.nearest_codes_plain(flat, codebook)
+        torch.cuda.synchronize()
+        chosen, d_min = vq_distances(torch, flat, codebook, out)
+        ref_chosen, _ = vq_distances(torch, flat, codebook, ref)
+        excess = ((chosen - d_min) / (1.0 + d_min.abs())).max().item()
+        agree = (out == ref).float().mean().item()
+        abs_err = (chosen - ref_chosen).abs().max().item()
+        same = torch.equal(out, again)
+        ok = excess <= VQ_TIE_TOL and agree >= VQ_AGREE and same
+        print(f"  nearest_codes N={n} K={k} D={d}: worst (d_chosen - d_min) / (1 + |d_min|) "
+              f"{excess:.2e} (tol {VQ_TIE_TOL:.0e}), indices equal to plain on "
+              f"{100 * agree:.3f}% of rows, max |d_kernel - d_plain| {abs_err:.3e}, "
+              f"bit-identical repeat={same} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the VQ kernel disagrees with its plain version at N={n} K={k} D={d}")
+        cb_sq = (codebook * codebook).sum(1)
+        ms = time_ms(lambda: vq.nearest_codes_cuda(flat, codebook))
+        plain_ms = time_ms(lambda: vq.nearest_codes_plain(flat, codebook))
+        library_ms = time_ms(
+            lambda: torch.addmm(cb_sq, flat, codebook.T, alpha=-2.0).argmin(1))
+        bytes_ms, ops_ms, tf32_ms = vq_bound_ms(n, k, d)
+        shape = {"n": n, "k": k, "d": d, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+                 "bytes_ms": bytes_ms, "ops_ms": ops_ms, "tf32_ops_ms": tf32_ms,
+                 "max_abs_err": abs_err}
+        shapes.append(shape)
+        print(f"  time N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, addmm + argmin "
+              f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+              f"{bytes_ms:.4f}, f32 operations {ops_ms:.4f}; TF32 tensor-core operations "
+              f"{tf32_ms:.4f})", flush=True)
+        if (n, k, d) == VQ_MAIN:
+            main = shape
+    flat = torch.randn(4096, 64, device="cuda", generator=gen)
+    base = torch.randn(256, 64, device="cuda", generator=gen)
+    for what, codebook, first in (
+            ("[E; E]", torch.cat([base, base]), lambda i: i < 256),
+            ("E repeated row by row", base.repeat_interleave(2, dim=0), lambda i: i % 2 == 0)):
+        out = vq.nearest_codes_cuda(flat, codebook)
+        plain = vq.nearest_codes_plain(flat, codebook)
+        ok = bool(first(out).all()) and bool(first(plain).all())
+        print(f"  duplicated codebook {what}: first index on every row: kernel "
+              f"{bool(first(out).all())}, plain {bool(first(plain).all())} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the VQ search did not return the first index on a duplicated codebook")
+    return {**main, "bound_by": "bytes" if main["bytes_ms"] > main["ops_ms"] else "operations",
+            "shapes": shapes}
+
+
+def rel_err(out, ref) -> float:
+    """max |k - p| / max(max |p|, 1e-30), on the CPU."""
+    out, ref = out.detach().float().cpu(), ref.detach().float().cpu()
+    return ((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+class ReluMasks:
+    """Stands in for F.relu and F.leaky_relu: records each call's mask (input > 0) on
+    the card's pass and applies the same masks, in the same order, on the CPU's pass,
+    counting the inputs that lie on the other side of 0 there. An input within f32
+    noise of 0 (the decoder's activations are ~1e-3 at random init) can switch between
+    the devices and move that element's gradient by its full size (ReLU) or 4/5 of it
+    (LeakyReLU(0.2)); with the card's masks the CPU computes the same piecewise-linear
+    function, and the two differ only by the order of f32 sums."""
+
+    def __init__(self, torch):
+        self.F = torch.nn.functional
+        self.relu, self.leaky_relu = self.F.relu, self.F.leaky_relu
+        self.masks, self.replay, self.flips, self.inputs = [], None, 0, 0
+
+    def _mask(self, x):
+        if self.replay is None:
+            self.masks.append((x > 0).cpu())
+            return None
+        mask = self.masks[next(self.replay)].to(x.device)
+        self.flips += int(((x > 0) != mask).sum())
+        self.inputs += mask.numel()
+        return mask
+
+    def _relu(self, x, inplace=False):
+        mask = self._mask(x)
+        return self.relu(x) if mask is None else x * mask.to(x.dtype)
+
+    def _leaky_relu(self, x, negative_slope=0.01, inplace=False):
+        mask = self._mask(x)
+        if mask is None:
+            return self.leaky_relu(x, negative_slope)
+        return x * (mask.to(x.dtype) * (1.0 - negative_slope) + negative_slope)
+
+    def __enter__(self):
+        self.F.relu, self.F.leaky_relu = self._relu, self._leaky_relu
+        return self
+
+    def __exit__(self, *exc):
+        self.F.relu, self.F.leaky_relu = self.relu, self.leaky_relu
+        if self.replay is None:
+            self.replay = iter(range(len(self.masks)))
+
+
+def check_vq_models(torch) -> None:
+    """One f32 step at full width and batch 4, card against CPU, from the same weights
+    (seed 0), batch and flips: the VQ-VAE's loss, metrics and gradients (plain and EMA
+    codebook, and the EMA buffers after the step; the CPU takes the card's ReLU masks,
+    see ReluMasks), and a VQGAN step after disc_start (every metric)."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    rs = np.random.RandomState(7)
+    batch = {"image": rs.randint(0, 256, (4, 32, 32, 3)).astype(np.uint8)}
+    flip = torch.tensor([True, False, False, True])
+    vae_args = load_config(VQVAE_CONFIG)["model"]["args"]
+    for use_ema in (False, True):
+        results, relu = [], ReluMasks(torch)
+        for dev in ("cuda", "cpu"):
+            model = load_model({"name": "VQVAE", "args": {**vae_args, "use_ema": use_ema}},
+                               device=dev)
+            names, params = zip(*[(n, p) for n, p in model.net.named_parameters()
+                                  if p.requires_grad])
+            with relu:
+                loss, metrics = model._loss(model._x01(batch, None, True, flip), True)
+                grads = torch.autograd.grad(loss, params)
+            results.append(({k: v.detach() for k, v in metrics.items()}, grads,
+                            list(model.net.buffers())))
+        (m, g, b), (ref_m, ref_g, ref_b) = results
+        errs = {k: rel_err(m[k], ref_m[k]) for k in ref_m}
+        worst_g, worst_name = max((rel_err(x, y), n) for x, y, n in zip(g, ref_g, names))
+        worst_b = max([rel_err(x, y) for x, y in zip(b, ref_b)], default=0.0)
+        ok = (all(np.isfinite(float(v)) for v in m.values()) and max(errs.values()) <= VQ_TOL
+              and worst_g <= VQ_TOL and worst_b <= VQ_TOL)
+        print(f"  VQ-VAE step f32 bs4 full width, use_ema={use_ema}, card vs CPU: "
+              + ", ".join(f"{k} {float(m[k]):.6f} (rel {e:.2e})" for k, e in errs.items())
+              + f"; worst gradient max|k - p| / max|p| {worst_g:.2e} ({worst_name}) over "
+              f"{len(g)} tensors, with the card's ReLU masks ({relu.flips} of {relu.inputs} "
+              f"ReLU inputs on the other side of 0 on the CPU); buffers after the step "
+              f"{worst_b:.2e} over {len(b)}; tol {VQ_TOL:.0e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"VQ-VAE step (use_ema={use_ema}): card and CPU disagree")
+
+    gan_args = {**load_config(VQGAN_CONFIG)["model"]["args"], "disc_start": 0}
+    results, relu = [], ReluMasks(torch)
+    for dev in ("cuda", "cpu"):
+        with relu:
+            results.append(load_model({"name": "VQGAN", "args": gan_args},
+                                      device=dev).train_step(batch, flip=flip))
+    out, ref = results
+    errs = {k: rel_err(out[k], ref[k]) for k in ref}
+    ok = all(np.isfinite(float(v)) for v in out.values()) and max(errs.values()) <= VQ_TOL
+    print("  VQGAN step f32 bs4 full width after disc_start, card vs CPU: " + ", ".join(
+        f"{k} {float(out[k]):.6g} (rel {e:.2e})" for k, e in errs.items())
+        + f", with the card's (leaky) ReLU masks ({relu.flips} of {relu.inputs} inputs on "
+        f"the other side of 0 on the CPU); tol {VQ_TOL:.0e} {'ok' if ok else 'FAIL'}",
+        flush=True)
+    if not ok:
+        fail("VQGAN step: card and CPU disagree")
+
+
+def vq_train_run(torch, vq, train, config: Path, name: str, steps: int, extra: list,
+                 per_step: int, val_batches: int, card: str, resume_from: int = 0):
+    """One run of the train entry point; kernel #6's launches counted from 0 and held to
+    per_step x new steps + one per validation batch."""
+    argv = ["--config_path", str(config), "--device", "cuda", "--experiment_name", name,
+            "--check_val_every_n_epoch", "1000", "--sample_every_n_steps", "0",
+            "--max_steps", str(steps)] + extra
+    torch.cuda.synchronize()
+    vq.nearest_codes.launches = 0
+    t0 = time.perf_counter()
+    model = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vq.nearest_codes.launches
+    new_steps = steps - resume_from
+    want = per_step * new_steps + val_batches
+    print(f"  {name}{' (resume)' if resume_from else ''}: {new_steps} steps to step "
+          f"{model.step} in {wall:.1f} s (model build, data, validation, the grid and "
+          f"checkpoints included) on {card}")
+    print(f"  {name}: nearest_codes launches {launches} (expected {per_step} x {new_steps} "
+          f"steps + {val_batches} validation batches = {want})", flush=True)
+    if launches != want:
+        fail(f"the {name} run launched the VQ kernel {launches} times, not {want}")
+    if model.step != steps:
+        fail(f"the {name} run ended at step {model.step}, not {steps}")
+    return model, launches
+
+
+def check_vq_run_dir(run_dir: Path, last_step: int, runs: int,
+                     falls: str = "train_loss") -> list:
+    """The run's metrics, grids, codebook tables and checkpoints, and that the metric
+    ``falls`` fell; returns its train records."""
+    import math
+
+    records = read_metrics(run_dir)
+    train_records = [r for r in records if "train_loss" in r]
+    if not all(math.isfinite(r["train_loss"]) for r in train_records):
+        fail(f"{run_dir.name}: a train loss is not finite")
+    if train_records[-1]["step"] != last_step:
+        fail(f"{run_dir.name}: the last logged step is {train_records[-1]['step']}")
+    losses = [r[falls] for r in train_records]
+    if not losses[-1] < losses[0]:
+        fail(f"{run_dir.name}: {falls} did not fall: {losses[0]} -> {losses[-1]}")
+    val = [r for r in records if "val_loss" in r]
+    pngs = sorted((run_dir / "samples").glob("random_generation_*.png"))
+    tables = sorted(run_dir.glob("codebook_*.json"))
+    if len(val) != runs or len(pngs) != runs or len(tables) != runs:
+        fail(f"{run_dir.name}: expected {runs} validations, grids and codebook tables; got "
+             f"{len(val)}, {len(pngs)}, {len(tables)}")
+    for which in ("last", "best"):
+        if not (run_dir / "checkpoints" / f"checkpoint_meta_{which}.json").exists():
+            fail(f"{run_dir.name}: no {which} checkpoint meta")
+    print(f"  {run_dir.name}: {falls} by logged step " + ", ".join(
+        f"{r['step']}: {r[falls]:.4f}" for r in train_records)
+        + f"; val {[round(v['val_loss'], 4) for v in val]}; images/s logged at the last "
+        f"step {train_records[-1]['images_per_sec']:.1f}", flush=True)
+    return train_records
+
+
+def vq_main_path(torch, vq, card: str) -> dict:
+    """The VQ training path through the train entry point, then generate."""
+    from lightning_generative_models_tpu_torch import generate, train
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    vae = load_config(VQVAE_CONFIG)
+    ema = json.loads(json.dumps(vae))
+    ema["model"]["args"]["use_ema"] = True  # vqvae_ema.json's widths and settings at 32 px
+    ema["model"]["args"]["loss_weights"]["vq_loss"] = 10
+    ema_config = OUT_DIR / "vqvae_ema_cifar10.json"
+    ema_config.write_text(json.dumps(ema, indent=2))
+    gan = load_config(VQGAN_CONFIG)
+    gan["model"]["args"]["disc_start"] = VQGAN_DISC_START
+    gan_config = OUT_DIR / f"vqgan_disc_start_{VQGAN_DISC_START}.json"
+    gan_config.write_text(json.dumps(gan, indent=2))
+
+    def val_batches(config):
+        return len(list(DataModule(**config["dataset"]).val_batches()))
+
+    for name, dirname in (("chip_smoke_vqvae", "VQVAE"), ("chip_smoke_vqvae_ema", "VQVAE"),
+                          ("chip_smoke_vqgan", "VQGAN")):
+        shutil.rmtree(EXPERIMENT_DIR / dirname / name, ignore_errors=True)
+    counts = {}
+    vae_val = val_batches(vae)
+    _, counts["vqvae"] = vq_train_run(torch, vq, train, VQVAE_CONFIG, "chip_smoke_vqvae",
+                                      VQ_STEPS, [], 1, vae_val, card)
+    _, counts["vqvae_resume"] = vq_train_run(
+        torch, vq, train, VQVAE_CONFIG, "chip_smoke_vqvae", VQ_STEPS + VQ_RESUME_STEPS,
+        ["--resume"], 1, vae_val, card, resume_from=VQ_STEPS)
+    check_vq_run_dir(EXPERIMENT_DIR / "VQVAE" / "chip_smoke_vqvae",
+                     VQ_STEPS + VQ_RESUME_STEPS - 1, 2)
+
+    model, counts["vqvae_ema"] = vq_train_run(torch, vq, train, ema_config,
+                                              "chip_smoke_vqvae_ema", VQ_STEPS, [], 1,
+                                              val_batches(ema), card)
+    check_vq_run_dir(EXPERIMENT_DIR / "VQVAE" / "chip_smoke_vqvae_ema", VQ_STEPS - 1, 1)
+    start = load_model(ema["model"], device="cuda")
+    start.init_params(torch.Generator().manual_seed(10))  # the train CLI's default seed
+    moved = (model.vq.embedding - start.vq.embedding).abs().max().item()
+    used = int((model.vq.ema_cluster_size > 1e-3).sum())
+    print(f"  EMA codebook: max |moved| {moved:.4e} after {VQ_STEPS} steps; {used} of "
+          f"{model.num_embeddings} codes with a cluster size above 1e-3", flush=True)
+    if not moved > 0:
+        fail("the EMA codebook did not move")
+
+    model, counts["vqgan"] = vq_train_run(torch, vq, train, gan_config, "chip_smoke_vqgan",
+                                          VQGAN_STEPS, [], 1, val_batches(gan), card)
+    # After disc_start the total adds the adversarial term, which need not fall while
+    # the discriminator learns: the reconstruction is what must.
+    records = check_vq_run_dir(EXPERIMENT_DIR / "VQGAN" / "chip_smoke_vqgan",
+                               VQGAN_STEPS - 1, 1, falls="train_recon_loss")
+    d_losses = {r["step"]: r["train_d_loss"] for r in records}
+    print(f"  VQGAN by logged step: d_loss {d_losses} (disc_start {VQGAN_DISC_START}); "
+          f"train_loss {[round(r['train_loss'], 4) for r in records]}; g_adv_loss "
+          f"{[round(r['train_g_adv_loss'], 4) for r in records]}; adaptive weight "
+          f"{[round(r['train_adaptive_weight'], 6) for r in records]}", flush=True)
+    if d_losses[0] != 0.0 or not d_losses[VQGAN_STEPS - 1] > 0.0:
+        fail("VQGAN: d_loss is not 0 before disc_start and non-zero after it")
+
+    vq.nearest_codes.launches = 0
+    out = OUT_DIR / "vqvae"
+    images = generate.main(["--config_path", str(VQVAE_CONFIG), "--num_samples", "64",
+                            "--device", "cuda", "--seed", "0", "--out", str(out)])
+    torch.cuda.synchronize()
+    print(f"  generate {VQVAE_CONFIG.name}: {images.shape} decoded from random codes, "
+          f"nearest_codes launches {vq.nearest_codes.launches} (expected 0)", flush=True)
+    if vq.nearest_codes.launches or not (out / "grid.png").exists():
+        fail("generate on the VQ-VAE searched codes or wrote no grid")
+    if images.shape != (64, 32, 32, 3) or not (images.min() >= 0.0 and images.max() <= 1.0):
+        fail(f"VQ-VAE samples have shape {images.shape} or leave [0, 1]")
+    return counts
+
+
+def vq_train_breakdown(torch, vq, card: str, steps: int = 20, repeats: int = 3) -> dict:
+    """VQ-VAE train images/s at bs256, f32 (TF32 off), with the model built and warmed
+    up, median of ``repeats`` timings of ``steps`` steps; then five steps under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    config = load_config(VQVAE_CONFIG)
+    batch_size = config["dataset"]["batch_size"]
+    model = load_model(config["model"], device="cuda")
+    it = DataModule(**config["dataset"]).train_batches(0)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()} for _ in range(4)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run(n):
+        for i in range(n):
+            model.train_step(batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+
+    run(5)  # warm-up: cuDNN plans, the allocator
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run(steps)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    ips = steps * batch_size / wall
+    print(f"  VQ-VAE train bs{batch_size} f32 (TF32 off): {1e3 * wall / steps:.3f} ms per step, "
+          f"median of {[round(w, 4) for w in walls]} s per {steps} steps, {ips:.1f} images/s "
+          f"on {card}", flush=True)
+    profiled = 5
+    vq.nearest_codes.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(profiled)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    searches = vq.nearest_codes.launches
+    summary = profile_summary(torch, prof, wall_us, f"{profiled} VQ-VAE train steps bs{batch_size}",
+                              "vq_profile.txt", card)
+    vq_us = sum(e.self_device_time_total for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and "vq_nearest_kernel" in e.key)
+    out = {"images_per_s": ips, "ms_per_step": 1e3 * wall / steps,
+           "vq_launches_per_step": searches / profiled}
+    if summary:
+        out.update({"launches_per_step": summary["launches"] / profiled,
+                    "busy_share": summary["busy_us"] / summary["wall_us"],
+                    "vq_share_of_device_time": vq_us / summary["busy_us"]})
+        print(f"  per step: {out['launches_per_step']:.0f} kernel launches, "
+              f"{out['vq_launches_per_step']:.0f} of kernel #6; kernel #6 "
+              f"{vq_us / profiled:.1f} us = {100 * out['vq_share_of_device_time']:.2f}% of "
+              f"device time", flush=True)
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -566,10 +982,12 @@ def main() -> None:
     from lightning_generative_models_tpu_torch import generate
     from lightning_generative_models_tpu_torch.ops import cuda_build
     from lightning_generative_models_tpu_torch.ops import linear_attention as la
+    from lightning_generative_models_tpu_torch.ops import vq
 
+    started = time.perf_counter()
     print("[1] build", flush=True)
     t0 = time.perf_counter()
-    logs = cuda_build.build(["linear_attention", "linear_attention_bwd"], verbose=True)
+    logs = cuda_build.build(["linear_attention", "linear_attention_bwd", "vq"], verbose=True)
     print(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -621,6 +1039,23 @@ def main() -> None:
 
     print("[7] train throughput and where the time goes", flush=True)
     train_stats = train_breakdown(torch, card)
+    print(f"  phases 1-7 took {time.perf_counter() - started:.1f} s", flush=True)
+
+    print("[8] VQ codebook search (kernel #6) against its plain version", flush=True)
+    with torch.inference_mode():
+        vq_stats = check_vq(torch, vq)
+
+    print("[9] VQ models, card against CPU", flush=True)
+    check_vq_models(torch)
+
+    print(f"[10] VQ training path: {VQVAE_CONFIG.name} {VQ_STEPS} steps + resume, the EMA "
+          f"codebook, {VQGAN_CONFIG.name} with disc_start {VQGAN_DISC_START}; generate",
+          flush=True)
+    vq_counts = vq_main_path(torch, vq, card)
+
+    print("[11] VQ-VAE train throughput and where the time goes", flush=True)
+    vq_train_stats = vq_train_breakdown(torch, vq, card)
+    print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
 
     kernels = [{
         "name": "linear_attention",
@@ -660,8 +1095,27 @@ def main() -> None:
         "ms_is": "the six calls of one train step at batch 128, bf16",
         "worst_rel_err": bwd_stats["worst_rel_err"],
         "shapes": bwd_stats["shapes"],
+    }, {
+        "name": "vq_nearest",
+        "route": "cuda",
+        "source": "lightning_generative_models_tpu_torch/csrc/vq.cu",
+        "replaces": "lightning_generative_models_tpu/ops/vq.py:23",
+        "launches": vq_counts["vqvae"],
+        "launches_by_path": {**vq_counts, "generate": 0},
+        "max_abs_err": vq_stats["max_abs_err"],
+        "ms": vq_stats["ms"],
+        "plain_ms": vq_stats["plain_ms"],
+        "bound_ms": vq_stats["bound_ms"],
+        "bound_by": vq_stats["bound_by"],
+        "library_ms": vq_stats["library_ms"],
+        "status": "ok",
+        "ms_is": "one search at N=4096, K=512, D=64, f32 (vqvae_cifar10 at bs256)",
+        "max_abs_err_is": "max over rows of |d(z, kernel's code) - d(z, plain's code)|",
+        "library_is": "torch.addmm(|e|^2, z, e^T, alpha=-2).argmin(1)",
+        "tf32_bound_ms": vq_stats["tf32_ops_ms"],
+        "shapes": vq_stats["shapes"],
     }]
-    print(json.dumps({"train": train_stats}))
+    print(json.dumps({"train": train_stats, "vq_train": vq_train_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 Counterpart of ``lightning_generative_models_tpu/experiment/logger.py``: the same
 ``metrics.jsonl`` records (``step``, ``time`` since the logger started, then the
-metrics) and ``samples/<name>_<step>.png`` grids. The JAX package writes PNGs through
+metrics), ``samples/<name>_<step>.png`` grids and ``<name>_<step>.json`` tables. The JAX package writes PNGs through
 PIL and falls back to ``.npy`` without it; ``_write_png`` here writes the PNG with the
 standard library alone, so the file is a PNG everywhere.
 """
@@ -73,6 +73,17 @@ class ExperimentLogger:
             import wandb  # noqa: PLC0415
 
             self._wandb.log({name: wandb.Image(np.asarray(image))}, step=step)
+
+    def log_table(self, name: str, columns: list, rows: list, step: int) -> None:
+        """Save a table as ``<name>_<step>.json`` ({"columns", "rows"}), as the JAX
+        logger does (the codebook table of the VQ models)."""
+        path = self.experiment_dir / f"{name}_{step:08d}.json"
+        with open(path, "w") as f:
+            json.dump({"columns": columns, "rows": rows}, f, default=str)
+        if self._wandb is not None:
+            import wandb  # noqa: PLC0415
+
+            self._wandb.log({name: wandb.Table(columns=columns, data=rows)}, step=step)
 
     def finish(self) -> None:
         self._metrics_file.close()

@@ -1,11 +1,14 @@
 """Sampling CLI of the port: generate a grid of images from a config.
 
-Counterpart of the repo's ``generate.py``. Samples N images with the EMA weights and
-writes a grid PNG. The weights come from ``--weights`` (an ``.npz`` of the flax
-parameter tree, keys "/"-joined, as ``weights.load_flax_params`` reads it) or, without
-it, are drawn from ``--seed``. A JAX run's orbax checkpoint reaches the port as an
-``.npz`` written where JAX runs (README, "Continuing a JAX run in the port"; for
-``--weights``, flatten ``state.ema_params`` alone).
+Counterpart of the repo's ``generate.py``. Samples N images with the model's
+``sample`` (a DDPM's EMA weights; a VQ model decodes random codes) and writes a grid
+PNG. The weights come from ``--weights``, an ``.npz`` with "/"-joined keys read by the
+model's ``load_flax_weights`` (a DDPM: the flax tree of ``state.ema_params`` alone; a
+VQ-VAE or VQGAN: the whole flattened ``TrainState``), or, without it, are drawn from
+``--seed``. A JAX run's orbax checkpoint reaches the port as an ``.npz`` written where
+JAX runs (README, "Continuing a JAX run in the port"). ``--sampler``,
+``--sampling_steps`` and ``--label`` are refused for models whose sampling does not
+take them, as the JAX ``generate.py`` refuses them.
 
     python -m lightning_generative_models_tpu_torch.generate \
         --config_path configs/diffusion/ddim_cifar10.json --num_samples 64 [--device cuda]
@@ -14,6 +17,7 @@ it, are drawn from ``--seed``. A JAX run's orbax checkpoint reaches the port as 
 from __future__ import annotations
 
 import argparse
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +29,6 @@ from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.registry import load_model
 from lightning_generative_models_tpu_torch.utils.grid import make_grid
 from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
-from lightning_generative_models_tpu_torch.weights import load_flax_params
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -36,7 +39,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--out", type=str, default=None,
                         help="output directory (default: experiments/<MODEL>/generated_torch)")
     parser.add_argument("--weights", type=str, default=None,
-                        help=".npz of the flax parameter tree (default: weights from --seed)")
+                        help=".npz read by the model's load_flax_weights (default: "
+                        "weights from --seed)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--label", type=int, default=None,
                         help="class label for a conditional DDPM")
@@ -67,21 +71,29 @@ def main(argv=None) -> np.ndarray:
     device = resolve_device(args.device)
     config = load_config(args.config_path)
     model = load_model(config["model"], device=device)
+    name = type(model).__name__
+    if (args.sampler != "auto" or args.sampling_steps) and \
+            "method" not in inspect.signature(model.sample).parameters:
+        raise SystemExit(f"{name} does not support --sampler/--sampling_steps "
+                         "(diffusion models only)")
+    if args.label is not None and not hasattr(model, "sample_classes"):
+        raise SystemExit(f"{name} does not support --label (conditional models only)")
     if args.weights:
-        load_flax_params(model.unet, args.weights)
-        model.copy_params_to_ema()
+        model.load_flax_weights(args.weights)
     else:
         model.init_params(torch.Generator().manual_seed(args.seed))
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    method = None if args.sampler == "auto" else args.sampler
-    steps = args.sampling_steps or None
+    kwargs = {}
+    if args.sampler != "auto" or args.sampling_steps:
+        kwargs = {"method": None if args.sampler == "auto" else args.sampler,
+                  "steps": args.sampling_steps or None}
     if args.label is not None:
         labels = torch.full((args.num_samples,), args.label, dtype=torch.long)
         images = model.sample_classes(generator, labels, guidance_scale=args.guidance_scale,
-                                      method=method, steps=steps)
+                                      **kwargs)
     else:
-        images = model.sample(generator, args.num_samples, method=method, steps=steps)
+        images = model.sample(generator, args.num_samples, **kwargs)
     images = images.float().cpu().numpy()
 
     out_dir = (Path(args.out) if args.out

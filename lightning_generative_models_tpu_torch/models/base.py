@@ -11,7 +11,10 @@ its modules, optimizer and step counter and updates them in place:
   the step counter;
 - ``train_step(batch, generator)`` = ``apply_grad_step(*grad_step(batch, generator))``;
 - ``eval_step(batch, generator)`` -> ``metrics``;
-- ``sample(generator, n)`` -> images in [0, 1].
+- ``sample(generator, n)`` -> images in [0, 1];
+- ``param_counts()`` -> ``{module name: parameter count}``, logged by the trainer;
+- ``flax_layout()``: where a JAX ``TrainState`` goes (``weights.load_flax_train_state``);
+  ``load_flax_weights(tree)``: the weights that ``generate --weights`` reads.
 """
 
 from __future__ import annotations
@@ -58,6 +61,29 @@ class GenerativeModel:
 
     def sample(self, generator: torch.Generator, num_samples: int) -> torch.Tensor:
         raise NotImplementedError
+
+    def param_counts(self) -> Dict[str, int]:
+        raise NotImplementedError
+
+    def flax_layout(self) -> dict:
+        raise NotImplementedError
+
+    def load_flax_weights(self, tree) -> None:
+        raise NotImplementedError
+
+    @staticmethod
+    def to_model_space(x01: torch.Tensor) -> torch.Tensor:
+        """[0, 1] -> [-1, 1] (tanh output space)."""
+        return x01 * 2.0 - 1.0
+
+    @staticmethod
+    def to_image_space(xm11: torch.Tensor) -> torch.Tensor:
+        """[-1, 1] -> [0, 1], clipped."""
+        return torch.clamp(xm11 * 0.5 + 0.5, 0.0, 1.0)
+
+    @staticmethod
+    def prefix_metrics(metrics: Metrics, mode: str) -> Metrics:
+        return {f"{mode}_{k}": v for k, v in metrics.items()}
 
     def validation_grids(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """Named sample grids logged at every validation: {name: images in [0, 1]}."""

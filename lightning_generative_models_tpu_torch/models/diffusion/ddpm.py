@@ -26,7 +26,8 @@ from lightning_generative_models_tpu_torch.models.diffusion.unet import UNet
 from lightning_generative_models_tpu_torch.models.modules.layers import init_params
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
-from lightning_generative_models_tpu_torch.train.state import ema_update, make_adam
+from lightning_generative_models_tpu_torch.train.state import count_params, ema_update, make_adam
+from lightning_generative_models_tpu_torch.weights import load_flax_params
 
 
 class DDPM(GenerativeModel):
@@ -285,6 +286,20 @@ class DDPM(GenerativeModel):
         return {"val_loss": loss}
 
     # -- checkpoint state ------------------------------------------------------------
+    def param_counts(self) -> Dict[str, int]:
+        return {"unet": count_params(self.unet), "ema_unet": count_params(self.ema_unet)}
+
+    def flax_layout(self) -> dict:
+        """Where a JAX ``TrainState`` goes (``weights.load_flax_train_state``)."""
+        return {"params": {"params/model": self.unet, "ema_params": self.ema_unet},
+                "adam": {"opt_state/model": (self.optimizer, {"": self.unet})}}
+
+    def load_flax_weights(self, tree) -> None:
+        """``generate --weights``: a flax parameter tree (``state.ema_params``) into the
+        UNet, copied to the EMA set."""
+        load_flax_params(self.unet, tree)
+        self.copy_params_to_ema()
+
     def state_dict(self) -> dict:
         return {
             "unet": self.unet.state_dict(),

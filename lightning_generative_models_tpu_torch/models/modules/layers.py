@@ -1,7 +1,8 @@
 """The flax.linen layers the JAX package builds on, as PyTorch modules on NHWC tensors.
 
-``Conv``, ``Dense``, ``GroupNorm`` and ``Embed`` follow flax's numerics (GroupNorm eps
-1e-6 with the E[x^2] - E[x]^2 variance, convs in the layer's dtype). Each declares
+``Conv``, ``ConvTranspose``, ``Dense``, ``GroupNorm`` and ``Embed`` follow flax's
+numerics (lax's "SAME" padding, GroupNorm eps 1e-6 with the E[x^2] - E[x]^2 variance,
+convs in the layer's dtype). Each declares
 ``FLAX_LEAVES``: how its parameters map to the flax leaves of the same layer, which
 ``weights.load_flax_params`` reads. Every module of the package also has
 ``reset_parameters(generator)``, so that ``init_params`` draws all weights from one
@@ -23,17 +24,28 @@ def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     t.data.copy_(torch.empty(t.shape).normal_(0.0, std, generator=generator))
 
 
+def same_padding(size: int, kernel: int, stride: int) -> tuple:
+    """lax's "SAME" padding (low, high) of one spatial axis: the output has
+    ceil(size / stride) positions; the odd pad, if any, goes at the high end."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with "SAME" padding and stride 1 on NHWC input. The kernel is
-    stored OIHW; input, kernel and bias are cast to ``dtype`` as flax's ``dtype=``."""
+    """flax ``nn.Conv`` with "SAME" padding on NHWC input, at any stride: lax pads
+    (low, high) per axis by ``same_padding``, asymmetric for an even kernel at stride 1
+    (4x4: (1, 2)). The kernel is stored OIHW; input, kernel and bias are cast to
+    ``dtype`` as flax's ``dtype=``."""
 
     FLAX_LEAVES = {"weight": ("kernel", "conv"), "bias": ("bias", None)}
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 dtype: torch.dtype = torch.float32, bias: bool = True):
+                 dtype: torch.dtype = torch.float32, bias: bool = True, stride: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.padding = kernel_size // 2
+        self.kernel_size = kernel_size
+        self.stride = stride
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
@@ -44,8 +56,64 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), self.weight.to(self.dtype),
-                     bias, padding=self.padding)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        ph = same_padding(x.shape[2], self.kernel_size, self.stride)
+        pw = same_padding(x.shape[3], self.kernel_size, self.stride)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            padding = (ph[0], pw[0])
+        else:
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+            padding = 0
+        y = F.conv2d(x, self.weight.to(self.dtype), bias, stride=self.stride,
+                     padding=padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` with "SAME" padding on NHWC input: lax's
+    ``conv_transpose`` with ``transpose_kernel=False``, a plain convolution of the
+    stride-dilated input with the unflipped HWIO kernel, padded (a, b) by lax's rule
+    (k = 4, s = 2: (2, 2); the output is s times the input). torch's
+    ``conv_transpose2d`` flips the kernel, so the weight is stored flipped, as
+    [in, out, kh, kw] with weight[i, o, a, b] = kernel[k-1-a, k-1-b, i, o]
+    (``weights.py``'s "conv_transpose" transform); its padding p stands for k - 1 - p
+    on each side of the dilated input, and an uneven (a, b) is cut from the full
+    output."""
+
+    FLAX_LEAVES = {"weight": ("kernel", "conv_transpose"), "bias": ("bias", None)}
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        k, s = kernel_size, stride
+        pad_len = k + s - 2
+        pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+        self.cut = (k - 1 - pad_a, k - 1 - (pad_len - pad_a))
+        if min(self.cut) < 0:
+            raise ValueError(f"ConvTranspose takes stride <= kernel_size; got {k}, {s}")
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in = self.weight.shape[0] * self.kernel_size**2
+        normal_(self.weight, fan_in**-0.5, generator)
+        if self.bias is not None:
+            self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cut_a, cut_b = self.cut
+        s = self.stride
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        w = self.weight.to(self.dtype)
+        if cut_a == cut_b:
+            y = F.conv_transpose2d(x, w, bias, stride=s, padding=cut_a)
+        else:
+            y = F.conv_transpose2d(x, w, bias, stride=s)
+            y = y[:, :, cut_a:y.shape[2] - cut_b, cut_a:y.shape[3] - cut_b]
         return y.permute(0, 2, 3, 1)
 
 
@@ -68,7 +136,8 @@ class Dense(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm(dtype=float32)`` over NHWC: statistics and output in f32."""
+    """flax ``nn.GroupNorm(dtype=float32)`` over NHWC: statistics and output in f32.
+    flax's ``group_size=1`` is ``num_groups=channels``: one group per channel."""
 
     FLAX_LEAVES = {"weight": ("scale", None), "bias": ("bias", None)}
 

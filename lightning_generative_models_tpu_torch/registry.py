@@ -24,6 +24,8 @@ _NAMES = (
 # name -> (module path, class name) for the names ported so far.
 _PORTED = {
     "DDPM": ("lightning_generative_models_tpu_torch.models.diffusion.ddpm", "DDPM"),
+    "VQVAE": ("lightning_generative_models_tpu_torch.models.vae.vqvae", "VQVAE"),
+    "VQGAN": ("lightning_generative_models_tpu_torch.models.vae.vqgan", "VQGAN"),
 }
 
 _LOWER = {k.lower(): k for k in _NAMES}

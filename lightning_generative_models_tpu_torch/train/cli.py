@@ -7,7 +7,7 @@ The flags keep ``train.py``'s names for what is ported, and add ``--device`` (cu
 default; cpu only when asked). What is not ported raises ``NotImplementedError``
 naming ROADMAP.md: ``--strategy`` fsdp/tp/pp (the port trains on one device),
 ``--unroll_steps`` above 1, ``--profile_steps``, ``--eval``, bf16 ``--mu_dtype`` /
-``--nu_dtype``, and models other than DDPM. Runs write to
+``--nu_dtype``, and the models that ``registry.py`` does not port yet. Runs write to
 ``experiments/<model name>/<experiment_name>/``: ``metrics.jsonl``,
 ``samples/*.png``, ``checkpoints/{last,best}`` and their meta files.
 """
@@ -15,6 +15,7 @@ naming ROADMAP.md: ``--strategy`` fsdp/tp/pp (the port trains on one device),
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import logging
 import os
@@ -27,7 +28,7 @@ from lightning_generative_models_tpu_torch.config import load_config
 from lightning_generative_models_tpu_torch.data.datamodule import DataModule
 from lightning_generative_models_tpu_torch.experiment.logger import ExperimentLogger
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
-from lightning_generative_models_tpu_torch.registry import load_model
+from lightning_generative_models_tpu_torch.registry import load_model, resolve_model_class
 from lightning_generative_models_tpu_torch.train.state import (
     set_default_mu_dtype,
     set_default_nu_dtype,
@@ -99,8 +100,7 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         refuse("--profile_steps")
     if args.eval_split:
         refuse("--eval")
-    if args.config["model"]["name"].lower() != "ddpm":
-        refuse(f"training model {args.config['model']['name']!r}")
+    resolve_model_class(args.config["model"]["name"])  # raises for what is not ported
     set_default_mu_dtype(None if args.mu_dtype == "float32" else args.mu_dtype)
     set_default_nu_dtype(None if args.nu_dtype == "float32" else args.nu_dtype)
 
@@ -120,7 +120,8 @@ def main(argv=None):
     with open(os.path.join(args.experiment_dir, Path(args.config_path).name), "w") as f:
         json.dump(args.config, f, indent=2)
 
-    if args.precision:
+    cls = resolve_model_class(args.config["model"]["name"])
+    if args.precision and "use_bf16" in inspect.signature(cls.__init__).parameters:
         wants_bf16 = args.precision.lower() in ("bf16", "bfloat16", "16")
         args.config["model"]["args"].setdefault("use_bf16", wants_bf16)
     model = load_model(args.config["model"], device=device)

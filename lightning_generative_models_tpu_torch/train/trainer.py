@@ -7,8 +7,8 @@ exactly), gradient accumulation by concatenated micro-batches or by summed
 micro-batch gradients (``auto`` picks as the JAX trainer does), the SIGTERM path that
 saves first and skips validation, the epoch-boundary ``last`` save, ``best`` by the
 model's monitored metric, ``resume`` and ``ckpt_path``, validation, the sample grid
-and (conditional models) the per-class grid from the EMA weights, and
-``images_per_sec`` in the logged metrics.
+(conditional models) the per-class grid from the EMA weights, the codebook table
+(VQ models), and ``images_per_sec`` in the logged metrics.
 
 Randomness: where the JAX trainer folds the step into its run key, each step here
 draws from a generator seeded by (seed, stream, step), so a resumed run draws what
@@ -32,7 +32,6 @@ from lightning_generative_models_tpu_torch.data.pipeline import prefetch_to_devi
 from lightning_generative_models_tpu_torch.experiment.logger import ExperimentLogger
 from lightning_generative_models_tpu_torch.models.base import GenerativeModel
 from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
-from lightning_generative_models_tpu_torch.train.state import count_params
 from lightning_generative_models_tpu_torch.utils.grid import make_grid
 from lightning_generative_models_tpu_torch.utils.seed import seed_everything
 
@@ -110,9 +109,8 @@ class Trainer:
         elif ckpt_path is not None:
             mgr = CheckpointManager(Path(ckpt_path).parent, monitor=self.model.monitor)
             self.global_step, start_epoch = mgr.restore(self.model, Path(ckpt_path).name)
-        logger.info("%s parameters: %s (EMA: %s)", type(self.model).__name__,
-                    f"{count_params(self.model.unet):,}",
-                    f"{count_params(self.model.ema_unet):,}")
+        logger.info("%s parameters: %s", type(self.model).__name__, ", ".join(
+            f"{name} {n:,}" for name, n in self.model.param_counts().items()))
 
         prev_handler = signal.getsignal(signal.SIGTERM)
         signal.signal(signal.SIGTERM, self._handle_sigterm)
@@ -263,7 +261,16 @@ class Trainer:
         for name, images in self.model.validation_grids(self._generator(_GRIDS)).items():
             grid = make_grid(images.float().cpu().numpy(), nrow=8)
             self.logger.log_image(name, grid, self.global_step)
+        self._log_tables()
         return means
+
+    def _log_tables(self) -> None:
+        """The codebook table of the VQ models, at every validation."""
+        if not hasattr(self.model, "codebook_table"):
+            return
+        codebook = self.model.codebook_table()
+        cols = [f"d{i}" for i in range(codebook.shape[1])]
+        self.logger.log_table("codebook", cols, codebook.tolist(), self.global_step)
 
     def _log_samples(self) -> None:
         images = self.model.sample(self._generator(_SAMPLE), self.num_sample_images)

@@ -6,12 +6,15 @@ arrays keyed by flax's module names (``Conv_0``, ``ResnetBlock_3/Block_1/GroupNo
 ``.npz`` whose keys are the "/"-joined paths. ``load_flax_train_state`` reads a whole
 ``TrainState`` the same way (``jax.device_get(state)``, or its flattening into an
 ``.npz``: dataclass fields and named-tuple fields by name, tuple items by index), so
-that the port can continue a JAX run: the raw and EMA weights, Adam's moments and
-step count, and the model's step. The port's modules carry the same names,
-so each parameter's flax path is its module path plus the leaf name that its layer
-declares in ``FLAX_LEAVES`` (conv kernels go from HWIO to OIHW, Dense kernels
-[in, out] to [out, in], GroupNorm ``scale`` to ``weight``). Any missing or left-over
-key, or a shape that does not fit, raises.
+that the port can continue a JAX run: the weights (raw and EMA), the variables of
+mutable collections (the EMA codebook's ``mutable/vq/codebook``, into buffers), Adam's
+moments and step count, and the model's step. Which subtree fills which module is the
+model's ``flax_layout()``. The port's modules carry the same names, so each
+parameter's (or buffer's) flax path is its module path plus the leaf name that its
+layer declares in ``FLAX_LEAVES`` (conv kernels go from HWIO to OIHW, transposed-conv
+kernels from HWIO to a spatially flipped [in, out, h, w], Dense kernels [in, out] to
+[out, in], GroupNorm ``scale`` to ``weight``). Any missing or left-over key, or a
+shape that does not fit, raises.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ Tree = Union[Mapping, str, Path]
 _TRANSFORMS = {
     None: lambda a: a,
     "conv": lambda a: a.transpose(3, 2, 0, 1),  # HWIO -> OIHW
+    # HWIO -> [in, out, kh, kw], flipped in both spatial axes (layers.ConvTranspose)
+    "conv_transpose": lambda a: np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1)),
     "dense": lambda a: a.T,                      # [in, out] -> [out, in]
 }
 
@@ -69,65 +74,98 @@ def read_tree(tree) -> Dict[str, np.ndarray]:
     return flatten_tree(tree)
 
 
-def flax_paths(module: nn.Module) -> Dict[str, tuple]:
-    """{flax path: (parameter, transform)} for every parameter of ``module``."""
+def flax_paths(module: nn.Module, buffers: bool = False) -> Dict[str, tuple]:
+    """{flax path: (parameter, transform)} for every parameter of ``module`` (every
+    buffer with ``buffers=True``: the variables of a flax mutable collection)."""
     paths = {}
     for mod_name, mod in module.named_modules():
         leaves = getattr(type(mod), "FLAX_LEAVES", {})
-        for p_name, param in mod.named_parameters(recurse=False):
+        named = mod.named_buffers if buffers else mod.named_parameters
+        for p_name, param in named(recurse=False):
             leaf, transform = leaves.get(p_name, (p_name, None))
             prefix = mod_name.replace(".", "/")
             paths[f"{prefix}/{leaf}" if prefix else leaf] = (param, transform)
     return paths
 
 
+def _converted(path: str, value: np.ndarray, transform, target: torch.Tensor) -> torch.Tensor:
+    out = _TRANSFORMS[transform](np.asarray(value, np.float32))
+    if tuple(out.shape) != tuple(target.shape):
+        raise ValueError(f"{path}: flax shape {tuple(np.shape(value))} does not fit "
+                         f"{tuple(target.shape)}")
+    return torch.tensor(out)
+
+
 @torch.no_grad()
-def load_flax_params(module: nn.Module, tree: Tree) -> nn.Module:
-    """Copy a flax parameter tree into ``module`` in place (see the module doc)."""
+def load_flax_params(module: nn.Module, tree: Tree, buffers: bool = False) -> nn.Module:
+    """Copy a flax parameter tree into ``module`` in place (see the module doc); with
+    ``buffers=True`` a mutable collection's tree into its buffers."""
     flat = read_tree(tree)
-    expected = flax_paths(module)
+    expected = flax_paths(module, buffers)
     missing = sorted(set(expected) - set(flat))
     extra = sorted(set(flat) - set(expected))
     if missing or extra:
         raise KeyError(f"flax tree does not fit the module: missing {missing}, left over {extra}")
     for path, (param, transform) in expected.items():
-        value = _TRANSFORMS[transform](np.asarray(flat[path], np.float32))
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(
-                f"{path}: flax shape {tuple(flat[path].shape)} does not fit "
-                f"{tuple(param.shape)}"
-            )
-        param.copy_(torch.tensor(value))
+        param.copy_(_converted(path, flat[path], transform, param))
     return module
 
 
 def _subtree(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
-    sub = {k[len(prefix) + 1:]: v for k, v in flat.items() if k.startswith(prefix + "/")}
-    if not sub:
-        raise KeyError(f"the train state has no '{prefix}' entries")
-    return sub
+    return {k[len(prefix) + 1:]: v for k, v in flat.items() if k.startswith(prefix + "/")}
+
+
+def _adam_path(flat: Dict[str, np.ndarray], opt_prefix: str) -> str:
+    """Where optax's Adam state sits in the optimizer state at ``opt_prefix``, found by
+    its ``count`` field: ``opt_prefix/0`` for a bare Adam chain, ``opt_prefix/1`` when
+    weight decay comes first."""
+    found = [k[:-len("/count")] for k in flat
+             if k.startswith(opt_prefix + "/") and k.endswith("/count")]
+    if len(found) != 1:
+        raise KeyError(f"expected one Adam state (a 'count') under '{opt_prefix}', "
+                       f"found {found}")
+    return found[0]
 
 
 @torch.no_grad()
-def load_flax_train_state(ddpm, tree) -> None:
-    """Fill a port ``DDPM`` from a JAX ``TrainState`` (see the module doc): ``params/model``
-    to ``ddpm.unet``, ``ema_params`` to ``ddpm.ema_unet``, optax's Adam state
-    ``opt_state/model/0/{mu,nu,count}`` to the optimizer's ``exp_avg``,
-    ``exp_avg_sq`` and ``step``, and ``step`` to ``ddpm.step``."""
-    flat = read_tree(tree)
-    load_flax_params(ddpm.unet, _subtree(flat, "params/model"))
-    load_flax_params(ddpm.ema_unet, _subtree(flat, "ema_params"))
-    adam = "opt_state/model/0"
+def load_flax_adam(optimizer: torch.optim.Optimizer, flat: Dict[str, np.ndarray],
+                   opt_prefix: str, modules: Dict[str, nn.Module]) -> None:
+    """Fill a torch Adam's state from optax's ``{count, mu, nu}`` at ``opt_prefix``:
+    ``modules`` maps a subtree of the moments ("" for the whole) to the module whose
+    parameters it covers."""
+    adam = _adam_path(flat, opt_prefix)
     mu, nu = _subtree(flat, f"{adam}/mu"), _subtree(flat, f"{adam}/nu")
     count = float(np.asarray(flat[f"{adam}/count"]))
-    for path, (param, transform) in flax_paths(ddpm.unet).items():
-        if not param.requires_grad:
-            continue
-        ddpm.optimizer.state[param] = {
-            "step": torch.tensor(count, dtype=torch.float32),
-            "exp_avg": torch.tensor(_TRANSFORMS[transform](
-                np.asarray(mu[path], np.float32))).to(param),
-            "exp_avg_sq": torch.tensor(_TRANSFORMS[transform](
-                np.asarray(nu[path], np.float32))).to(param),
-        }
-    ddpm.step = int(np.asarray(flat["step"]))
+    for sub, module in modules.items():
+        for path, (param, transform) in flax_paths(module).items():
+            if not param.requires_grad:
+                continue
+            key = f"{sub}/{path}" if sub else path
+            optimizer.state[param] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": _converted(key, mu[key], transform, param).to(param),
+                "exp_avg_sq": _converted(key, nu[key], transform, param).to(param),
+            }
+
+
+@torch.no_grad()
+def load_flax_train_state(model, tree, optimizers: bool = True) -> None:
+    """Fill a port model from a JAX ``TrainState`` (see the module doc), as its
+    ``flax_layout()`` maps it: ``{"params": {tree prefix: module}, "buffers": {tree
+    prefix: module}, "adam": {optimizer-state prefix: (optimizer, {moments subtree:
+    module})}}``; then ``step`` to ``model.step``. A DDPM maps ``params/model`` and
+    ``ema_params``; a VQ-VAE ``params/{encoder,decoder,vq}``, ``mutable/vq/codebook``
+    and ``opt_state/model``; a VQGAN also ``params/disc`` and ``opt_state/disc``.
+    ``optimizers=False`` loads the weights alone."""
+    flat = read_tree(tree)
+    layout = model.flax_layout()
+    for kind, buffers in (("params", False), ("buffers", True)):
+        for prefix, module in layout.get(kind, {}).items():
+            sub = _subtree(flat, prefix)
+            if not sub and flax_paths(module, buffers):
+                raise KeyError(f"the train state has no '{prefix}' entries")
+            load_flax_params(module, sub, buffers=buffers)
+    if optimizers:
+        for prefix, (optimizer, modules) in layout.get("adam", {}).items():
+            load_flax_adam(optimizer, flat, prefix, modules)
+        model.step = int(np.asarray(flat["step"]))

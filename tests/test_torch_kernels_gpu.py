@@ -147,3 +147,49 @@ def test_prefetch_to_device_stops_its_thread_when_abandoned():
     it.close()
     assert not any(t.name == "prefetch_to_device" and t.is_alive()
                    for t in threading.enumerate())
+
+
+def _vq_inputs(n, k, d, seed=0):
+    rs = np.random.RandomState(seed)
+    return (torch.tensor(rs.randn(n, d), dtype=torch.float32, device="cuda"),
+            torch.tensor(rs.randn(k, d), dtype=torch.float32, device="cuda"))
+
+
+def _vq_near_ties_hold(flat, codebook, idx, tol=1e-5):
+    """Each row's chosen code is within tol * (1 + |d_min|) of its true nearest distance
+    (f64 on the card)."""
+    dist = torch.cdist(flat.double(), codebook.double()) ** 2
+    d_min = dist.min(dim=1).values
+    chosen = dist.gather(1, idx.long()[:, None])[:, 0]
+    return bool((chosen <= d_min + tol * (1.0 + d_min.abs())).all())
+
+
+@pytest.mark.parametrize("n,k,d", [(1024, 512, 64), (4096, 512, 64), (16384, 512, 64),
+                                   (1000, 512, 64), (37, 100, 8), (513, 130, 128)])
+def test_vq_kernel_matches_plain(n, k, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lightning_generative_models_tpu_torch.ops import vq
+
+    flat, codebook = _vq_inputs(n, k, d)
+    before = vq.nearest_codes.launches
+    out = vq.nearest_codes(flat, codebook)
+    assert vq.nearest_codes.launches == before + 1
+    ref = vq.nearest_codes_plain(flat, codebook)
+    assert out.dtype == torch.int32 and out.shape == (n,)
+    assert _vq_near_ties_hold(flat, codebook, out)
+    assert float((out == ref).float().mean()) >= 0.999
+    assert torch.equal(out, vq.nearest_codes(flat, codebook))  # repeats bit for bit
+
+
+def test_vq_kernel_first_index_on_duplicated_codebook_and_refusals():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import vq
+
+    flat, base = _vq_inputs(4096, 256, 64, seed=1)
+    assert bool((vq.nearest_codes(flat, torch.cat([base, base])) < 256).all())
+    assert bool((vq.nearest_codes(flat, base.repeat_interleave(2, dim=0)) % 2 == 0).all())
+    with pytest.raises(ValueError, match="takes D in"):
+        vq.nearest_codes(flat[:, :48], base[:, :48])
