@@ -43,7 +43,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      validation batches; then generate decodes random codes (no search);
  11. VQ-VAE train images/s at bs256, f32 (median of 3 timings of 20 steps), and five
      steps under torch.profiler (full table in chiprun_out/chip_smoke/vq_profile.txt);
- 12. a JSON line of the kernels, the card's line, and the last line
+ 12. the packed-qkv attention kernels (#3 forward, #4 backward) against their plain
+     versions at DiT-S/2's shape (b 128, n 256, h 6, d 64) in bf16 and f32 and both
+     layouts, at h 8, d 48 (h3d), at a ragged n = 200 and at n = 64: bit-identical
+     repeats, the autograd path against torch autograd through the plain version; times
+     of the kernels, the plain versions and scaled_dot_product_attention (forward, and
+     its backward alone), beside the bounds;
+ 13. card against CPU, f32, bs2, the full-width DiT-S/2 of configs/diffusion/dit_cifar10.json
+     (weights moved off adaLN-Zero's zeros): the forward, a 3-step DDIM chain with
+     classifier-free guidance from one x_T, and one train step's loss and gradients;
+ 14. DiT sampling path: generate DDIM-50 at bs64 with guidance (a doubled batch of 128
+     per evaluation), every launch count set to 0 just before and read just after (600
+     forward launches, 0 backward), the grid in chiprun_out/chip_smoke/dit/grid.png;
+ 15. DiT training path: the train entry point at bs128, bf16, DIT_TRAIN_STEPS steps then
+     a --resume of DIT_RESUME_STEPS, with validation (the loss, a guided sample grid and
+     the per-class grid), launch counts held to the counts worked out from the run;
+ 16. DiT train images/s at bs128 (median of 3 timings of 20 steps) with one step under
+     torch.profiler (chiprun_out/chip_smoke/dit_train_profile.txt), and DDIM-50 guided
+     samples/s at bs64 with one batch under torch.profiler (dit_sample_profile.txt);
+ 17. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -65,6 +83,8 @@ OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 TRAIN_RUN = "chip_smoke_train"  # experiments/DDPM/<this>: the train entry point's run
 VQVAE_CONFIG = ROOT / "configs" / "vae" / "vqvae_cifar10.json"
 VQGAN_CONFIG = ROOT / "configs" / "vae" / "vqgan.json"
+DIT_CONFIG = ROOT / "configs" / "diffusion" / "dit_cifar10.json"
+DIT_RUN = "chip_smoke_dit"  # experiments/DDPM/<this>
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time for a kernel's work.
 PEAK_BYTES_PER_S = 3.35e12
@@ -104,6 +124,29 @@ VQ_RESUME_STEPS = 12
 # separates real from fake (20 of its steps did), so the last logged step keeps it > 0.
 VQGAN_STEPS, VQGAN_DISC_START = 40, 36
 
+# Kernels #3 and #4 (b, n, heads, d, layout, dtype): DiT-S/2 at bs128 (the train batch and
+# the guided sampling batch, 64 doubled) in both layouts and both dtypes, heads 8 at d 48
+# (dit_cifar10_tp / dit_moe_cifar10), a ragged n and a small n.
+ATTN_MAIN = (128, 256, 6, 64)
+ATTN_CASES = [(*ATTN_MAIN, lay, dt) for dt in ("bfloat16", "float32") for lay in ("s3hd", "h3d")]
+ATTN_CASES += [(128, 256, 8, 48, "h3d", dt) for dt in ("bfloat16", "float32")]
+ATTN_CASES += [(128, 200, 6, 64, "s3hd", dt) for dt in ("bfloat16", "float32")]
+ATTN_CASES += [(128, 64, 6, 64, "h3d", dt) for dt in ("bfloat16", "float32")]
+# Forward, max |k - p| / (1 + |p|): f32 the order of f32 sums; bf16 the plain version
+# rounds the logits (steps of 2^-6 at magnitude 2-4), the probabilities and p v to bf16
+# where the kernel keeps f32 and rounds the output once. ATTN_BF16_MATH: the bf16 kernel
+# against the plain math in f32 on the same bf16 inputs, where only that rounding is left.
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+ATTN_BF16_MATH = 8e-3
+# Backward, max |k - p| / (1 + max |p|): both in f32 from the same inputs; in bf16 a value
+# summed in another order can round to the next bf16 step (2^-8).
+ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+DIT_TOL = 1e-3  # f32 DiT forward, chain and train step, card against CPU, as UNET_TOL
+DIT_BATCH = 64  # generate --num_samples: guided, so 128 rows per evaluation
+DIT_TRAIN_STEPS = 60
+DIT_RESUME_STEPS = 10
+DIT_DEPTH = 12
+
 # (n, c) of the UNet's six linear-attention calls per evaluation (dim 64, 32 px).
 LA_SHAPES = [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256), (1024, 64)]
 MAIN_BATCH = 64
@@ -116,6 +159,9 @@ PROFILE_GROUPS = {
         "stats_kernel", "token_a_kernel", "context_grad_kernel", "token_b_kernel",
         "atb_partial_kernel", "reduce_rows_kernel"),
     "VQ nearest codes (csrc/vq.cu)": ("vq_nearest_kernel",),
+    "packed-qkv attention (csrc/attention_qkv.cu)": ("attention_fwd_kernel",),
+    "packed-qkv attention backward (csrc/attention_qkv_bwd.cu)": (
+        "attention_bwd_query_kernel", "attention_bwd_key_kernel"),
     "optimizer and EMA (foreach)": ("multi_tensor_apply",),
     "convolution (cuDNN)": ("fprop", "convolve", "cudnn", "nhwcAddPadding", "wgrad"),
     "matmul (cuBLAS)": ("gemm", "nvjet", "splitKreduce"),
@@ -965,6 +1011,352 @@ def vq_train_breakdown(torch, vq, card: str, steps: int = 20, repeats: int = 3) 
     return out
 
 
+def attn_bound_ms(b, n, heads, d, dtype, backward=False):
+    """(bytes ms, operations ms) of one call: qkv read and the output written once
+    (backward: qkv and g read, dqkv written); 4 b h n^2 d flops forward (q k^T and p v),
+    10 b h n^2 d backward (the five [n, n] x d products), at the peak of the type."""
+    elt = 2 if dtype == "bfloat16" else 4
+    hd = heads * d
+    nbytes = b * n * (3 * hd + hd + (3 * hd if backward else 0)) * elt
+    flops = (10 if backward else 4) * b * heads * n * n * d
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+
+
+def sdpa_views(qkv, heads, layout):
+    """[b, h, n, d] views of q, k and v in the packed tensor, for the library yardstick."""
+    b, n, w3 = qkv.shape
+    d = w3 // (3 * heads)
+    if layout == "h3d":
+        x = qkv.view(b, n, heads, 3, d)
+        return [x[:, :, :, i].transpose(1, 2) for i in range(3)]
+    x = qkv.view(b, n, 3, heads, d)
+    return [x[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+def check_attention(torch, ta) -> dict:
+    """Kernels #3 and #4 against their plain versions on the card (ATTN_CASES): the
+    forward, the backward, bit-identical repeats, and the autograd path (forward kernel +
+    backward kernel) against torch autograd through the plain version (f32; in bf16
+    against autograd through the plain math in f32 on the same bf16 inputs). Times by
+    CUDA events beside the bounds and torch's scaled_dot_product_attention."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shapes, main = [], {}
+    for b, n, heads, d, layout, dt in ATTN_CASES:
+        dtype = getattr(torch, dt)
+        qkv = torch.randn(b, n, 3 * heads * d, device="cuda", generator=gen).to(dtype)
+        g = torch.randn(b, n, heads * d, device="cuda", generator=gen).to(dtype)
+        with torch.inference_mode():
+            out = ta.attention_qkv_cuda(qkv, heads, layout)
+            again = ta.attention_qkv_cuda(qkv, heads, layout)
+            ref = ta.attention_qkv_plain(qkv, heads, layout)
+            dqkv = ta.attention_qkv_bwd_cuda(qkv, g, heads, layout)
+            dagain = ta.attention_qkv_bwd_cuda(qkv, g, heads, layout)
+            dref = ta.attention_qkv_bwd_plain(qkv, g, heads, layout)
+            math = ta.attention_qkv_plain(qkv.float(), heads, layout)
+        leaves = [qkv.detach().clone().requires_grad_(True) for _ in range(2)]
+        ta.fused_attention_qkv(leaves[0], heads, layout).backward(g)
+        ta.attention_qkv_plain(leaves[1].float(), heads, layout).backward(g.float())
+        torch.cuda.synchronize()
+        fwd_err = ((out.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
+        math_err = ((out.float() - math).abs() / (1 + math.abs())).max().item()
+        bwd_err = grad_err(dqkv, dref)
+        auto_err = grad_err(leaves[0].grad, leaves[1].grad)
+        abs_err = (out.float() - ref.float()).abs().max().item()
+        finite = bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(dqkv.float()).all())
+        same = torch.equal(out, again) and torch.equal(dqkv, dagain)
+        ok = (finite and same and fwd_err <= ATTN_TOL[dt] and bwd_err <= ATTN_BWD_TOL[dt]
+              and auto_err <= ATTN_BWD_TOL[dt]
+              and (dt == "float32" or math_err <= ATTN_BF16_MATH))
+        print(f"  attention_qkv b={b} n={n} h={heads} d={d} {layout} {dt}: forward rel_err "
+              f"{fwd_err:.2e} (tol {ATTN_TOL[dt]:.0e}"
+              + (f"; vs f32 math {math_err:.2e}, tol {ATTN_BF16_MATH:.0e}" if dt == "bfloat16" else "")
+              + f"), backward rel_err {bwd_err:.2e}, autograd path {auto_err:.2e} (tol "
+              f"{ATTN_BWD_TOL[dt]:.0e}), bit-identical repeats={same} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the attention kernels disagree with their plain versions or repeat "
+                 f"differently at b={b} n={n} h={heads} d={d} {layout} {dt}")
+
+        q, k, v = sdpa_views(qkv, heads, layout)
+        ql, kl, vl = sdpa_views(qkv.detach().clone().requires_grad_(True), heads, layout)
+        sdpa_out = F.scaled_dot_product_attention(ql, kl, vl)
+        g4 = g.view(b, n, heads, d).transpose(1, 2)
+        with torch.inference_mode():
+            ms = time_ms(lambda: ta.attention_qkv_cuda(qkv, heads, layout))
+            plain_ms = time_ms(lambda: ta.attention_qkv_plain(qkv, heads, layout))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            bwd_ms = time_ms(lambda: ta.attention_qkv_bwd_cuda(qkv, g, heads, layout))
+            bwd_plain_ms = time_ms(lambda: ta.attention_qkv_bwd_plain(qkv, g, heads, layout))
+        bwd_library_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (ql, kl, vl), g4, retain_graph=True))
+        bytes_ms, ops_ms = attn_bound_ms(b, n, heads, d, dt)
+        bbytes_ms, bops_ms = attn_bound_ms(b, n, heads, d, dt, backward=True)
+        shape = {"b": b, "n": n, "heads": heads, "d": d, "layout": layout, "dtype": dt,
+                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                 "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+                 "bwd_library_ms": bwd_library_ms, "bwd_bound_ms": max(bbytes_ms, bops_ms),
+                 "bwd_bytes_ms": bbytes_ms, "bwd_ops_ms": bops_ms,
+                 "max_abs_err": abs_err,
+                 "bwd_max_abs_err": (dqkv.float() - dref.float()).abs().max().item(),
+                 "rel_err": fwd_err, "bwd_rel_err": bwd_err}
+        shapes.append(shape)
+        print(f"  time: forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound {shape['bound_ms']:.4f} ms (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}); backward kernel {bwd_ms:.4f} ms, plain "
+              f"{bwd_plain_ms:.4f} ms, SDPA backward {bwd_library_ms:.4f} ms, bound "
+              f"{shape['bwd_bound_ms']:.4f} ms (bytes {bbytes_ms:.4f}, operations "
+              f"{bops_ms:.4f})", flush=True)
+        if (b, n, heads, d) == ATTN_MAIN and (layout, dt) == ("s3hd", "bfloat16"):
+            main = shape
+    return {**main, "shapes": shapes}
+
+
+def open_dit(torch, net, seed: int, std: float = 0.02):
+    """Move every DiT weight by N(0, std^2) from a CPU generator: adaLN-Zero starts the
+    gates, the final modulation and the head at 0, where the output is 0 whatever the
+    attention computes."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(torch.randn(p.shape, generator=gen).to(p.device) * std)
+    return net
+
+
+def check_dit_card_vs_cpu(torch) -> None:
+    """The full-width DiT-S/2 in f32 at bs2, card against CPU, the same weights and
+    inputs: the forward, a 3-step DDIM chain with guidance, one train step."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
+
+    def report(name, out, ref):
+        err = (out.float().cpu() - ref.float()).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        ok = bool(torch.isfinite(out).all()) and err <= DIT_TOL * scale
+        print(f"  {name}: max_abs_err={err:.3e} (max|ref|={scale:.3f}, tol {DIT_TOL:.0e} x "
+              f"max(1, max|ref|)) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name}: card and CPU disagree")
+
+    args = {**load_config(DIT_CONFIG)["model"]["args"], "use_bf16": False}
+    models = {dev: DDPM(**args, device=dev) for dev in ("cpu", "cuda")}
+    open_dit(torch, models["cpu"].unet, seed=13)
+    for dev, model in models.items():
+        if dev != "cpu":
+            model.unet.load_state_dict(models["cpu"].unet.state_dict())
+        model.copy_params_to_ema()
+
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn(2, 32, 32, 3, generator=gen)
+    t, labels = torch.tensor([0, 999]), torch.tensor([3, 10])  # 10: the null class
+    with torch.inference_mode():
+        ref = models["cpu"].unet(x, t, labels=labels)
+        out = models["cuda"].unet(x.cuda(), t.cuda(), labels=labels.cuda())
+    report("DiT-S/2 f32 bs2 forward, card vs CPU", out, ref)
+
+    x_T = torch.randn(2, 32, 32, 3, generator=gen)
+    samples = [models[dev].sample(None, 2, steps=3, x_T=x_T) for dev in ("cpu", "cuda")]
+    report("DDIM-3 with guidance (w 3) f32 bs2 from one x_T, card vs CPU",
+           samples[1], samples[0])
+
+    rs = np.random.RandomState(15)
+    batch = {"image": rs.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8),
+             "label": np.array([4, 7], np.int32)}
+    draws = {"flip": torch.tensor([True, False]), "drop": torch.tensor([False, True]),
+             "t": torch.tensor([10, 600]),
+             "noise": torch.tensor(rs.randn(2, 32, 32, 3).astype(np.float32))}
+    results = []
+    for dev in ("cpu", "cuda"):
+        grads, metrics = models[dev].grad_step(batch, **draws)
+        results.append((float(metrics["loss"]), [g.float().cpu() for g in grads]))
+    (ref_loss, ref_g), (loss, out_g) = results
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    worst = max(((k - p).abs().max() / p.abs().max().clamp_min(1e-30)).item()
+                for k, p in zip(out_g, ref_g))
+    ok = np.isfinite(loss) and loss_err <= DIT_TOL and worst <= DIT_TOL
+    print(f"  DiT train step f32 bs2, card vs CPU: loss {loss:.6f} vs {ref_loss:.6f} (rel "
+          f"{loss_err:.2e}); worst gradient max|k - p| / max|p| = {worst:.2e} over "
+          f"{len(out_g)} tensors; tol {DIT_TOL:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("DiT train step: card and CPU disagree")
+
+
+def dit_generate_path(torch, ta, card: str) -> dict:
+    """generate on dit_cifar10.json: DDIM-50 with guidance at DIT_BATCH, launch counts
+    set to 0 just before and read just after."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch import generate
+
+    out_dir = OUT_DIR / "dit"
+    argv = ["--config_path", str(DIT_CONFIG), "--num_samples", str(DIT_BATCH),
+            "--device", "cuda", "--seed", "0", "--out", str(out_dir)]
+    generate.main(argv + ["--sampling_steps", "2"])  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    ta.fused_attention_qkv.launches = 0
+    ta.fused_attention_qkv_bwd.launches = 0
+    t0 = time.perf_counter()
+    images = generate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = ta.fused_attention_qkv.launches, ta.fused_attention_qkv_bwd.launches
+    want = DIT_DEPTH * DDIM_STEPS
+    print(f"  wall {wall:.3f} s, {DIT_BATCH / wall:.2f} samples/s (model build, init and PNG "
+          f"included) on {card}")
+    print(f"  attention_qkv launches: {fwd} (expected {DIT_DEPTH} blocks x {DDIM_STEPS} "
+          f"evaluations = {want}), backward launches: {bwd} (expected 0)", flush=True)
+    if images.shape != (DIT_BATCH, 32, 32, 3):
+        fail(f"DiT samples have shape {images.shape}")
+    if not (np.isfinite(images).all() and images.min() >= 0.0 and images.max() <= 1.0):
+        fail("DiT samples are not finite values in [0, 1]")
+    if (fwd, bwd) != (want, 0):
+        fail(f"the DiT sampling path launched the attention kernels {fwd} + {bwd} times")
+    if not (out_dir / "grid.png").exists():
+        fail("generate wrote no DiT grid.png")
+    return {"forward": fwd, "backward": bwd}
+
+
+def dit_train_path(torch, ta, card: str) -> dict:
+    """The train entry point on dit_cifar10.json (bs128, bf16): DIT_TRAIN_STEPS steps,
+    validation (the loss over the validation batches, a guided grid of 64 and the
+    per-class grid of 4 x 10), then a --resume of DIT_RESUME_STEPS more. Launches held to
+    12 x steps backward and 12 x (steps + validation batches) + 600 x grids forward."""
+    import math
+
+    from lightning_generative_models_tpu_torch import train
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    run_dir = EXPERIMENT_DIR / "DDPM" / DIT_RUN
+    shutil.rmtree(run_dir, ignore_errors=True)
+    val_batches = len(list(DataModule(**load_config(DIT_CONFIG)["dataset"]).val_batches()))
+    grids = 2  # per validation: the guided random_generation grid and the per-class grid
+    argv = ["--config_path", str(DIT_CONFIG), "--device", "cuda", "--experiment_name",
+            DIT_RUN, "--check_val_every_n_epoch", "1000", "--sample_every_n_steps", "0"]
+    counts = {}
+    for name, steps, extra in (("train", DIT_TRAIN_STEPS, []),
+                               ("resume", DIT_TRAIN_STEPS + DIT_RESUME_STEPS, ["--resume"])):
+        torch.cuda.synchronize()
+        ta.fused_attention_qkv.launches = 0
+        ta.fused_attention_qkv_bwd.launches = 0
+        t0 = time.perf_counter()
+        model = train.main(argv + ["--max_steps", str(steps)] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = ta.fused_attention_qkv.launches, ta.fused_attention_qkv_bwd.launches
+        new_steps = steps - (0 if name == "train" else DIT_TRAIN_STEPS)
+        want_fwd = DIT_DEPTH * (new_steps + val_batches) + DIT_DEPTH * DDIM_STEPS * grids
+        want_bwd = DIT_DEPTH * new_steps
+        counts[name] = {"forward": fwd, "backward": bwd}
+        print(f"  {name}: {new_steps} steps to step {model.step} in {wall:.1f} s (model "
+              f"build, data, validation, the grids and checkpoints included) on {card}")
+        print(f"  {name}: attention_qkv launches {fwd} (expected {DIT_DEPTH} x ({new_steps} "
+              f"steps + {val_batches} validation batches) + {DIT_DEPTH * DDIM_STEPS} x "
+              f"{grids} grids = {want_fwd}), backward launches {bwd} (expected {want_bwd})",
+              flush=True)
+        if (fwd, bwd) != (want_fwd, want_bwd):
+            fail(f"the DiT {name} run launched the attention kernels {fwd} + {bwd} times")
+        if model.step != steps:
+            fail(f"the DiT {name} run ended at step {model.step}, not {steps}")
+
+    records = read_metrics(run_dir)
+    train_records = [r for r in records if "train_loss" in r]
+    losses = [r["train_loss"] for r in train_records]
+    print("  DiT train_loss by logged step: " + ", ".join(
+        f"{r['step']}: {r['train_loss']:.4f}" for r in train_records))
+    if not all(math.isfinite(v) for v in losses):
+        fail("a DiT train loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"the DiT train loss did not fall: {losses[0]} -> {losses[-1]}")
+    if train_records[-1]["step"] != DIT_TRAIN_STEPS + DIT_RESUME_STEPS - 1:
+        fail("the resumed DiT run did not log its last step")
+    val = [r["val_loss"] for r in records if "val_loss" in r]
+    if len(val) != 2 or not all(math.isfinite(v) for v in val):
+        fail(f"expected one finite DiT val_loss per run, got {val}")
+    samples = sorted((run_dir / "samples").glob("*.png"))
+    per_class = [p for p in samples if p.name.startswith("per_class_generation")]
+    if len(samples) != 2 * grids or len(per_class) != 2:
+        fail(f"expected two grids per DiT run, found {[p.name for p in samples]}")
+    for which in ("last", "best"):
+        if not (run_dir / "checkpoints" / f"checkpoint_meta_{which}.json").exists():
+            fail(f"no DiT {which} checkpoint meta")
+    print(f"  DiT val_loss (EMA weights) {val}; grids {[p.name for p in samples]}; images/s "
+          f"logged at the last step {train_records[-1]['images_per_sec']:.1f}", flush=True)
+    return counts
+
+
+def dit_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict:
+    """DiT train images/s at bs128, bf16, with the model built and warmed up (median of
+    ``repeats`` timings of ``steps`` steps), one step under torch.profiler; then DDIM-50
+    guided samples/s at DIT_BATCH, and one batch under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    config = load_config(DIT_CONFIG)
+    batch_size = config["dataset"]["batch_size"]
+    model = load_model(config["model"], device="cuda")
+    it = DataModule(**config["dataset"]).train_batches(0)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()} for _ in range(4)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run(n):
+        for i in range(n):
+            model.train_step(batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+
+    run(5)  # warm-up: cuBLAS handles, the allocator
+    model.step = model.ema_update_after_step  # past the EMA's hard copy, as in a long run
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run(steps)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    ips = steps * batch_size / wall
+    print(f"  DiT train bs{batch_size} bf16: {1e3 * wall / steps:.2f} ms per step, median of "
+          f"{[round(w, 4) for w in walls]} s per {steps} steps, {ips:.1f} images/s on {card}",
+          flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(1)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    summary = profile_summary(torch, prof, wall_us, f"one DiT train step bs{batch_size}",
+                              "dit_train_profile.txt", card)
+    out = {"images_per_s": ips, "ms_per_step": 1e3 * wall / steps, **summary}
+
+    def sample():
+        model.sample(gen, DIT_BATCH)
+        torch.cuda.synchronize()
+
+    sample()  # warm-up
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        sample()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    out["samples_per_s"] = DIT_BATCH / wall
+    print(f"  DiT DDIM-{DDIM_STEPS} guided bs{DIT_BATCH} bf16: {wall:.4f} s median of "
+          f"{[round(w, 4) for w in walls]}, {DIT_BATCH / wall:.2f} samples/s, "
+          f"{1e3 * wall / DDIM_STEPS:.3f} ms per evaluation of {2 * DIT_BATCH} rows on "
+          f"{card}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sample()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    summary = profile_summary(torch, prof, wall_us, f"DiT DDIM-{DDIM_STEPS} guided "
+                              f"bs{DIT_BATCH}", "dit_sample_profile.txt", card)
+    out.update({f"sample_{k}": v for k, v in summary.items()})
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -980,6 +1372,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from lightning_generative_models_tpu_torch import generate
+    from lightning_generative_models_tpu_torch.ops import attention as ta
     from lightning_generative_models_tpu_torch.ops import cuda_build
     from lightning_generative_models_tpu_torch.ops import linear_attention as la
     from lightning_generative_models_tpu_torch.ops import vq
@@ -987,7 +1380,8 @@ def main() -> None:
     started = time.perf_counter()
     print("[1] build", flush=True)
     t0 = time.perf_counter()
-    logs = cuda_build.build(["linear_attention", "linear_attention_bwd", "vq"], verbose=True)
+    logs = cuda_build.build(["linear_attention", "linear_attention_bwd", "vq", "attention_qkv",
+                             "attention_qkv_bwd"], verbose=True)
     print(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -1055,6 +1449,25 @@ def main() -> None:
 
     print("[11] VQ-VAE train throughput and where the time goes", flush=True)
     vq_train_stats = vq_train_breakdown(torch, vq, card)
+    print(f"  phases 1-11 took {time.perf_counter() - started:.1f} s", flush=True)
+
+    print("[12] packed-qkv attention (kernels #3, #4) against their plain versions",
+          flush=True)
+    attn_stats = check_attention(torch, ta)
+
+    print("[13] DiT-S/2, card against CPU", flush=True)
+    check_dit_card_vs_cpu(torch)
+
+    print(f"[14] DiT sampling path: generate DDIM-{DDIM_STEPS} guided bs{DIT_BATCH} bf16",
+          flush=True)
+    dit_gen_counts = dit_generate_path(torch, ta, card)
+
+    print(f"[15] DiT training path: train {DIT_TRAIN_STEPS} steps bs{TRAIN_BATCH} bf16, then "
+          f"resume", flush=True)
+    dit_counts = dit_train_path(torch, ta, card)
+
+    print("[16] DiT train and sampling throughput, where the time goes", flush=True)
+    dit_stats = dit_breakdown(torch, card)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
 
     kernels = [{
@@ -1114,8 +1527,53 @@ def main() -> None:
         "library_is": "torch.addmm(|e|^2, z, e^T, alpha=-2).argmin(1)",
         "tf32_bound_ms": vq_stats["tf32_ops_ms"],
         "shapes": vq_stats["shapes"],
+    }, {
+        "name": "attention_qkv",
+        "route": "cuda",
+        "source": "lightning_generative_models_tpu_torch/csrc/attention_qkv.cu",
+        "replaces": "lightning_generative_models_tpu/ops/attention.py:212",
+        "launches": dit_gen_counts["forward"],
+        "launches_by_path": {"generate": dit_gen_counts["forward"],
+                             "train": dit_counts["train"]["forward"],
+                             "resume": dit_counts["resume"]["forward"]},
+        "max_abs_err": attn_stats["max_abs_err"],
+        "ms": attn_stats["ms"],
+        "plain_ms": attn_stats["plain_ms"],
+        "bound_ms": attn_stats["bound_ms"],
+        "bound_by": "bytes" if attn_stats["bytes_ms"] > attn_stats["ops_ms"] else "operations",
+        "library_ms": attn_stats["library_ms"],
+        "status": "ok",
+        "ms_is": "one call at b 128, n 256, h 6, d 64, bf16, s3hd (dit_cifar10: a train "
+                 "step's and a guided bs64 evaluation's shape)",
+        "library_is": "torch.nn.functional.scaled_dot_product_attention on [b, h, n, d] views",
+        "shapes": [{k: v for k, v in sh.items() if not k.startswith("bwd_")}
+                   for sh in attn_stats["shapes"]],
+    }, {
+        "name": "attention_qkv_bwd",
+        "route": "cuda",
+        "source": "lightning_generative_models_tpu_torch/csrc/attention_qkv_bwd.cu",
+        "replaces": "lightning_generative_models_tpu/ops/attention.py:231",
+        "launches": dit_counts["train"]["backward"],
+        "launches_by_path": {"generate": dit_gen_counts["backward"],
+                             "train": dit_counts["train"]["backward"],
+                             "resume": dit_counts["resume"]["backward"]},
+        "max_abs_err": attn_stats["bwd_max_abs_err"],
+        "ms": attn_stats["bwd_ms"],
+        "plain_ms": attn_stats["bwd_plain_ms"],
+        "bound_ms": attn_stats["bwd_bound_ms"],
+        "bound_by": ("bytes" if attn_stats["bwd_bytes_ms"] > attn_stats["bwd_ops_ms"]
+                     else "operations"),
+        "library_ms": attn_stats["bwd_library_ms"],
+        "status": "ok",
+        "ms_is": "one call at b 128, n 256, h 6, d 64, bf16, s3hd (a DiT-S/2 train step "
+                 "runs 12)",
+        "library_is": "torch.autograd.grad through scaled_dot_product_attention (its "
+                      "backward alone) on [b, h, n, d] views",
+        "shapes": [{k[4:]: v for k, v in sh.items() if k.startswith("bwd_")}
+                   | {k: sh[k] for k in ("b", "n", "heads", "d", "layout", "dtype")}
+                   for sh in attn_stats["shapes"]],
     }]
-    print(json.dumps({"train": train_stats, "vq_train": vq_train_stats}))
+    print(json.dumps({"train": train_stats, "vq_train": vq_train_stats, "dit": dit_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
-"""DDPM: UNet + GaussianDiffusion + Adam + EMA weights.
+"""DDPM: UNet or DiT + GaussianDiffusion + Adam + EMA weights.
 
 Counterpart of ``lightning_generative_models_tpu/models/diffusion/ddpm.py``: the
-constructor's UNet branch with the same argument checks, the apply closures
+constructor's UNet and DiT branches with the same argument checks, the apply closures
 (``_apply_fn``, ``_guided_apply_fn`` for classifier-free guidance), the train step as
 ``grad_step`` + ``apply_grad_step`` (Adam, then the EMA: a hard copy up to
 ``ema_update_after_step``, then a decay every ``ema_update_every`` steps), ``eval_step``
 with the EMA weights, ``sample``, ``sample_classes`` and ``sample_raw``. The EMA
-weights are a second copy of the UNet (``ema_unet``); the JAX package keeps them as
+weights are a second copy of the denoiser (``ema_unet``, the name the JAX package gives
+the UNet and the DiT alike); the JAX package keeps them as
 ``TrainState.ema_params``. The model owns its step counter (``step``), as the JAX
 ``TrainState.step``.
 """
@@ -22,6 +23,7 @@ from lightning_generative_models_tpu_torch.models.base import GenerativeModel
 from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
     GaussianDiffusion,
 )
+from lightning_generative_models_tpu_torch.models.diffusion.dit import DiT
 from lightning_generative_models_tpu_torch.models.diffusion.unet import UNet
 from lightning_generative_models_tpu_torch.models.modules.layers import init_params
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
@@ -72,9 +74,12 @@ class DDPM(GenerativeModel):
         pp_fused_attn: bool = False,
         device: str | torch.device = "cuda",
     ):
-        """The JAX constructor's arguments, plus ``device``. The DiT-only arguments
-        are checked as there; ``network="dit"`` is not ported yet. The weights start
-        from ``init_params`` with seed 0; ``init_params(generator)`` redraws them."""
+        """The JAX constructor's arguments, plus ``device``, checked as there:
+        ``network`` picks the UNet or the DiT (``dim`` is then the hidden width, and
+        ``patch_size``/``depth``/``num_heads``/``mlp_ratio``/``qkv_layout`` its shape).
+        The DiT's MoE, pipeline stages and ``flash_attn`` are not ported yet and raise.
+        The weights start from ``init_params`` with seed 0; ``init_params(generator)``
+        redraws them."""
         super().__init__(img_channels, img_size)
         self.device = resolve_device(device)
         self.ema_update_every = ema_update_every
@@ -85,42 +90,63 @@ class DDPM(GenerativeModel):
         self.guidance_scale = guidance_scale
         self.step = 0
 
+        dtype = torch.bfloat16 if use_bf16 else torch.float32
         if network == "dit":
-            raise NotImplementedError(
-                "network='dit' is not yet ported to the PyTorch package, see ROADMAP.md"
+            if self_condition:
+                raise ValueError("network='dit' does not support self_condition")
+            self.unet = DiT(
+                hidden=dim,
+                depth=depth,
+                heads=num_heads,
+                patch_size=patch_size,
+                channels=img_channels,
+                mlp_ratio=mlp_ratio,
+                num_classes=num_classes,
+                flash_attn=flash_attn,
+                dtype=dtype,
+                qkv_layout=qkv_layout,
+                seq_parallel=seq_parallel,
+                num_experts=num_experts,
+                capacity_factor=capacity_factor,
+                moe_every=moe_every,
+                pipeline_stages=pipeline_stages,
+                pipeline_microbatches=pipeline_microbatches,
+                einsum_attn=einsum_attn,
+                pp_fused_attn=pp_fused_attn,
             )
-        if network != "unet":
+        elif network == "unet":
+            if qkv_layout != "s3hd":
+                raise ValueError(
+                    "qkv_layout applies to the DiT backbone only (the UNet "
+                    "does not use packed-qkv attention)"
+                )
+            if seq_parallel:
+                raise ValueError("seq_parallel applies to the DiT backbone only")
+            if num_experts:
+                raise ValueError("num_experts (MoE) applies to the DiT backbone only")
+            if pipeline_stages:
+                raise ValueError("pipeline_stages applies to the DiT backbone only")
+            if einsum_attn:
+                raise ValueError(
+                    "einsum_attn applies to the DiT backbone only (the "
+                    "UNet does not use packed-qkv attention)"
+                )
+            if pp_fused_attn:
+                raise ValueError(
+                    "pp_fused_attn applies to the pipeline-parallel DiT "
+                    "backbone only (the UNet has no pipeline stages)"
+                )
+            self.unet = UNet(
+                dim=dim,
+                dim_mults=tuple(dim_mults),
+                channels=img_channels,
+                self_condition=self_condition,
+                num_classes=num_classes,
+                flash_attn=flash_attn,
+                dtype=dtype,
+            )
+        else:
             raise ValueError(f"unknown network {network!r}; pick 'unet' or 'dit'")
-        if qkv_layout != "s3hd":
-            raise ValueError(
-                "qkv_layout applies to the DiT backbone only (the UNet "
-                "does not use packed-qkv attention)"
-            )
-        if seq_parallel:
-            raise ValueError("seq_parallel applies to the DiT backbone only")
-        if num_experts:
-            raise ValueError("num_experts (MoE) applies to the DiT backbone only")
-        if pipeline_stages:
-            raise ValueError("pipeline_stages applies to the DiT backbone only")
-        if einsum_attn:
-            raise ValueError(
-                "einsum_attn applies to the DiT backbone only (the "
-                "UNet does not use packed-qkv attention)"
-            )
-        if pp_fused_attn:
-            raise ValueError(
-                "pp_fused_attn applies to the pipeline-parallel DiT "
-                "backbone only (the UNet has no pipeline stages)"
-            )
-        self.unet = UNet(
-            dim=dim,
-            dim_mults=tuple(dim_mults),
-            channels=img_channels,
-            self_condition=self_condition,
-            num_classes=num_classes,
-            flash_attn=flash_attn,
-            dtype=torch.bfloat16 if use_bf16 else torch.float32,
-        )
         self.init_params()
 
         if sampling_timesteps is not None:
@@ -142,7 +168,7 @@ class DDPM(GenerativeModel):
 
     # -- parameters --------------------------------------------------------------
     def init_params(self, generator: Optional[torch.Generator] = None) -> None:
-        """Draw the UNet's weights from the CPU ``generator`` and copy them to the
+        """Draw the denoiser's weights from the CPU ``generator`` and copy them to the
         EMA set, as the JAX ``init_state`` does."""
         init_params(self.unet, generator)
         self.unet.to(self.device)
@@ -153,8 +179,8 @@ class DDPM(GenerativeModel):
         self.ema_unet = copy.deepcopy(self.unet).requires_grad_(False)
 
     # -- apply closures ------------------------------------------------------------
-    def _apply_fn(self, net: UNet, labels: Optional[torch.Tensor] = None):
-        """UNet apply closure for GaussianDiffusion. For a conditional model
+    def _apply_fn(self, net: torch.nn.Module, labels: Optional[torch.Tensor] = None):
+        """Denoiser (UNet or DiT) apply closure for GaussianDiffusion. For a conditional model
         ``labels`` rides in the closure; unconditional models ignore it."""
         if self.num_classes:
             if labels is None:
@@ -177,8 +203,8 @@ class DDPM(GenerativeModel):
         """The learned null (unconditional) token, broadcast to a batch."""
         return torch.full((batch,), self.unet.null_class, dtype=torch.long, device=self.device)
 
-    def _guided_apply_fn(self, net: UNet, labels: torch.Tensor, w: float):
-        """Classifier-free-guided closure: one UNet eval on the doubled batch
+    def _guided_apply_fn(self, net: torch.nn.Module, labels: torch.Tensor, w: float):
+        """Classifier-free-guided closure: one network eval on the doubled batch
         [cond; uncond], combined as u + w*(c - u) on the raw network output."""
         b = labels.shape[0]
         lab2 = torch.cat([labels.long(), self.null_labels(b)])

@@ -1,8 +1,8 @@
 """The flax.linen layers the JAX package builds on, as PyTorch modules on NHWC tensors.
 
-``Conv``, ``ConvTranspose``, ``Dense``, ``GroupNorm`` and ``Embed`` follow flax's
-numerics (lax's "SAME" padding, GroupNorm eps 1e-6 with the E[x^2] - E[x]^2 variance,
-convs in the layer's dtype). Each declares
+``Conv``, ``ConvTranspose``, ``Dense``, ``GroupNorm``, ``LayerNorm`` and ``Embed`` follow
+flax's numerics (lax's "SAME" padding, the norms' E[x^2] - E[x]^2 variance, convs and
+Dense in the layer's dtype). Each declares
 ``FLAX_LEAVES``: how its parameters map to the flax leaves of the same layer, which
 ``weights.load_flax_params`` reads. Every module of the package also has
 ``reset_parameters(generator)``, so that ``init_params`` draws all weights from one
@@ -118,21 +118,32 @@ class ConvTranspose(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` in f32: the weight is stored [out, in] (flax: [in, out])."""
+    """flax ``nn.Dense``: the weight is stored [out, in] (flax: [in, out]). In f32 by
+    default; with a lower ``dtype`` the input, weight and bias are cast to it as flax's
+    ``dtype=`` does, and the product is rounded to it before the bias is added.
+    ``zero_init`` starts the weight at 0 (flax's ``kernel_init=zeros``)."""
 
     FLAX_LEAVES = {"weight": ("kernel", "dense"), "bias": ("bias", None)}
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
         super().__init__()
+        self.dtype = dtype
+        self.zero_init = zero_init
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        normal_(self.weight, self.weight.shape[1] ** -0.5, generator)
+        if self.zero_init:
+            self.weight.data.zero_()
+        else:
+            normal_(self.weight, self.weight.shape[1] ** -0.5, generator)
         self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.float(), self.weight, self.bias)
+        if self.dtype == torch.float32:
+            return F.linear(x.float(), self.weight, self.bias)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -164,17 +175,34 @@ class GroupNorm(nn.Module):
         return y.reshape(b, h, w, c)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(use_bias=False, use_scale=False, dtype=float32)`` over the last
+    axis: no parameters, statistics and output in f32, the variance as E[x^2] - E[x]^2
+    clipped at 0 (flax's ``use_fast_variance``)."""
+
+    def __init__(self, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        return (x - mean) * torch.rsqrt(var + self.eps)
+
+
 class Embed(nn.Module):
-    """flax ``nn.Embed``: a [num_embeddings, features] f32 table."""
+    """flax ``nn.Embed``: a [num_embeddings, features] f32 table, drawn from N(0, std^2)."""
 
     FLAX_LEAVES = {"weight": ("embedding", None)}
 
-    def __init__(self, num_embeddings: int, features: int):
+    def __init__(self, num_embeddings: int, features: int, std: float = 1.0):
         super().__init__()
+        self.std = std
         self.weight = nn.Parameter(torch.empty(num_embeddings, features))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        normal_(self.weight, 1.0, generator)
+        normal_(self.weight, self.std, generator)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
         return F.embedding(idx.long(), self.weight)

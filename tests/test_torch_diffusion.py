@@ -109,6 +109,6 @@ def test_sample_dispatch_and_guidance_checks(models):
 
 def test_ddpm_rejects_unported_and_dit_only_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DDPM(network="dit", device="cpu")
+        DDPM(network="dit", num_experts=8, device="cpu")
     with pytest.raises(ValueError, match="DiT backbone only"):
         DDPM(img_size=16, dim=16, dim_mults=(1, 2), num_experts=4, device="cpu")

@@ -193,3 +193,118 @@ def test_vq_kernel_first_index_on_duplicated_codebook_and_refusals():
     assert bool((vq.nearest_codes(flat, base.repeat_interleave(2, dim=0)) % 2 == 0).all())
     with pytest.raises(ValueError, match="takes D in"):
         vq.nearest_codes(flat[:, :48], base[:, :48])
+
+
+# -- packed-qkv softmax attention (kernels #3 and #4) ----------------------------------
+
+# (b, n, heads, d): DiT-S/2's shape (n 256, d 64) at a small batch, a ragged n, heads 8 at
+# d 48 (the tp/MoE DiT configs), one token, and the widest head the kernels take.
+ATTN_SHAPES = [(8, 256, 6, 64), (4, 200, 6, 64), (4, 64, 8, 48), (2, 1, 2, 8),
+               (2, 100, 1, 128)]
+# Forward, on max |k - p| / (1 + |p|). f32: the order of f32 sums. bf16: the kernel keeps
+# the logits, the softmax and p v in f32 and rounds the output once; the plain version
+# rounds the logits (steps of 2^-6 at magnitude 2-4), the probabilities and the output to
+# bf16, a few percent of an output of magnitude ~1 (ATTN_BF16_MATH: against the plain
+# version's math in f32 on the same bf16 inputs, where only the output rounding is left).
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+ATTN_BF16_MATH = 8e-3
+# Backward, on max |k - p| / (1 + max |p|). Both compute in f32 from the same inputs; in
+# bf16 an f32 value that the two sum in another order can round to the next bf16 step
+# (2^-8 relative).
+ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _attn_inputs(b, n, heads, d, dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    qkv = torch.tensor(rs.randn(b, n, 3 * heads * d), dtype=torch.float32, device="cuda")
+    g = torch.tensor(rs.randn(b, n, heads * d), dtype=torch.float32, device="cuda")
+    return qkv.to(dtype), g.to(dtype)
+
+
+def _rel_elementwise(out, ref):
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs() / (1.0 + ref.abs())).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["s3hd", "h3d"])
+@pytest.mark.parametrize("b,n,heads,d", ATTN_SHAPES)
+def test_attention_qkv_kernel_matches_plain(b, n, heads, d, layout, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    qkv, _ = _attn_inputs(b, n, heads, d, dtype)
+    before = TA.fused_attention_qkv.launches
+    with torch.inference_mode():
+        out = TA.fused_attention_qkv(qkv, heads, layout)
+        ref = TA.attention_qkv_plain(qkv, heads, layout)
+        again = TA.attention_qkv_cuda(qkv, heads, layout)
+    assert TA.fused_attention_qkv.launches == before + 2
+    assert out.shape == ref.shape == (b, n, heads * d) and out.dtype == dtype
+    assert bool(torch.isfinite(out.float()).all())
+    assert _rel_elementwise(out, ref) <= ATTN_TOL[dtype]
+    assert torch.equal(out, again)
+    if dtype == torch.bfloat16:
+        math = TA.attention_qkv_plain(qkv.float(), heads, layout)
+        assert _rel_elementwise(out, math) <= ATTN_BF16_MATH
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["s3hd", "h3d"])
+@pytest.mark.parametrize("b,n,heads,d", ATTN_SHAPES)
+def test_attention_qkv_bwd_kernel_matches_plain(b, n, heads, d, layout, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    qkv, g = _attn_inputs(b, n, heads, d, dtype, seed=1)
+    before = TA.fused_attention_qkv_bwd.launches
+    out = TA.fused_attention_qkv_bwd(qkv, g, heads, layout)
+    again = TA.attention_qkv_bwd_cuda(qkv, g, heads, layout)
+    ref = TA.attention_qkv_bwd_plain(qkv, g, heads, layout)
+    assert TA.fused_attention_qkv_bwd.launches == before + 2
+    assert out.shape == qkv.shape and out.dtype == dtype
+    assert bool(torch.isfinite(out.float()).all())
+    assert _rel_err(out, ref) <= ATTN_BWD_TOL[dtype]
+    assert torch.equal(out, again)  # no float atomics: repeats bit for bit
+
+
+@pytest.mark.parametrize("layout", ["s3hd", "h3d"])
+def test_fused_attention_qkv_grads_match_autograd_through_plain(layout):
+    """f32: the autograd path (forward kernel, then backward kernel) against torch
+    autograd through the plain version. (In bf16, autograd through the plain version
+    rounds dP and dS to bf16 and is no yardstick.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    base, g = _attn_inputs(4, 200, 6, 64, torch.float32, seed=2)
+    outs, grads = [], []
+    for fn in (TA.fused_attention_qkv, TA.attention_qkv_plain):
+        leaf = base.clone().requires_grad_(True)
+        out = fn(leaf, 6, layout)
+        out.backward(g)
+        outs.append(out.detach())
+        grads.append(leaf.grad)
+    assert _rel_elementwise(*outs) <= 1e-4
+    assert _rel_err(*grads) <= 1e-4
+
+
+def test_attention_qkv_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    for heads, d in ((2, 12), (1, 136)):
+        qkv, _ = _attn_inputs(2, 16, heads, d, torch.float32)
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            TA.fused_attention_qkv(qkv, heads)
+    qkv, g = _attn_inputs(2, 16, 2, 16, torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TA.fused_attention_qkv(qkv, 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        TA.attention_qkv_bwd_cuda(qkv.float(), g[..., :8].float(), 2)
