@@ -61,7 +61,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
  16. DiT train images/s at bs128 (median of 3 timings of 20 steps) with one step under
      torch.profiler (chiprun_out/chip_smoke/dit_train_profile.txt), and DDIM-50 guided
      samples/s at bs64 with one batch under torch.profiler (dit_sample_profile.txt);
- 17. a JSON line of the kernels, the card's line, and the last line
+ 17. flash attention (kernel #5) against its plain version on [b, h, n, d] operands: the
+     views of DiT-S/2's packed qkv at bs128 in both layouts, the UNet's flash shape
+     (n_q 256, n_kv 260, d 32), a ragged n = 300 and a long n = 1024, bf16 and f32;
+     bit-identical repeats; its backward route (kernel #4's entry on [b, h, n, d]
+     strides) and the autograd path against autograd through the plain version; times of
+     the kernel, the plain versions and scaled_dot_product_attention, beside the bounds;
+ 18. the preprocess kernel (#7) against its plain version at 128 x 32 x 32 x 3 and
+     64 x 64 x 64 x 3, f32 (bit for bit) and bf16; times beside the bound and the
+     backend="xla" path; then prepare_batch(backend="pallas") over 8 train batches with
+     its launches counted from 0;
+ 19. card against CPU, f32, bs2, the full-width FlowMatching DiT-S/2 of
+     configs/diffusion/fm_dit_cifar10.json with "flash_attn": true (derived into
+     chiprun_out/chip_smoke/fm_dit_flash_cifar10.json): the forward, an Euler-3 chain
+     and one train step; and on the card flash off (kernel #3) against flash on (#5);
+ 20. FM-DiT flash sampling path: generate Euler-50 at bs64 (600 flash launches, 0
+     backward, no packed-qkv launch), the grid in chiprun_out/chip_smoke/fm_dit/;
+ 21. FM-DiT flash training path: train FM_TRAIN_STEPS steps at bs128 bf16 with
+     validation, then a --resume of FM_RESUME_STEPS, launch counts held as in 15;
+ 22. FM-DiT flash train images/s and Euler-50 samples/s with profiles
+     (fm_dit_{train,sample}_profile.txt);
+ 23. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -69,12 +89,14 @@ outside a checkout of the repo.
 
 from __future__ import annotations
 
+import importlib
 import json
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -85,6 +107,9 @@ VQVAE_CONFIG = ROOT / "configs" / "vae" / "vqvae_cifar10.json"
 VQGAN_CONFIG = ROOT / "configs" / "vae" / "vqgan.json"
 DIT_CONFIG = ROOT / "configs" / "diffusion" / "dit_cifar10.json"
 DIT_RUN = "chip_smoke_dit"  # experiments/DDPM/<this>
+FM_BASE_CONFIG = ROOT / "configs" / "diffusion" / "fm_dit_cifar10.json"
+FM_CONFIG = ROOT / "chiprun_out" / "chip_smoke" / "fm_dit_flash_cifar10.json"  # derived
+FM_RUN = "chip_smoke_fm_dit"  # experiments/FlowMatching/<this>
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time for a kernel's work.
 PEAK_BYTES_PER_S = 3.35e12
@@ -146,6 +171,25 @@ DIT_BATCH = 64  # generate --num_samples: guided, so 128 rows per evaluation
 DIT_TRAIN_STEPS = 60
 DIT_RESUME_STEPS = 10
 DIT_DEPTH = 12
+FM_TRAIN_STEPS = 40
+FM_RESUME_STEPS = 10
+
+# Kernel #5, flash attention (b, heads, n_q, n_kv, d, operands, dtype): DiT-S/2 at bs128
+# as the flash DiT hands it over (views of the packed qkv in either layout), the UNet's
+# flash shape (16 x 16 queries and 4 memory keys more, [b, n, h, d] tensors seen as
+# [b, h, n, d]), a ragged n and a long n (contiguous [b, h, n, d]). Tolerances as kernel
+# #3's (ATTN_TOL, ATTN_BF16_MATH, ATTN_BWD_TOL): the same math and rounding points (#5's
+# 3xTF32 tensor-core products keep the f32 sums' accuracy).
+FLASH_MAIN = (128, 6, 256, 256, 64, "s3hd", "bfloat16")
+FLASH_CASES = [(128, 6, 256, 256, 64, lay, dt) for dt in ("bfloat16", "float32")
+               for lay in ("s3hd", "h3d")]
+FLASH_CASES += [(64, 4, 256, 260, 32, "bnhd", dt) for dt in ("bfloat16", "float32")]
+FLASH_CASES += [(128, 6, 300, 300, 64, "s3hd", dt) for dt in ("bfloat16", "float32")]
+FLASH_CASES += [(16, 4, 1024, 1024, 32, "bhnd", dt) for dt in ("bfloat16", "float32")]
+# Kernel #7, uint8 -> float with the flip: the train batch at 32 px and a 64 px batch.
+PRE_SHAPES = [(128, 32, 32, 3), (64, 64, 64, 3)]
+PRE_MAIN = ((128, 32, 32, 3), "float32")
+PRE_PATH_BATCHES = 8  # prepare_batch(backend="pallas") over the FM config's train batches
 
 # (n, c) of the UNet's six linear-attention calls per evaluation (dim 64, 32 px).
 LA_SHAPES = [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256), (1024, 64)]
@@ -162,6 +206,8 @@ PROFILE_GROUPS = {
     "packed-qkv attention (csrc/attention_qkv.cu)": ("attention_fwd_kernel",),
     "packed-qkv attention backward (csrc/attention_qkv_bwd.cu)": (
         "attention_bwd_query_kernel", "attention_bwd_key_kernel"),
+    "flash attention (csrc/flash_attention.cu)": ("flash_attention_kernel",),
+    "preprocess (csrc/preprocess.cu)": ("normalize_flip_kernel",),
     "optimizer and EMA (foreach)": ("multi_tensor_apply",),
     "convolution (cuDNN)": ("fprop", "convolve", "cudnn", "nhwcAddPadding", "wgrad"),
     "matmul (cuBLAS)": ("gemm", "nvjet", "splitKreduce"),
@@ -532,6 +578,7 @@ def train_main_path(torch, la, card: str) -> dict:
     from lightning_generative_models_tpu_torch import train
     from lightning_generative_models_tpu_torch.config import load_config
     from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.ops import preprocess as pp
     from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
 
     run_dir = EXPERIMENT_DIR / "DDPM" / TRAIN_RUN
@@ -545,22 +592,26 @@ def train_main_path(torch, la, card: str) -> dict:
         torch.cuda.synchronize()
         la.linear_attention.launches = 0
         la.linear_attention_bwd.launches = 0
+        pp.fused_normalize_flip.launches = 0
         t0 = time.perf_counter()
         model = train.main(argv + ["--max_steps", str(steps)] + extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = la.linear_attention.launches, la.linear_attention_bwd.launches
+        pre = pp.fused_normalize_flip.launches
         new_steps = steps - (0 if name == "train" else TRAIN_STEPS)
         want_fwd = 6 * new_steps + 6 * val_batches + 6 * DDIM_STEPS
         want_bwd = 6 * new_steps
-        counts[name] = {"forward": fwd, "backward": bwd}
+        counts[name] = {"forward": fwd, "backward": bwd, "preprocess": pre}
         print(f"  {name}: {new_steps} steps to step {model.step} in {wall:.1f} s (model "
               f"build, data, validation, the grid and checkpoints included) on {card}")
         print(f"  {name}: linear_attention launches {fwd} (expected 6 x {new_steps} steps "
               f"+ 6 x {val_batches} validation batches + 6 x {DDIM_STEPS} grid = "
-              f"{want_fwd}), backward launches {bwd} (expected {want_bwd})", flush=True)
-        if (fwd, bwd) != (want_fwd, want_bwd):
-            fail(f"the {name} run launched the kernels {fwd} + {bwd} times")
+              f"{want_fwd}), backward launches {bwd} (expected {want_bwd}), preprocess "
+              f"kernel launches {pre} (expected 0: the trainer keeps backend='xla')",
+              flush=True)
+        if (fwd, bwd, pre) != (want_fwd, want_bwd, 0):
+            fail(f"the {name} run launched the kernels {fwd} + {bwd} + {pre} times")
         if model.step != steps:
             fail(f"the {name} run ended at step {model.step}, not {steps}")
 
@@ -1124,6 +1175,38 @@ def open_dit(torch, net, seed: int, std: float = 0.02):
     return net
 
 
+def report_close(torch, name: str, out, ref) -> None:
+    """Fail unless ``out`` is finite and within DIT_TOL x max(1, max |ref|) of ``ref``."""
+    err = (out.float().cpu() - ref.float().cpu()).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    ok = bool(torch.isfinite(out).all()) and err <= DIT_TOL * scale
+    print(f"  {name}: max_abs_err={err:.3e} (max|ref|={scale:.3f}, tol {DIT_TOL:.0e} x "
+          f"max(1, max|ref|)) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name}: the two disagree")
+
+
+def report_grad_steps(torch, name: str, models: dict, batch: dict, draws: dict) -> None:
+    """One grad_step on the CPU and on the card from the same batch and draws: the loss
+    within DIT_TOL relative, each gradient within DIT_TOL of its largest magnitude."""
+    import numpy as np
+
+    results = []
+    for dev in ("cpu", "cuda"):
+        grads, metrics = models[dev].grad_step(batch, **draws)
+        results.append((float(metrics["loss"]), [g.float().cpu() for g in grads]))
+    (ref_loss, ref_g), (loss, out_g) = results
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    worst = max(((k - p).abs().max() / p.abs().max().clamp_min(1e-30)).item()
+                for k, p in zip(out_g, ref_g))
+    ok = np.isfinite(loss) and loss_err <= DIT_TOL and worst <= DIT_TOL
+    print(f"  {name}: loss {loss:.6f} vs {ref_loss:.6f} (rel {loss_err:.2e}); worst gradient "
+          f"max|k - p| / max|p| = {worst:.2e} over {len(out_g)} tensors; tol {DIT_TOL:.0e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name}: card and CPU disagree")
+
+
 def check_dit_card_vs_cpu(torch) -> None:
     """The full-width DiT-S/2 in f32 at bs2, card against CPU, the same weights and
     inputs: the forward, a 3-step DDIM chain with guidance, one train step."""
@@ -1131,15 +1214,6 @@ def check_dit_card_vs_cpu(torch) -> None:
 
     from lightning_generative_models_tpu_torch.config import load_config
     from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
-
-    def report(name, out, ref):
-        err = (out.float().cpu() - ref.float()).abs().max().item()
-        scale = max(1.0, ref.abs().max().item())
-        ok = bool(torch.isfinite(out).all()) and err <= DIT_TOL * scale
-        print(f"  {name}: max_abs_err={err:.3e} (max|ref|={scale:.3f}, tol {DIT_TOL:.0e} x "
-              f"max(1, max|ref|)) {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"{name}: card and CPU disagree")
 
     args = {**load_config(DIT_CONFIG)["model"]["args"], "use_bf16": False}
     models = {dev: DDPM(**args, device=dev) for dev in ("cpu", "cuda")}
@@ -1155,12 +1229,12 @@ def check_dit_card_vs_cpu(torch) -> None:
     with torch.inference_mode():
         ref = models["cpu"].unet(x, t, labels=labels)
         out = models["cuda"].unet(x.cuda(), t.cuda(), labels=labels.cuda())
-    report("DiT-S/2 f32 bs2 forward, card vs CPU", out, ref)
+    report_close(torch, "DiT-S/2 f32 bs2 forward, card vs CPU", out, ref)
 
     x_T = torch.randn(2, 32, 32, 3, generator=gen)
     samples = [models[dev].sample(None, 2, steps=3, x_T=x_T) for dev in ("cpu", "cuda")]
-    report("DDIM-3 with guidance (w 3) f32 bs2 from one x_T, card vs CPU",
-           samples[1], samples[0])
+    report_close(torch, "DDIM-3 with guidance (w 3) f32 bs2 from one x_T, card vs CPU",
+                 samples[1], samples[0])
 
     rs = np.random.RandomState(15)
     batch = {"image": rs.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8),
@@ -1168,62 +1242,338 @@ def check_dit_card_vs_cpu(torch) -> None:
     draws = {"flip": torch.tensor([True, False]), "drop": torch.tensor([False, True]),
              "t": torch.tensor([10, 600]),
              "noise": torch.tensor(rs.randn(2, 32, 32, 3).astype(np.float32))}
-    results = []
-    for dev in ("cpu", "cuda"):
-        grads, metrics = models[dev].grad_step(batch, **draws)
-        results.append((float(metrics["loss"]), [g.float().cpu() for g in grads]))
-    (ref_loss, ref_g), (loss, out_g) = results
-    loss_err = abs(loss - ref_loss) / abs(ref_loss)
-    worst = max(((k - p).abs().max() / p.abs().max().clamp_min(1e-30)).item()
-                for k, p in zip(out_g, ref_g))
-    ok = np.isfinite(loss) and loss_err <= DIT_TOL and worst <= DIT_TOL
-    print(f"  DiT train step f32 bs2, card vs CPU: loss {loss:.6f} vs {ref_loss:.6f} (rel "
-          f"{loss_err:.2e}); worst gradient max|k - p| / max|p| = {worst:.2e} over "
-          f"{len(out_g)} tensors; tol {DIT_TOL:.0e} {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        fail("DiT train step: card and CPU disagree")
+    report_grad_steps(torch, "DiT train step f32 bs2, card vs CPU", models, batch, draws)
 
 
-def dit_generate_path(torch, ta, card: str) -> dict:
-    """generate on dit_cifar10.json: DDIM-50 with guidance at DIT_BATCH, launch counts
-    set to 0 just before and read just after."""
+def flash_bound_ms(b, heads, n_q, n_kv, d, dtype, backward=False):
+    """(bytes ms, operations ms) of one call: q, k, v read and o written once (backward:
+    q, k, v and g read, dq, dk, dv written); 4 b h n_q n_kv d flops forward, 10 backward
+    (the five [n_q, n_kv] x d products), at the peak of the type."""
+    elt = 2 if dtype == "bfloat16" else 4
+    rows = (3 * n_q + 4 * n_kv) if backward else (2 * n_q + 2 * n_kv)
+    nbytes = b * heads * rows * d * elt
+    flops = (10 if backward else 4) * b * heads * n_q * n_kv * d
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+
+
+def flash_operands(torch, gen, b, heads, n_q, n_kv, d, operands, dtype):
+    """(bases, views): the tensors that own the memory, and a function from bases to
+    the [b, h, n, d] q, k, v that the caller hands over: views of a packed qkv ("s3hd",
+    "h3d", n_q == n_kv), of [b, n, h, d] tensors ("bnhd"), or the tensors themselves
+    ("bhnd")."""
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    if operands in ("s3hd", "h3d"):
+        return [randn(b, n_q, 3 * heads * d)], lambda t: sdpa_views(t[0], heads, operands)
+    if operands == "bnhd":
+        bases = [randn(b, n_q, heads, d), randn(b, n_kv, heads, d), randn(b, n_kv, heads, d)]
+        return bases, lambda t: [x.transpose(1, 2) for x in t]
+    return [randn(b, heads, n_q, d), randn(b, heads, n_kv, d), randn(b, heads, n_kv, d)], list
+
+
+def check_flash_attention(torch, ta) -> dict:
+    """Kernel #5 against flash_attention_plain on the card (FLASH_CASES): the forward,
+    bit-identical repeats, in bf16 also against the plain math in f32; the backward route
+    (kernel #4's entry on [b, h, n, d] strides, with n_q != n_kv) against the plain
+    gradient in f32, and the autograd path through the operands' views against torch
+    autograd through the plain version. Times by CUDA events beside the bounds and
+    scaled_dot_product_attention (forward, and its backward alone)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shapes, main = [], {}
+    for b, heads, n_q, n_kv, d, operands, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        bases, views = flash_operands(torch, gen, b, heads, n_q, n_kv, d, operands, dtype)
+        q, k, v = views(bases)
+        g = torch.randn(b, n_q, heads, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+        with torch.inference_mode():
+            out = ta.flash_attention_cuda(q, k, v)
+            again = ta.flash_attention_cuda(q, k, v)
+            ref = ta.flash_attention_plain(q, k, v)
+            math = ta.flash_attention_plain(q.float(), k.float(), v.float())
+            grads = ta.flash_attention_bwd_cuda(q, k, v, g)
+            grads_again = ta.flash_attention_bwd_cuda(q, k, v, g)
+        # The gradient's yardstick: autograd through the plain version in f32 (in bf16 on
+        # the same bf16 inputs: autograd in bf16 rounds dP and dS and is none).
+        grads_ref = ta.flash_attention_bwd_plain(q.float(), k.float(), v.float(), g.float())
+        leaves = [[x.detach().clone().requires_grad_(True) for x in bases] for _ in range(2)]
+        ta.flash_attention(*views(leaves[0])).backward(g)
+        ta.flash_attention_plain(*(x.float() for x in views(leaves[1]))).backward(g.float())
+        torch.cuda.synchronize()
+        fwd_err = ((out.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
+        math_err = ((out.float() - math).abs() / (1 + math.abs())).max().item()
+        bwd_err = max(grad_err(x, r) for x, r in zip(grads, grads_ref))
+        auto_err = max(grad_err(a.grad, p.grad) for a, p in zip(*leaves))
+        finite = bool(torch.isfinite(out.float()).all()) and all(
+            bool(torch.isfinite(x.float()).all()) for x in grads)
+        same = torch.equal(out, again) and all(torch.equal(x, y)
+                                               for x, y in zip(grads, grads_again))
+        ok = (finite and same and fwd_err <= ATTN_TOL[dt] and bwd_err <= ATTN_BWD_TOL[dt]
+              and auto_err <= ATTN_BWD_TOL[dt]
+              and (dt == "float32" or math_err <= ATTN_BF16_MATH))
+        print(f"  flash_attention b={b} h={heads} n_q={n_q} n_kv={n_kv} d={d} {operands} {dt}: "
+              f"forward rel_err {fwd_err:.2e} (tol {ATTN_TOL[dt]:.0e}; vs f32 math "
+              f"{math_err:.2e}" + (f", tol {ATTN_BF16_MATH:.0e}" if dt == "bfloat16" else "")
+              + f"), backward route {bwd_err:.2e}, autograd path {auto_err:.2e} (tol "
+              f"{ATTN_BWD_TOL[dt]:.0e}), bit-identical repeats={same} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the flash attention kernel or its backward route disagrees with the plain "
+                 f"version or repeats differently at b={b} h={heads} n_q={n_q} n_kv={n_kv} "
+                 f"d={d} {operands} {dt}")
+
+        sdpa_leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*sdpa_leaves)
+        with torch.inference_mode():
+            ms = time_ms(lambda: ta.flash_attention_cuda(q, k, v))
+            plain_ms = time_ms(lambda: ta.flash_attention_plain(q, k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            bwd_ms = time_ms(lambda: ta.flash_attention_bwd_cuda(q, k, v, g))
+        bwd_plain_ms = time_ms(lambda: ta.flash_attention_bwd_plain(q, k, v, g))
+        bwd_library_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, sdpa_leaves, g, retain_graph=True))
+        bytes_ms, ops_ms = flash_bound_ms(b, heads, n_q, n_kv, d, dt)
+        bbytes_ms, bops_ms = flash_bound_ms(b, heads, n_q, n_kv, d, dt, backward=True)
+        shape = {"b": b, "heads": heads, "n_q": n_q, "n_kv": n_kv, "d": d,
+                 "operands": operands, "dtype": dt, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+                 "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bwd_ms": bwd_ms,
+                 "bwd_plain_ms": bwd_plain_ms, "bwd_library_ms": bwd_library_ms,
+                 "bwd_bound_ms": max(bbytes_ms, bops_ms), "bwd_bytes_ms": bbytes_ms,
+                 "bwd_ops_ms": bops_ms,
+                 "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                 "math_max_abs_err": (out.float() - math).abs().max().item(),
+                 "rel_err": fwd_err, "math_rel_err": math_err, "bwd_rel_err": bwd_err}
+        shapes.append(shape)
+        print(f"  time: forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound {shape['bound_ms']:.4f} ms (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}); backward route {bwd_ms:.4f} ms, plain (autograd) "
+              f"{bwd_plain_ms:.4f} ms, SDPA backward {bwd_library_ms:.4f} ms, bound "
+              f"{shape['bwd_bound_ms']:.4f} ms (bytes {bbytes_ms:.4f}, operations "
+              f"{bops_ms:.4f})", flush=True)
+        if (b, heads, n_q, n_kv, d, operands, dt) == FLASH_MAIN:
+            main = shape
+    return {**main, "shapes": shapes}
+
+
+def check_preprocess(torch, pp) -> dict:
+    """Kernel #7 against fused_normalize_flip_plain on the card (PRE_SHAPES, f32 and
+    bf16): bit for bit in f32, within one bf16 step in bf16, bit-identical repeats; times
+    beside the bound (bytes) and the default backend="xla" path of prepare_batch. Then
+    prepare_batch(backend="pallas") over PRE_PATH_BATCHES train batches of the FM config
+    with the kernel's count from 0: one launch a batch, each batch equal bit for bit to
+    backend="xla" (f32)."""
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    shapes, main = [], {}
+    for shape in PRE_SHAPES:
+        images = torch.randint(0, 256, shape, device="cuda", generator=gen, dtype=torch.uint8)
+        flip = torch.rand(shape[0], device="cuda", generator=gen) < 0.5
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            out = pp.fused_normalize_flip_cuda(images, flip, dtype)
+            again = pp.fused_normalize_flip_cuda(images, flip, dtype)
+            ref = pp.fused_normalize_flip_plain(images, flip, dtype)
+            torch.cuda.synchronize()
+            err = ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1e-30)
+                   ).max().item()
+            ok = (torch.equal(out, again) and out.dtype == dtype
+                  and (torch.equal(out, ref) if dt == "float32" else err <= 2.0**-7))
+            ms = time_ms(lambda: pp.fused_normalize_flip_cuda(images, flip, dtype))
+            plain_ms = time_ms(lambda: pp.fused_normalize_flip_plain(images, flip, dtype))
+            xla_ms = time_ms(lambda: pp.prepare_batch({"image": images}, train=True,
+                                                      flip=flip, dtype=dtype))
+            elt = 2 if dt == "bfloat16" else 4
+            bound_ms = 1e3 * (images.numel() * (1 + elt) + shape[0]) / PEAK_BYTES_PER_S
+            entry = {"shape": list(shape), "dtype": dt, "ms": ms, "plain_ms": plain_ms,
+                     "xla_ms": xla_ms, "bound_ms": bound_ms,
+                     "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                     "rel_err": err}
+            shapes.append(entry)
+            print(f"  preprocess {shape} {dt}: rel_err {err:.2e} (f32: bit for bit; bf16 tol "
+                  f"2^-7), repeats bit-identical={torch.equal(out, again)} "
+                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"backend xla {xla_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes)", flush=True)
+            if not ok:
+                fail(f"the preprocess kernel disagrees with its plain version at {shape} {dt}")
+            if (shape, dt) == PRE_MAIN:
+                main = entry
+
+    it = DataModule(**load_config(FM_CONFIG)["dataset"]).train_batches(0)
+    pp.fused_normalize_flip.launches = 0
+    for _ in range(PRE_PATH_BATCHES):
+        batch = {k: torch.as_tensor(v).cuda() for k, v in next(it).items()}
+        flip = torch.rand(batch["image"].shape[0], device="cuda", generator=gen) < 0.5
+        fused = pp.prepare_batch(batch, train=True, flip=flip, backend="pallas")["image"]
+        xla = pp.prepare_batch(batch, train=True, flip=flip)["image"]
+        if not torch.equal(fused, xla):
+            fail("prepare_batch(backend='pallas') differs from backend='xla' in f32")
+    launches = pp.fused_normalize_flip.launches
+    print(f"  prepare_batch(backend='pallas') over {PRE_PATH_BATCHES} train batches of "
+          f"{FM_CONFIG.name}: {launches} launches (expected {PRE_PATH_BATCHES}), each equal "
+          f"bit for bit to backend='xla'", flush=True)
+    if launches != PRE_PATH_BATCHES:
+        fail(f"prepare_batch(backend='pallas') launched the kernel {launches} times")
+    return {**main, "launches": launches, "shapes": shapes}
+
+
+def check_fm_card_vs_cpu(torch) -> None:
+    """FlowMatching DiT-S/2 with flash_attn (FM_CONFIG) in f32 at bs2, card against CPU,
+    the same weights and inputs: the forward (the flash kernel on the card, 12 launches,
+    no packed-qkv kernel), an Euler-3 chain from one x_1 and one train step's loss and
+    gradients. Then on the card the same weights with flash_attn off (kernel #3) against
+    flash_attn on (kernel #5)."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.models.diffusion.flow_matching import (
+        FlowMatching,
+    )
+
+    args = {**load_config(FM_CONFIG)["model"]["args"], "use_bf16": False}
+    models = {dev: FlowMatching(**args, device=dev) for dev in ("cpu", "cuda")}
+    models["packed"] = FlowMatching(**{**args, "flash_attn": False}, device="cuda")
+    open_dit(torch, models["cpu"].unet, seed=23)
+    for dev, model in models.items():
+        if dev != "cpu":
+            model.unet.load_state_dict(models["cpu"].unet.state_dict())
+        model.copy_params_to_ema()
+
+    gen = torch.Generator().manual_seed(24)
+    x = torch.randn(2, 32, 32, 3, generator=gen)
+    t = torch.tensor([0.02, 0.97]) * 1000.0  # the flow's t times its time_scale
+    with torch.inference_mode():
+        ref = models["cpu"].unet(x, t)
+        zero_counts()
+        out = models["cuda"].unet(x.cuda(), t.cuda())
+        torch.cuda.synchronize()
+        flash_counts = read_counts()
+        packed = models["packed"].unet(x.cuda(), t.cuda())
+        torch.cuda.synchronize()
+        packed_counts = {k: v - flash_counts[k] for k, v in read_counts().items()}
+    report_close(torch, "FM-DiT-S/2 flash f32 bs2 forward, card vs CPU", out, ref)
+    report_close(torch, "FM-DiT-S/2 f32 bs2 forward on the card, flash off (kernel #3) vs "
+                 "on (kernel #5)", packed, out)
+    want_flash = dict.fromkeys(PATH_COUNTERS, 0) | {"flash_attention": DIT_DEPTH}
+    want_packed = dict.fromkeys(PATH_COUNTERS, 0) | {"fused_attention_qkv": DIT_DEPTH}
+    print(f"  launches: flash on {flash_counts}, flash off {packed_counts}", flush=True)
+    if flash_counts != want_flash or packed_counts != want_packed:
+        fail("the flash and packed DiT forwards did not launch their own kernels")
+
+    x_T = torch.randn(2, 32, 32, 3, generator=gen)
+    samples = [models[dev].sample(None, 2, steps=3, x_T=x_T) for dev in ("cpu", "cuda")]
+    report_close(torch, "Euler-3 f32 bs2 from one x_1, card vs CPU", samples[1], samples[0])
+
+    rs = np.random.RandomState(25)
+    batch = {"image": rs.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8),
+             "label": np.zeros(2, np.int32)}
+    draws = {"flip": torch.tensor([False, True]), "t": torch.tensor([0.3, 0.85]),
+             "noise": torch.tensor(rs.randn(2, 32, 32, 3).astype(np.float32))}
+    report_grad_steps(torch, "FM-DiT flash train step f32 bs2, card vs CPU", models, batch,
+                      draws)
+
+
+@dataclass(frozen=True)
+class TransformerPath:
+    """One DiT-backbone main path: its config, the experiment it trains into, the launch
+    counters of its attention kernels, the rows and the evaluations of a generate batch
+    and the grids one validation writes."""
+    name: str
+    config: Path
+    model: str  # experiments/<model>/<run>
+    run: str
+    fwd: str  # ops.attention counters of its forward and backward kernels
+    bwd: str
+    sampler: str
+    rows: int  # rows of one network evaluation in generate
+    grids: int
+    steps: int
+    resume_steps: int
+    out: str  # chiprun_out/chip_smoke/<out>/grid.png, <out>_{train,sample}_profile.txt
+
+
+DIT_PATH = TransformerPath(
+    "DiT", DIT_CONFIG, "DDPM", DIT_RUN, "fused_attention_qkv", "fused_attention_qkv_bwd",
+    f"DDIM-{DDIM_STEPS} guided", 2 * DIT_BATCH, 2, DIT_TRAIN_STEPS, DIT_RESUME_STEPS, "dit")
+FM_PATH = TransformerPath(
+    "FM-DiT flash", FM_CONFIG, "FlowMatching", FM_RUN, "flash_attention",
+    "flash_attention_bwd_cuda", f"Euler-{DDIM_STEPS}", DIT_BATCH, 1, FM_TRAIN_STEPS,
+    FM_RESUME_STEPS, "fm_dit")
+#: The launch counters every DiT-backbone path holds, by name, with the ops module that
+#: owns each: the attention kernels' and the preprocess kernel's, which no trainer selects
+#: (prepare_batch keeps backend="xla"), so that a path must launch it 0 times.
+PATH_COUNTERS = {"fused_attention_qkv": "attention", "fused_attention_qkv_bwd": "attention",
+                 "flash_attention": "attention", "flash_attention_bwd_cuda": "attention",
+                 "fused_normalize_flip": "preprocess"}
+
+
+def _counter(name: str):
+    module = f"lightning_generative_models_tpu_torch.ops.{PATH_COUNTERS[name]}"
+    return getattr(importlib.import_module(module), name)
+
+
+def zero_counts() -> None:
+    for name in PATH_COUNTERS:
+        _counter(name).launches = 0
+
+
+def read_counts() -> dict:
+    return {name: _counter(name).launches for name in PATH_COUNTERS}
+
+
+def derive_fm_flash_config() -> None:
+    """FM_CONFIG: configs/diffusion/fm_dit_cifar10.json with "flash_attn": true."""
+    config = json.loads(FM_BASE_CONFIG.read_text())
+    config["model"]["args"]["flash_attn"] = True
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    FM_CONFIG.write_text(json.dumps(config, indent=4) + "\n")
+
+
+def transformer_generate_path(torch, card: str, path: TransformerPath) -> dict:
+    """generate on the path's config at DIT_BATCH: DDIM_STEPS evaluations, every count of
+    PATH_COUNTERS set to 0 just before and read just after; only the path's forward
+    kernel runs, DIT_DEPTH times an evaluation. Returns the counts read."""
     import numpy as np
 
     from lightning_generative_models_tpu_torch import generate
 
-    out_dir = OUT_DIR / "dit"
-    argv = ["--config_path", str(DIT_CONFIG), "--num_samples", str(DIT_BATCH),
+    out_dir = OUT_DIR / path.out
+    argv = ["--config_path", str(path.config), "--num_samples", str(DIT_BATCH),
             "--device", "cuda", "--seed", "0", "--out", str(out_dir)]
     generate.main(argv + ["--sampling_steps", "2"])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    ta.fused_attention_qkv.launches = 0
-    ta.fused_attention_qkv_bwd.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     images = generate.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = ta.fused_attention_qkv.launches, ta.fused_attention_qkv_bwd.launches
-    want = DIT_DEPTH * DDIM_STEPS
+    counts = read_counts()
+    want = dict.fromkeys(PATH_COUNTERS, 0) | {path.fwd: DIT_DEPTH * DDIM_STEPS}
     print(f"  wall {wall:.3f} s, {DIT_BATCH / wall:.2f} samples/s (model build, init and PNG "
           f"included) on {card}")
-    print(f"  attention_qkv launches: {fwd} (expected {DIT_DEPTH} blocks x {DDIM_STEPS} "
-          f"evaluations = {want}), backward launches: {bwd} (expected 0)", flush=True)
+    print(f"  launches {counts} (expected {path.fwd}: {DIT_DEPTH} blocks x {DDIM_STEPS} "
+          f"evaluations = {want[path.fwd]}, every other 0)", flush=True)
     if images.shape != (DIT_BATCH, 32, 32, 3):
-        fail(f"DiT samples have shape {images.shape}")
+        fail(f"{path.name} samples have shape {images.shape}")
     if not (np.isfinite(images).all() and images.min() >= 0.0 and images.max() <= 1.0):
-        fail("DiT samples are not finite values in [0, 1]")
-    if (fwd, bwd) != (want, 0):
-        fail(f"the DiT sampling path launched the attention kernels {fwd} + {bwd} times")
+        fail(f"{path.name} samples are not finite values in [0, 1]")
+    if counts != want:
+        fail(f"the {path.name} sampling path launched the kernels {counts}")
     if not (out_dir / "grid.png").exists():
-        fail("generate wrote no DiT grid.png")
-    return {"forward": fwd, "backward": bwd}
+        fail(f"generate wrote no {path.name} grid.png")
+    return counts
 
 
-def dit_train_path(torch, ta, card: str) -> dict:
-    """The train entry point on dit_cifar10.json (bs128, bf16): DIT_TRAIN_STEPS steps,
-    validation (the loss over the validation batches, a guided grid of 64 and the
-    per-class grid of 4 x 10), then a --resume of DIT_RESUME_STEPS more. Launches held to
-    12 x steps backward and 12 x (steps + validation batches) + 600 x grids forward."""
+def transformer_train_path(torch, card: str, path: TransformerPath) -> dict:
+    """The train entry point on the path's config (bs128, bf16): path.steps steps,
+    validation (the loss over the validation batches, a sample grid of 64 and, for a
+    conditional model, the per-class grid), then a --resume of path.resume_steps more.
+    Launches held to DIT_DEPTH x steps backward and DIT_DEPTH x (steps + validation
+    batches) + DIT_DEPTH x DDIM_STEPS x grids forward, every other count of PATH_COUNTERS
+    0. Returns each run's counts."""
     import math
 
     from lightning_generative_models_tpu_torch import train
@@ -1231,75 +1581,77 @@ def dit_train_path(torch, ta, card: str) -> dict:
     from lightning_generative_models_tpu_torch.data.datamodule import DataModule
     from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
 
-    run_dir = EXPERIMENT_DIR / "DDPM" / DIT_RUN
+    run_dir = EXPERIMENT_DIR / path.model / path.run
     shutil.rmtree(run_dir, ignore_errors=True)
-    val_batches = len(list(DataModule(**load_config(DIT_CONFIG)["dataset"]).val_batches()))
-    grids = 2  # per validation: the guided random_generation grid and the per-class grid
-    argv = ["--config_path", str(DIT_CONFIG), "--device", "cuda", "--experiment_name",
-            DIT_RUN, "--check_val_every_n_epoch", "1000", "--sample_every_n_steps", "0"]
+    val_batches = len(list(DataModule(**load_config(path.config)["dataset"]).val_batches()))
+    argv = ["--config_path", str(path.config), "--device", "cuda", "--experiment_name",
+            path.run, "--check_val_every_n_epoch", "1000", "--sample_every_n_steps", "0"]
     counts = {}
-    for name, steps, extra in (("train", DIT_TRAIN_STEPS, []),
-                               ("resume", DIT_TRAIN_STEPS + DIT_RESUME_STEPS, ["--resume"])):
+    for name, steps, extra in (("train", path.steps, []),
+                               ("resume", path.steps + path.resume_steps, ["--resume"])):
         torch.cuda.synchronize()
-        ta.fused_attention_qkv.launches = 0
-        ta.fused_attention_qkv_bwd.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         model = train.main(argv + ["--max_steps", str(steps)] + extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        fwd, bwd = ta.fused_attention_qkv.launches, ta.fused_attention_qkv_bwd.launches
-        new_steps = steps - (0 if name == "train" else DIT_TRAIN_STEPS)
-        want_fwd = DIT_DEPTH * (new_steps + val_batches) + DIT_DEPTH * DDIM_STEPS * grids
-        want_bwd = DIT_DEPTH * new_steps
-        counts[name] = {"forward": fwd, "backward": bwd}
+        got = read_counts()
+        new_steps = steps - (0 if name == "train" else path.steps)
+        want = dict.fromkeys(PATH_COUNTERS, 0) | {
+            path.fwd: DIT_DEPTH * (new_steps + val_batches) + DIT_DEPTH * DDIM_STEPS * path.grids,
+            path.bwd: DIT_DEPTH * new_steps}
+        counts[name] = got
         print(f"  {name}: {new_steps} steps to step {model.step} in {wall:.1f} s (model "
               f"build, data, validation, the grids and checkpoints included) on {card}")
-        print(f"  {name}: attention_qkv launches {fwd} (expected {DIT_DEPTH} x ({new_steps} "
+        print(f"  {name}: launches {got} (expected {path.fwd}: {DIT_DEPTH} x ({new_steps} "
               f"steps + {val_batches} validation batches) + {DIT_DEPTH * DDIM_STEPS} x "
-              f"{grids} grids = {want_fwd}), backward launches {bwd} (expected {want_bwd})",
-              flush=True)
-        if (fwd, bwd) != (want_fwd, want_bwd):
-            fail(f"the DiT {name} run launched the attention kernels {fwd} + {bwd} times")
+              f"{path.grids} grids = {want[path.fwd]}; {path.bwd}: {want[path.bwd]}; every "
+              f"other 0)", flush=True)
+        if got != want:
+            fail(f"the {path.name} {name} run launched the kernels {got}")
         if model.step != steps:
-            fail(f"the DiT {name} run ended at step {model.step}, not {steps}")
+            fail(f"the {path.name} {name} run ended at step {model.step}, not {steps}")
 
     records = read_metrics(run_dir)
     train_records = [r for r in records if "train_loss" in r]
     losses = [r["train_loss"] for r in train_records]
-    print("  DiT train_loss by logged step: " + ", ".join(
+    print(f"  {path.name} train_loss by logged step: " + ", ".join(
         f"{r['step']}: {r['train_loss']:.4f}" for r in train_records))
     if not all(math.isfinite(v) for v in losses):
-        fail("a DiT train loss is not finite")
+        fail(f"a {path.name} train loss is not finite")
     if not losses[-1] < losses[0]:
-        fail(f"the DiT train loss did not fall: {losses[0]} -> {losses[-1]}")
-    if train_records[-1]["step"] != DIT_TRAIN_STEPS + DIT_RESUME_STEPS - 1:
-        fail("the resumed DiT run did not log its last step")
+        fail(f"the {path.name} train loss did not fall: {losses[0]} -> {losses[-1]}")
+    if train_records[-1]["step"] != path.steps + path.resume_steps - 1:
+        fail(f"the resumed {path.name} run did not log its last step")
     val = [r["val_loss"] for r in records if "val_loss" in r]
     if len(val) != 2 or not all(math.isfinite(v) for v in val):
-        fail(f"expected one finite DiT val_loss per run, got {val}")
+        fail(f"expected one finite {path.name} val_loss per run, got {val}")
     samples = sorted((run_dir / "samples").glob("*.png"))
     per_class = [p for p in samples if p.name.startswith("per_class_generation")]
-    if len(samples) != 2 * grids or len(per_class) != 2:
-        fail(f"expected two grids per DiT run, found {[p.name for p in samples]}")
+    if len(samples) != 2 * path.grids or len(per_class) != 2 * (path.grids - 1):
+        fail(f"expected {path.grids} grids per {path.name} run, found "
+             f"{[p.name for p in samples]}")
     for which in ("last", "best"):
         if not (run_dir / "checkpoints" / f"checkpoint_meta_{which}.json").exists():
-            fail(f"no DiT {which} checkpoint meta")
-    print(f"  DiT val_loss (EMA weights) {val}; grids {[p.name for p in samples]}; images/s "
-          f"logged at the last step {train_records[-1]['images_per_sec']:.1f}", flush=True)
+            fail(f"no {path.name} {which} checkpoint meta")
+    print(f"  {path.name} val_loss (EMA weights) {val}; grids {[p.name for p in samples]}; "
+          f"images/s logged at the last step {train_records[-1]['images_per_sec']:.1f}",
+          flush=True)
     return counts
 
 
-def dit_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict:
-    """DiT train images/s at bs128, bf16, with the model built and warmed up (median of
-    ``repeats`` timings of ``steps`` steps), one step under torch.profiler; then DDIM-50
-    guided samples/s at DIT_BATCH, and one batch under torch.profiler."""
+def transformer_breakdown(torch, card: str, path: TransformerPath, steps: int = 20,
+                          repeats: int = 3) -> dict:
+    """Train images/s at bs128, bf16, with the model built and warmed up (median of
+    ``repeats`` timings of ``steps`` steps), one step under torch.profiler; then the
+    path's sampler's samples/s at DIT_BATCH, and one batch under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightning_generative_models_tpu_torch.config import load_config
     from lightning_generative_models_tpu_torch.data.datamodule import DataModule
     from lightning_generative_models_tpu_torch.registry import load_model
 
-    config = load_config(DIT_CONFIG)
+    config = load_config(path.config)
     batch_size = config["dataset"]["batch_size"]
     model = load_model(config["model"], device="cuda")
     it = DataModule(**config["dataset"]).train_batches(0)
@@ -1320,15 +1672,15 @@ def dit_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict:
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
     ips = steps * batch_size / wall
-    print(f"  DiT train bs{batch_size} bf16: {1e3 * wall / steps:.2f} ms per step, median of "
-          f"{[round(w, 4) for w in walls]} s per {steps} steps, {ips:.1f} images/s on {card}",
-          flush=True)
+    print(f"  {path.name} train bs{batch_size} bf16: {1e3 * wall / steps:.2f} ms per step, "
+          f"median of {[round(w, 4) for w in walls]} s per {steps} steps, {ips:.1f} images/s "
+          f"on {card}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(1)
         wall_us = 1e6 * (time.perf_counter() - t0)
-    summary = profile_summary(torch, prof, wall_us, f"one DiT train step bs{batch_size}",
-                              "dit_train_profile.txt", card)
+    summary = profile_summary(torch, prof, wall_us, f"one {path.name} train step "
+                              f"bs{batch_size}", f"{path.out}_train_profile.txt", card)
     out = {"images_per_s": ips, "ms_per_step": 1e3 * wall / steps, **summary}
 
     def sample():
@@ -1343,16 +1695,16 @@ def dit_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict:
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
     out["samples_per_s"] = DIT_BATCH / wall
-    print(f"  DiT DDIM-{DDIM_STEPS} guided bs{DIT_BATCH} bf16: {wall:.4f} s median of "
+    print(f"  {path.name} {path.sampler} bs{DIT_BATCH} bf16: {wall:.4f} s median of "
           f"{[round(w, 4) for w in walls]}, {DIT_BATCH / wall:.2f} samples/s, "
-          f"{1e3 * wall / DDIM_STEPS:.3f} ms per evaluation of {2 * DIT_BATCH} rows on "
+          f"{1e3 * wall / DDIM_STEPS:.3f} ms per evaluation of {path.rows} rows on "
           f"{card}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sample()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    summary = profile_summary(torch, prof, wall_us, f"DiT DDIM-{DDIM_STEPS} guided "
-                              f"bs{DIT_BATCH}", "dit_sample_profile.txt", card)
+    summary = profile_summary(torch, prof, wall_us, f"{path.name} {path.sampler} "
+                              f"bs{DIT_BATCH}", f"{path.out}_sample_profile.txt", card)
     out.update({f"sample_{k}": v for k, v in summary.items()})
     return out
 
@@ -1375,13 +1727,14 @@ def main() -> None:
     from lightning_generative_models_tpu_torch.ops import attention as ta
     from lightning_generative_models_tpu_torch.ops import cuda_build
     from lightning_generative_models_tpu_torch.ops import linear_attention as la
+    from lightning_generative_models_tpu_torch.ops import preprocess as pp
     from lightning_generative_models_tpu_torch.ops import vq
 
     started = time.perf_counter()
     print("[1] build", flush=True)
     t0 = time.perf_counter()
     logs = cuda_build.build(["linear_attention", "linear_attention_bwd", "vq", "attention_qkv",
-                             "attention_qkv_bwd"], verbose=True)
+                             "attention_qkv_bwd", "flash_attention", "preprocess"], verbose=True)
     print(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -1460,14 +1813,39 @@ def main() -> None:
 
     print(f"[14] DiT sampling path: generate DDIM-{DDIM_STEPS} guided bs{DIT_BATCH} bf16",
           flush=True)
-    dit_gen_counts = dit_generate_path(torch, ta, card)
+    dit_gen_counts = transformer_generate_path(torch, card, DIT_PATH)
 
     print(f"[15] DiT training path: train {DIT_TRAIN_STEPS} steps bs{TRAIN_BATCH} bf16, then "
           f"resume", flush=True)
-    dit_counts = dit_train_path(torch, ta, card)
+    dit_counts = transformer_train_path(torch, card, DIT_PATH)
 
     print("[16] DiT train and sampling throughput, where the time goes", flush=True)
-    dit_stats = dit_breakdown(torch, card)
+    dit_stats = transformer_breakdown(torch, card, DIT_PATH)
+    print(f"  phases 1-16 took {time.perf_counter() - started:.1f} s", flush=True)
+
+    derive_fm_flash_config()
+    print("[17] flash attention (kernel #5) and its backward route against their plain "
+          "versions", flush=True)
+    flash_stats = check_flash_attention(torch, ta)
+
+    print("[18] preprocess (kernel #7) against its plain version; prepare_batch(backend="
+          "'pallas')", flush=True)
+    pre_stats = check_preprocess(torch, pp)
+
+    print(f"[19] FlowMatching DiT-S/2 with flash attention ({FM_CONFIG.name}), card against "
+          f"CPU", flush=True)
+    check_fm_card_vs_cpu(torch)
+
+    print(f"[20] FM-DiT flash sampling path: generate {FM_PATH.sampler} bs{DIT_BATCH} bf16",
+          flush=True)
+    fm_gen_counts = transformer_generate_path(torch, card, FM_PATH)
+
+    print(f"[21] FM-DiT flash training path: train {FM_TRAIN_STEPS} steps bs{TRAIN_BATCH} "
+          f"bf16, then resume", flush=True)
+    fm_counts = transformer_train_path(torch, card, FM_PATH)
+
+    print("[22] FM-DiT flash train and sampling throughput, where the time goes", flush=True)
+    fm_stats = transformer_breakdown(torch, card, FM_PATH)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
 
     kernels = [{
@@ -1532,10 +1910,12 @@ def main() -> None:
         "route": "cuda",
         "source": "lightning_generative_models_tpu_torch/csrc/attention_qkv.cu",
         "replaces": "lightning_generative_models_tpu/ops/attention.py:212",
-        "launches": dit_gen_counts["forward"],
-        "launches_by_path": {"generate": dit_gen_counts["forward"],
-                             "train": dit_counts["train"]["forward"],
-                             "resume": dit_counts["resume"]["forward"]},
+        "launches": dit_gen_counts["fused_attention_qkv"],
+        "launches_by_path": {"generate": dit_gen_counts["fused_attention_qkv"],
+                             "train": dit_counts["train"]["fused_attention_qkv"],
+                             "resume": dit_counts["resume"]["fused_attention_qkv"],
+                             "fm_flash_generate": fm_gen_counts["fused_attention_qkv"],
+                             "fm_flash_train": fm_counts["train"]["fused_attention_qkv"]},
         "max_abs_err": attn_stats["max_abs_err"],
         "ms": attn_stats["ms"],
         "plain_ms": attn_stats["plain_ms"],
@@ -1553,10 +1933,14 @@ def main() -> None:
         "route": "cuda",
         "source": "lightning_generative_models_tpu_torch/csrc/attention_qkv_bwd.cu",
         "replaces": "lightning_generative_models_tpu/ops/attention.py:231",
-        "launches": dit_counts["train"]["backward"],
-        "launches_by_path": {"generate": dit_gen_counts["backward"],
-                             "train": dit_counts["train"]["backward"],
-                             "resume": dit_counts["resume"]["backward"]},
+        "launches": dit_counts["train"]["fused_attention_qkv_bwd"],
+        "launches_by_path": {"generate": dit_gen_counts["fused_attention_qkv_bwd"],
+                             "train": dit_counts["train"]["fused_attention_qkv_bwd"],
+                             "resume": dit_counts["resume"]["fused_attention_qkv_bwd"],
+                             "fm_flash_train": fm_counts["train"]["flash_attention_bwd_cuda"],
+                             "fm_flash_resume": fm_counts["resume"]["flash_attention_bwd_cuda"]},
+        "launches_by_path_are": "its own entry in the DiT runs; in the FM-DiT flash runs the "
+                                "flash path's backward route (flash_attention_bwd_cuda's count)",
         "max_abs_err": attn_stats["bwd_max_abs_err"],
         "ms": attn_stats["bwd_ms"],
         "plain_ms": attn_stats["bwd_plain_ms"],
@@ -1572,8 +1956,55 @@ def main() -> None:
         "shapes": [{k[4:]: v for k, v in sh.items() if k.startswith("bwd_")}
                    | {k: sh[k] for k in ("b", "n", "heads", "d", "layout", "dtype")}
                    for sh in attn_stats["shapes"]],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "lightning_generative_models_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "lightning_generative_models_tpu/ops/attention.py:42",
+        "launches": fm_gen_counts["flash_attention"],
+        "launches_by_path": {"fm_flash_generate": fm_gen_counts["flash_attention"],
+                             "fm_flash_train": fm_counts["train"]["flash_attention"],
+                             "fm_flash_resume": fm_counts["resume"]["flash_attention"],
+                             "dit_generate": dit_gen_counts["flash_attention"],
+                             "dit_train": dit_counts["train"]["flash_attention"]},
+        "max_abs_err": flash_stats["max_abs_err"],
+        "ms": flash_stats["ms"],
+        "plain_ms": flash_stats["plain_ms"],
+        "bound_ms": flash_stats["bound_ms"],
+        "bound_by": "bytes" if flash_stats["bytes_ms"] > flash_stats["ops_ms"] else "operations",
+        "library_ms": flash_stats["library_ms"],
+        "status": "ok",
+        "ms_is": "one call at b 128, h 6, n 256, d 64, bf16, on views of the packed s3hd qkv "
+                 "(FM-DiT-S/2 flash: a train step's shape; generate's rows are 64)",
+        "library_is": "torch.nn.functional.scaled_dot_product_attention on the same views",
+        "backward_route": {k[4:]: v for k, v in flash_stats.items() if k.startswith("bwd_")}
+                          | {"launches": fm_counts["train"]["flash_attention_bwd_cuda"],
+                             "entry": "lgm_attention_qkv_bwd (csrc/attention_qkv_bwd.cu)"},
+        "shapes": flash_stats["shapes"],
+    }, {
+        "name": "preprocess",
+        "route": "cuda",
+        "source": "lightning_generative_models_tpu_torch/csrc/preprocess.cu",
+        "replaces": "lightning_generative_models_tpu/ops/preprocess.py:81",
+        "launches": pre_stats["launches"],
+        "launches_by_path": {"prepare_batch_pallas": pre_stats["launches"],
+                             "fm_flash_train": fm_counts["train"]["fused_normalize_flip"],
+                             "dit_train": dit_counts["train"]["fused_normalize_flip"],
+                             "train": train_counts["train"]["preprocess"]},
+        "max_abs_err": pre_stats["max_abs_err"],
+        "ms": pre_stats["ms"],
+        "plain_ms": pre_stats["plain_ms"],
+        "bound_ms": pre_stats["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "status": "ok",
+        "ms_is": "one call at 128 x 32 x 32 x 3 uint8 -> f32 (a train batch)",
+        "xla_path_ms": pre_stats["xla_ms"],
+        "opt_in": "prepare_batch(backend='pallas'); the trainers keep backend='xla'",
+        "shapes": pre_stats["shapes"],
     }]
-    print(json.dumps({"train": train_stats, "vq_train": vq_train_stats, "dit": dit_stats}))
+    print(json.dumps({"train": train_stats, "vq_train": vq_train_stats, "dit": dit_stats,
+                      "fm_dit_flash": fm_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

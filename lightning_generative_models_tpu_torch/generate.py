@@ -1,14 +1,16 @@
 """Sampling CLI of the port: generate a grid of images from a config.
 
 Counterpart of the repo's ``generate.py``. Samples N images with the model's
-``sample`` (a DDPM's EMA weights; a VQ model decodes random codes) and writes a grid
-PNG. The weights come from ``--weights``, an ``.npz`` with "/"-joined keys read by the
-model's ``load_flax_weights`` (a DDPM: the flax tree of ``state.ema_params`` alone; a
-VQ-VAE or VQGAN: the whole flattened ``TrainState``), or, without it, are drawn from
-``--seed``. A JAX run's orbax checkpoint reaches the port as an ``.npz`` written where
-JAX runs (README, "Continuing a JAX run in the port"). ``--sampler``,
-``--sampling_steps`` and ``--label`` are refused for models whose sampling does not
-take them, as the JAX ``generate.py`` refuses them.
+``sample`` (a DDPM's or FlowMatching's EMA weights; a VQ model decodes random codes) and
+writes a grid PNG. The weights come from ``--weights``, an ``.npz`` with "/"-joined keys
+read by the model's ``load_flax_weights`` (a DDPM or FlowMatching: the flax tree of
+``state.ema_params`` alone; a VQ-VAE or VQGAN: the whole flattened ``TrainState``), or,
+without it, are drawn from ``--seed``. A JAX run's orbax checkpoint reaches the port as
+an ``.npz`` written where JAX runs (README, "Continuing a JAX run in the port").
+``--sampler``, ``--sampling_steps`` and ``--label`` are refused for models whose
+sampling does not take them, as the JAX ``generate.py`` refuses them; a diffusion model
+refuses the flow solvers' names and a flow model the diffusion samplers', with the JAX
+package's messages.
 
     python -m lightning_generative_models_tpu_torch.generate \
         --config_path configs/diffusion/ddim_cifar10.json --num_samples 64 [--device cuda]
@@ -48,11 +50,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="classifier-free guidance scale for --label (default: the "
                         "model config's guidance_scale)")
     parser.add_argument("--sampler", type=str, default="auto",
-                        choices=["auto", "ddpm", "ddim", "dpmpp"],
-                        help="auto: DDIM iff sampling_timesteps < T; dpmpp: DPM-Solver++(2M)")
+                        choices=["auto", "ddpm", "ddim", "dpmpp", "euler", "midpoint", "heun"],
+                        help="auto keeps each model's convention (diffusion: DDIM iff "
+                        "sampling_timesteps < T; flow matching: the configured solver); "
+                        "dpmpp: DPM-Solver++(2M); euler/midpoint/heun: the flow-matching "
+                        "ODE solvers. Each family refuses the other's samplers")
     parser.add_argument("--sampling_steps", type=int, default=0,
                         help="override the sampler's step count (0 = the config's "
-                        "sampling_timesteps); ancestral ddpm always runs the full chain")
+                        "sampling_timesteps or sampling_steps); ancestral ddpm always runs "
+                        "the full chain")
     parser.add_argument("--interpolate", type=int, default=0, metavar="N",
                         help="not ported yet")
     parser.add_argument("--fid", type=int, default=0, metavar="N", help="not ported yet")

@@ -77,7 +77,7 @@ class DDPM(GenerativeModel):
         """The JAX constructor's arguments, plus ``device``, checked as there:
         ``network`` picks the UNet or the DiT (``dim`` is then the hidden width, and
         ``patch_size``/``depth``/``num_heads``/``mlp_ratio``/``qkv_layout`` its shape).
-        The DiT's MoE, pipeline stages and ``flash_attn`` are not ported yet and raise.
+        The DiT's MoE and pipeline stages are not ported yet and raise.
         The weights start from ``init_params`` with seed 0; ``init_params(generator)``
         redraws them."""
         super().__init__(img_channels, img_size)

@@ -13,12 +13,14 @@ flax parameter tree maps onto ``named_parameters`` path for path. Dtypes follow 
 ``dtype=``: the residual stream, qkv, proj and the MLP in the compute dtype; the
 LayerNorms, modulation, the conditioning MLP, the two modulation Denses and the head in
 f32; the output f32. Attention goes through ``ops.attention.fused_attention_qkv`` on the
-packed qkv (the CUDA kernels on the card), or its plain version with ``einsum_attn``.
+packed qkv (the CUDA kernels on the card), or its plain version with ``einsum_attn``;
+with ``flash_attn``, q, k and v go as [b, h, n, d] views of the packed qkv (no copy)
+through ``ops.attention.scaled_dot_product_attention(use_pallas=True)``: the flash
+kernel on the card at n >= 256, the plain attention otherwise.
 
-Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md): ``flash_attn``
-(the flash kernel), ``num_experts`` (MoE) and ``pipeline_stages``. ``seq_parallel`` is
-accepted and does nothing on one device, as the JAX package's ``seq_shard`` off a
-tensor-parallel mesh.
+Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md): ``num_experts``
+(MoE) and ``pipeline_stages``. ``seq_parallel`` is accepted and does nothing on one
+device, as the JAX package's ``seq_shard`` off a tensor-parallel mesh.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from lightning_generative_models_tpu_torch.models.modules.time_embedding import 
 from lightning_generative_models_tpu_torch.ops.attention import (
     attention_qkv_plain,
     fused_attention_qkv,
+    scaled_dot_product_attention,
 )
 
 
@@ -70,11 +73,12 @@ class DiTBlock(nn.Module):
     affine; shift, scale and gate of both branches come from a zero-initialised Dense of
     SiLU(c), so the block is the identity at init."""
 
-    def __init__(self, hidden: int, heads: int, mlp_ratio: float = 4.0,
+    def __init__(self, hidden: int, heads: int, mlp_ratio: float = 4.0, flash: bool = False,
                  dtype: torch.dtype = torch.float32, qkv_layout: str = "s3hd",
                  einsum_attn: bool = False):
         super().__init__()
         self.heads = heads
+        self.flash = flash
         self.dtype = dtype
         self.qkv_layout = qkv_layout
         self.einsum_attn = einsum_attn
@@ -94,13 +98,31 @@ class DiTBlock(nn.Module):
 
         h = modulate(self.norm1(x), sh_a, sc_a).to(self.dtype)
         qkv = self.qkv(h)
-        attend = attention_qkv_plain if self.einsum_attn else fused_attention_qkv
-        att = self.proj(attend(qkv, self.heads, self.qkv_layout))
+        if self.flash:
+            att = self._flash_attention(qkv)
+        else:
+            attend = attention_qkv_plain if self.einsum_attn else fused_attention_qkv
+            att = attend(qkv, self.heads, self.qkv_layout)
+        att = self.proj(att)
         x = x + gate_a[:, None, :].to(x.dtype) * att.to(x.dtype)
 
         h = modulate(self.norm2(x), sh_m, sc_m).to(self.dtype)
         h = self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
         return x + gate_m[:, None, :].to(x.dtype) * h.to(x.dtype)
+
+    def _flash_attention(self, qkv: torch.Tensor) -> torch.Tensor:
+        """The JAX block's flash branch: [b, h, n, d] views of q, k and v in the packed
+        qkv, the SDPA dispatcher, and the output back to [b, n, h*d]."""
+        b, n, w3 = qkv.shape
+        d = w3 // (3 * self.heads)
+        if self.qkv_layout == "h3d":
+            qkv5 = qkv.reshape(b, n, self.heads, 3, d)
+            q, k, v = (qkv5[..., i, :].transpose(1, 2) for i in range(3))
+        else:
+            qkv5 = qkv.reshape(b, n, 3, self.heads, d)
+            q, k, v = (qkv5[:, :, i].transpose(1, 2) for i in range(3))
+        att = scaled_dot_product_attention(q, k, v, use_pallas=True)
+        return att.transpose(1, 2).reshape(b, n, self.heads * d)
 
 
 class DiT(nn.Module):
@@ -133,10 +155,6 @@ class DiT(nn.Module):
         ``pipeline_microbatches`` and ``pp_fused_attn`` change nothing on one device
         without MoE or pipeline stages."""
         super().__init__()
-        if flash_attn:
-            raise NotImplementedError(
-                "DiT(flash_attn=True) needs the flash-attention kernel, which is not yet "
-                "ported to the PyTorch package; see ROADMAP.md")
         if num_experts > 0:
             raise NotImplementedError(
                 "DiT(num_experts > 0) (MoE) is not yet ported to the PyTorch package; "
@@ -164,7 +182,8 @@ class DiT(nn.Module):
             self.class_emb = Embed(num_classes + 1, hidden, std=0.02)
         self.blocks = []
         for i in range(depth):
-            block = DiTBlock(hidden, heads, mlp_ratio, dtype, qkv_layout, einsum_attn)
+            block = DiTBlock(hidden, heads, mlp_ratio, flash_attn, dtype, qkv_layout,
+                             einsum_attn)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
         self.final_modulation = Dense(hidden, 2 * hidden, zero_init=True)

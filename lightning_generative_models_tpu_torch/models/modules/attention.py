@@ -4,7 +4,8 @@ Counterpart of ``lightning_generative_models_tpu/models/modules/attention.py``:
 pixel-space ``RMSNorm``; softmax-kernel ``LinearAttention`` with learned memory KV at
 the outer resolutions, whose whole block is one CUDA kernel on the card
 (``ops/linear_attention.py``); full ``Attention`` with memory KV at the innermost
-resolution, as plain PyTorch (it sees at most 64 + 4 keys at the repo's resolutions).
+resolution, as plain PyTorch (it sees at most 64 + 4 keys at the repo's resolutions), or
+with ``flash`` at n_kv >= 256 through the flash path of ``ops/attention.py``.
 
 Parameter names and shapes are the flax module's, so ``weights.load_flax_params``
 maps them one to one. The two memory-KV layouts differ, as in the JAX package:
@@ -17,10 +18,11 @@ import torch
 from torch import nn
 
 from lightning_generative_models_tpu_torch.models.modules.layers import Conv, normal_
+from lightning_generative_models_tpu_torch.ops.attention import (
+    FLASH_MIN_KV,
+    scaled_dot_product_attention,
+)
 from lightning_generative_models_tpu_torch.ops.linear_attention import linear_attention
-
-#: n_kv at which the JAX package switches full attention to its flash kernel.
-FLASH_MIN_KV = 256
 
 
 class RMSNorm(nn.Module):
@@ -116,12 +118,13 @@ class Attention(nn.Module):
         v = torch.cat([mv, v], dim=1)
 
         if self.flash and k.shape[1] >= FLASH_MIN_KV:
-            raise NotImplementedError(
-                "flash attention (n_kv >= 256) needs the flash kernel, which is not "
-                "ported yet; see ROADMAP.md, Queue 2"
-            )
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (self.dim_head**-0.5)
-        weights = torch.softmax(logits, dim=-1).to(self.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float()).to(self.dtype)
+            # [b, h, n, d] views; the SDPA dispatcher's own gate checks d.
+            out = scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), use_pallas=True,
+            ).transpose(1, 2)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (self.dim_head**-0.5)
+            weights = torch.softmax(logits, dim=-1).to(self.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float()).to(self.dtype)
         out = self.Conv_1(out.reshape(b, h, w, hd))
         return out + x_in.to(out.dtype) if self.residual else out

@@ -15,6 +15,16 @@ backward is the kernel in ``csrc/attention_qkv_bwd.cu``, or raises. There is no 
 from one to the other, and no size gate: the kernels stream keys through shared memory,
 so they take any n. ``attention_qkv_bwd_plain`` is the backward kernel's yardstick: the
 math of ``_vmem_attn_bwd_kernel``, in f32.
+
+The flash attention of the same JAX module (``scaled_dot_product_attention``,
+``_flash_kernel``) takes separate ``[b, h, n, d]`` q, k and v, with n_q and n_kv free.
+``scaled_dot_product_attention(use_pallas=True)`` keeps JAX's shape gate (n_kv >= 256
+and d a multiple of 8) and then dispatches on the device: a CPU tensor takes
+``flash_attention_plain`` (``_xla_attention``, cast for cast), a CUDA tensor
+``FlashAttention``, whose forward is the kernel in ``csrc/flash_attention.cu`` and whose
+backward is the gradient of ``_xla_attention`` as JAX's custom VJP takes it, computed in
+f32 by the backward kernel of ``csrc/attention_qkv_bwd.cu`` on ``[b, h, n, d]`` strides
+(``flash_attention_bwd_cuda``; ``flash_attention_bwd_plain`` is its yardstick).
 """
 
 from __future__ import annotations
@@ -240,3 +250,181 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
 
 fused_attention_qkv.launches = 0
 fused_attention_qkv_bwd.launches = 0
+
+
+# -- flash attention on [b, h, n, d] -------------------------------------------------------
+
+#: n_kv at which ``scaled_dot_product_attention(use_pallas=True)`` takes the flash kernel,
+#: and the head width's multiple it needs: the JAX package's gate.
+FLASH_MIN_KV = 256
+FLASH_DIM_HEAD_MULTIPLE = 8
+
+_FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def _check_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be [b, h, n, d], got shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or tuple(k.shape[:2]) != (b, h) or k.shape[3] != d:
+        raise ValueError(f"k and v of shapes {tuple(k.shape)} and {tuple(v.shape)} do not fit "
+                         f"q of shape {tuple(q.shape)}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[b, h, n_q, d] softmax attention in plain PyTorch ops, cast for cast as the JAX
+    package's ``_xla_attention``: q scaled by d^-1/2 in q's dtype, the logits, the
+    softmax and the output in the inputs' dtype."""
+    _check_bhnd(q, k, v)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q * q.shape[-1] ** -0.5, k)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
+
+
+def _bhnd_strides(t: torch.Tensor) -> list:
+    """(batch, head, token) strides in elements of a [b, h, n, d] tensor."""
+    return [t.stride(0), t.stride(1), t.stride(2)]
+
+
+def _flash_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str):
+    """Check what the flash kernels take; returns q, k and v, each as it is where the
+    kernel reads it in place (``_rows_aligned``), else as a contiguous copy."""
+    _check_bhnd(q, k, v)
+    if not (q.device.type == k.device.type == v.device.type == "cuda"):
+        raise ValueError(f"{what} needs CUDA tensors, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in KERNEL_DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"{what} takes float32 or bfloat16 q, k and v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, n_q, d = q.shape
+    if d < 1 or d % KERNEL_DIM_HEAD_MULTIPLE or d > KERNEL_MAX_DIM_HEAD:
+        raise ValueError(
+            f"{what} takes a head width d that is a multiple of "
+            f"{KERNEL_DIM_HEAD_MULTIPLE} up to {KERNEL_MAX_DIM_HEAD}; got d={d}")
+    if not (1 <= b <= KERNEL_MAX_BATCH and 1 <= h <= KERNEL_MAX_BATCH and n_q >= 1
+            and k.shape[2] >= 1):
+        raise ValueError(f"{what} takes 1 <= b, h <= {KERNEL_MAX_BATCH} and n >= 1; got q "
+                         f"of shape {tuple(q.shape)} and k of shape {tuple(k.shape)}")
+    return [t.detach() if _rows_aligned(t)
+            else t.detach().clone(memory_format=torch.contiguous_format) for t in (q, k, v)]
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the flash kernel can read t's [d] rows in place as 16-byte chunks: the last
+    dim contiguous, the first element and every row 16-byte aligned. True of the DiT's
+    views of a packed qkv and of any fresh tensor with d a multiple of 8; a copy is made
+    otherwise."""
+    size = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:3]))
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[b, h, n_q, d] attention through the flash kernel (``csrc/flash_attention.cu``),
+    with no autograd graph (``flash_attention`` has one). q, k and v are read in place
+    through their strides; the output is a [b, h, n_q, d] view of a [b, n_q, h, d]
+    tensor, so that transposing it back to tokens-major is free. Raises ValueError for
+    what the kernel does not take. Counts its launches in ``flash_attention.launches``."""
+    q, k, v = _flash_kernel_args(q, k, v, "flash_attention_cuda")
+    b, h, n_q, d = q.shape
+    out = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _bhnd_strides(t)))
+
+    lib = _library("flash_attention", "lgm_flash_attention_fwd", _FLASH_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.lgm_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
+            b, h, n_q, k.shape[2], d, int(q.dtype == torch.bfloat16), d**-0.5, stream,
+        )
+    cuda_build.check(lib, err, "flash attention kernel")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             g: torch.Tensor):
+    """(dq, dk, dv) of ``flash_attention_plain``'s math with respect to [b, h, n, d] q, k
+    and v, computed in f32 by the backward kernel of ``csrc/attention_qkv_bwd.cu``, each
+    rounded once to the inputs' dtype. q, k, v and g are read in place through their
+    strides, and the kernel writes each gradient at its input's strides, so dq, dk and dv
+    are allocated with q's, k's and v's (for the DiT's views of the packed qkv, strided
+    [b, h, n, d] tensors). Counts its launches in ``flash_attention_bwd_cuda.launches``."""
+    q, k, v = _flash_kernel_args(q, k, v, "flash_attention_bwd_cuda")
+    b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
+    if tuple(g.shape) != tuple(q.shape) or g.device != q.device:
+        raise ValueError(f"g of shape {tuple(g.shape)} on {g.device} does not fit q of shape "
+                         f"{tuple(q.shape)} on {q.device}")
+    g = g.detach().to(q.dtype)
+    if g.stride(3) != 1:
+        g = g.contiguous()
+    dq, dk, dv = (torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    stats = torch.empty((3, b, h, n_q), dtype=torch.float32, device=q.device)
+    # The kernel takes (batch, token, head) strides of q, k, v and g.
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, g)
+                                         for s in (t.stride(0), t.stride(2), t.stride(1))))
+
+    lib = _library("attention_qkv_bwd", "lgm_attention_qkv_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.lgm_attention_qkv_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), ctypes.addressof(strides),
+            b, h, n_q, n_kv, d, int(q.dtype == torch.bfloat16), d**-0.5, stream,
+        )
+    cuda_build.check(lib, err, "flash attention backward kernel")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention on the card with its gradient: the flash kernel forward, saving
+    only q, k and v; the backward recomputes the softmax from them, as the JAX package's
+    custom VJP (``_flash_attention_bwd``: the VJP of ``_xla_attention``) does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_cuda(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return flash_attention_bwd_cuda(*ctx.saved_tensors, g)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[b, h, n_q, d] attention on q's device: on CUDA tensors the flash kernel, through
+    ``FlashAttention``; on CPU tensors ``flash_attention_plain``, differentiated by torch
+    autograd. ``flash_attention.launches`` counts the forward kernel's launches,
+    ``flash_attention_bwd_cuda.launches`` the backward's."""
+    _check_bhnd(q, k, v)
+    if q.device.type == "cuda":
+        return FlashAttention.apply(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              g: torch.Tensor):
+    """(dq, dk, dv) by torch autograd through ``flash_attention_plain``: the VJP of
+    ``_xla_attention`` that JAX's ``_flash_attention_bwd`` takes, in the inputs' dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(flash_attention_plain(*leaves), leaves, g)
+
+
+def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 use_pallas: bool = False) -> torch.Tensor:
+    """[b, h, n, d] attention with the JAX package's shape gate: the flash path
+    (``flash_attention``) when asked for and n_kv >= 256 with d a multiple of 8, else
+    the plain attention. The gate is a shape rule, not a fallback: past it, a CUDA
+    tensor takes the kernel or raises."""
+    if use_pallas and k.shape[2] >= FLASH_MIN_KV and q.shape[-1] % FLASH_DIM_HEAD_MULTIPLE == 0:
+        return flash_attention(q, k, v)
+    return flash_attention_plain(q, k, v)
+
+
+flash_attention.launches = 0
+flash_attention_bwd_cuda.launches = 0

@@ -24,6 +24,8 @@ _NAMES = (
 # name -> (module path, class name) for the names ported so far.
 _PORTED = {
     "DDPM": ("lightning_generative_models_tpu_torch.models.diffusion.ddpm", "DDPM"),
+    "FlowMatching": ("lightning_generative_models_tpu_torch.models.diffusion.flow_matching",
+                     "FlowMatching"),
     "VQVAE": ("lightning_generative_models_tpu_torch.models.vae.vqvae", "VQVAE"),
     "VQGAN": ("lightning_generative_models_tpu_torch.models.vae.vqgan", "VQGAN"),
 }

@@ -4,8 +4,8 @@ Each chain starts from the x_T that JAX draws itself (``normal(split(rng)[0])``,
 ``ddim_sample`` does) and, for ancestral sampling, takes JAX's per-step noise
 (``normal(fold_in(loop_rng, t))``) through ``noise_fn``; with eta 0, DDIM and DPM++
 have no other randomness. Both sides run the small f32 UNet with the same flax
-weights. Images are in [0, 1]; per-eval differences of ~1e-6 pass through the
-x0 clip and the chain, so ATOL 1e-4.
+weights (drawn by the port, ``torch_flax_params``). Images are in [0, 1]; per-eval
+differences of ~1e-6 pass through the x0 clip and the chain, so ATOL 1e-4.
 """
 
 import jax
@@ -19,6 +19,7 @@ from lightning_generative_models_tpu.models.diffusion.ddpm import DDPM as JaxDDP
 from lightning_generative_models_tpu_torch.models.diffusion import gaussian_diffusion as TGD
 from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
 from lightning_generative_models_tpu_torch.weights import load_flax_params
+from torch_flax_params import state_from_port
 
 torch.set_num_threads(1)
 
@@ -38,8 +39,9 @@ def models(request):
     """(JAX DDPM, its state, the port's DDPM on the CPU with the same EMA weights)."""
     kw = {**MODEL, **VARIANTS[request.param]}
     jmodel = JaxDDPM(**kw)
-    state = jmodel.init_state(jax.random.PRNGKey(2))
     model = DDPM(**kw, device="cpu")
+    model.init_params(torch.Generator().manual_seed(2))
+    state = state_from_port(jmodel, model)
     load_flax_params(model.unet, jax.device_get(state.ema_params))
     model.copy_params_to_ema()
     return jmodel, state, model

@@ -1,8 +1,9 @@
 """The port's DiT, and DDPM(network="dit"), against the JAX package's, on the CPU.
 
 A tiny class-conditional DiT (hidden 32, depth 2, heads 2, patch 2, 8x8 images, 3
-classes) with the same flax weights on both sides, loaded into the port with
-``load_flax_params`` / ``load_flax_train_state``. adaLN-Zero starts every residual branch
+classes) with the same flax weights on both sides (drawn by the port,
+``torch_flax_params``), loaded into the port with ``load_flax_params`` /
+``load_flax_train_state``. adaLN-Zero starts every residual branch
 and the head at exactly 0, so the parity tests move every weight by N(0, 0.1^2) first;
 the branches are then open and the attention (the plain version here, the JAX package's
 einsum path off a TPU) carries the output. In f32 the two sides differ only in the order
@@ -22,13 +23,8 @@ from lightning_generative_models_tpu.models.diffusion.ddpm import DDPM as JaxDDP
 from lightning_generative_models_tpu_torch.models.diffusion import dit as TD
 from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
 from lightning_generative_models_tpu_torch.models.modules.layers import init_params
-from lightning_generative_models_tpu_torch.weights import (
-    _TRANSFORMS,
-    flatten_tree,
-    flax_paths,
-    load_flax_params,
-    load_flax_train_state,
-)
+from lightning_generative_models_tpu_torch.weights import load_flax_params, load_flax_train_state
+from torch_flax_params import as_port, state_from_port, k_bias_mask
 
 torch.set_num_threads(1)
 
@@ -58,7 +54,7 @@ def _inputs(seed=0):
 def jax_ddpm():
     """The JAX DDPM and a TrainState whose weights and EMA weights are perturbed."""
     model = JaxDDPM(**DDPM_ARGS)
-    state = jax.jit(model.init_state)(jax.random.PRNGKey(1))
+    state = state_from_port(model, DDPM(**DDPM_ARGS, device="cpu"))
     params = _perturbed(state.params["model"], seed=1)
     return model, state.replace(params={"model": params},
                                 ema_params=_perturbed(params, seed=2))
@@ -151,36 +147,13 @@ def _draws(rng, step, shape, model):
             "noise": torch.tensor(np.asarray(noise))}
 
 
-def _as_port(module, jax_tree):
-    flat = flatten_tree(jax.device_get(jax_tree))
-    by_param = {id(p): (path, tr) for path, (p, tr) in flax_paths(module).items()}
-    return [torch.tensor(_TRANSFORMS[by_param[id(p)][1]](
-        np.asarray(flat[by_param[id(p)][0]], np.float32))) for p in module.parameters()]
-
-
-def _k_bias_mask(module) -> torch.Tensor:
-    """True on the k part of every qkv bias (s3hd: channels [hd, 2 hd)), in the order of
-    the module's parameters. Adding the same vector to every key moves each query's
-    logits by a constant, which the softmax ignores: its gradient is exactly 0, and both
-    frameworks return f32 noise there (~1e-9), which Adam's first steps turn into a move
-    of +-lr with a random sign."""
-    masks = []
-    for name, p in module.named_parameters():
-        m = torch.zeros(p.numel(), dtype=torch.bool)
-        if name.endswith("qkv.bias"):
-            hd = p.numel() // 3
-            m[hd:2 * hd] = True
-        masks.append(m)
-    return torch.cat(masks)
-
-
 def test_three_train_steps_match_jax(jax_ddpm):
     """Three steps from the same state and draws (labels dropped to the null token by
     JAX's own draws). The loss within rtol 1e-4; each step's update as a whole,
     ||d_port - d_jax|| / ||d_jax|| <= 1e-3 (Adam's first steps move a weight by about
     lr * sign(g), so an element-wise bound would test the sign of near-zero gradients),
     over every weight but the k part of the qkv biases, whose gradient is exactly 0 in
-    exact arithmetic (``_k_bias_mask``): there the port's gradient must be noise, and both
+    exact arithmetic (``k_bias_mask``): there the port's gradient must be noise, and both
     sides' moves at most lr."""
     model, state = jax_ddpm
     rs = np.random.RandomState(3)
@@ -189,7 +162,7 @@ def test_three_train_steps_match_jax(jax_ddpm):
     rng = jax.random.PRNGKey(11)
     ddpm = DDPM(**DDPM_ARGS, device="cpu")
     load_flax_train_state(ddpm, jax.device_get(state))
-    k_bias = _k_bias_mask(ddpm.unet)
+    k_bias = k_bias_mask(ddpm.unet)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     train_step = jax.jit(model.train_step)
     draws = _draws(rng, int(state.step), (4, 8, 8, 3), model)
@@ -198,7 +171,7 @@ def test_three_train_steps_match_jax(jax_ddpm):
     dropped = 0
     for _ in range(3):
         before = [p.detach().clone() for p in ddpm.unet.parameters()]
-        jbefore = _as_port(ddpm.unet, state.params["model"])
+        jbefore = as_port(ddpm.unet, state.params["model"])
         draws = _draws(rng, int(state.step), (4, 8, 8, 3), model)
         dropped += int(draws["drop"].sum())
         state, jmetrics = train_step(state, jbatch, rng)
@@ -208,7 +181,7 @@ def test_three_train_steps_match_jax(jax_ddpm):
         d_port = torch.cat([(p.detach() - b).reshape(-1)
                             for p, b in zip(ddpm.unet.parameters(), before)])
         d_jax = torch.cat([(a - b).reshape(-1) for a, b in
-                           zip(_as_port(ddpm.unet, state.params["model"]), jbefore)])
+                           zip(as_port(ddpm.unet, state.params["model"]), jbefore)])
         rest = ~k_bias
         assert float((d_port - d_jax)[rest].norm() / d_jax[rest].norm()) <= 1e-3
         assert float(torch.cat([d_port, d_jax])[torch.cat([k_bias, k_bias])].abs().max()) \
@@ -217,12 +190,22 @@ def test_three_train_steps_match_jax(jax_ddpm):
     assert 0 < dropped < 12  # the null token and true labels both trained
 
 
-def test_raised_options():
-    for kw in ({"flash_attn": True}, {"num_experts": 8}, {"pipeline_stages": 2}):
+def test_raised_options(flax_params):
+    """MoE and pipeline stages still raise; ``flash_attn`` builds the flash branch, which
+    on the CPU (8 px: 16 tokens, below the flash gate) matches the packed path with the
+    same weights within the order of f32 sums."""
+    for kw in ({"num_experts": 8}, {"pipeline_stages": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TD.DiT(**NET, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DDPM(**{**DDPM_ARGS, **kw}, device="cpu")
+    assert DDPM(**DDPM_ARGS, flash_attn=True, device="cpu").unet.blocks[0].flash
+    inp = {k: torch.from_numpy(v) for k, v in _inputs().items()}
+    for layout in ("s3hd", "h3d"):
+        flash = load_flax_params(TD.DiT(**NET, flash_attn=True, qkv_layout=layout), flax_params)
+        with torch.inference_mode():
+            out = flash(inp["x"], inp["time"], labels=inp["labels"]).numpy()
+        np.testing.assert_allclose(out, _port_forward(flax_params, layout), atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="self_condition"):
         DDPM(**DDPM_ARGS, self_condition=True, device="cpu")
     with pytest.raises(ValueError, match="not divisible by heads"):

@@ -11,7 +11,10 @@ import torch
 from lightning_generative_models_tpu.models.diffusion.unet import UNet as JaxUNet
 from lightning_generative_models_tpu_torch import generate, registry
 from lightning_generative_models_tpu_torch.experiment.logger import _write_png
+from lightning_generative_models_tpu_torch.models.diffusion.unet import UNet
+from lightning_generative_models_tpu_torch.models.modules.layers import init_params
 from lightning_generative_models_tpu_torch.weights import flatten_tree
+from torch_flax_params import flax_tree, init_shapes
 
 torch.set_num_threads(1)
 
@@ -21,17 +24,19 @@ ARGS = {"img_size": 16, "img_channels": 3, "dim": 16, "dim_mults": [1, 2],
 
 @pytest.fixture(scope="module")
 def tiny_run(tmp_path_factory):
-    """A tiny DDPM config and an .npz of JAX-initialised UNet weights."""
+    """A tiny DDPM config and an .npz of UNet weights in the flax tree's keys (drawn by
+    the port, ``torch_flax_params``)."""
     root = tmp_path_factory.mktemp("generate")
     config = root / "ddim_tiny.json"
     config.write_text(json.dumps({
         "model": {"name": "DDPM", "args": ARGS},
         "dataset": {"name": "CIFAR10", "img_size": 16, "img_channels": 3},
     }))
-    params = JaxUNet(dim=16, dim_mults=(1, 2)).init(
-        jax.random.PRNGKey(3), jnp.zeros((1, 16, 16, 3)), jnp.zeros((1,), jnp.int32))["params"]
+    net = init_params(UNet(dim=16, dim_mults=(1, 2)), torch.Generator().manual_seed(3))
+    params = flax_tree(net, init_shapes(JaxUNet(dim=16, dim_mults=(1, 2)),
+                                        jnp.zeros((1, 16, 16, 3)), jnp.zeros((1,), jnp.int32)))
     weights = root / "ema.npz"
-    np.savez(weights, **flatten_tree(jax.device_get(params)))
+    np.savez(weights, **flatten_tree(params))
     return root, config, weights
 
 

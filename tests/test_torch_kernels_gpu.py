@@ -308,3 +308,167 @@ def test_attention_qkv_kernel_rejects_what_it_does_not_take():
         TA.fused_attention_qkv(qkv, 2)
     with pytest.raises(ValueError, match="does not fit"):
         TA.attention_qkv_bwd_cuda(qkv.float(), g[..., :8].float(), 2)
+
+
+# Flash attention (b, heads, n_q, n_kv, d): DiT-S/2's shape at a small batch, the UNet's
+# flash shape (16 x 16 queries, 4 memory keys more), a ragged n and a long n.
+FLASH_SHAPES = [(4, 6, 256, 256, 64), (2, 4, 256, 260, 32), (2, 2, 300, 300, 64),
+                (1, 2, 1024, 1024, 32)]
+
+
+def _bhnd_inputs(b, heads, n_q, n_kv, d, dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    shapes = [(b, heads, n_q, d), (b, heads, n_kv, d), (b, heads, n_kv, d), (b, heads, n_q, d)]
+    return [torch.tensor(rs.randn(*s), dtype=torch.float32, device="cuda").to(dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,n_q,n_kv,d", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(b, heads, n_q, n_kv, d, dtype):
+    """As the packed-qkv kernel: f32 within 1e-4, bf16 loosely against the plain version
+    (which rounds the logits and the softmax to bf16) and within one output rounding of
+    the plain math in f32; repeats bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    q, k, v, _ = _bhnd_inputs(b, heads, n_q, n_kv, d, dtype)
+    before = TA.flash_attention.launches, TA.fused_attention_qkv.launches
+    with torch.inference_mode():
+        out = TA.scaled_dot_product_attention(q, k, v, use_pallas=True)
+        again = TA.flash_attention_cuda(q, k, v)
+        ref = TA.flash_attention_plain(q, k, v)
+    assert (TA.flash_attention.launches, TA.fused_attention_qkv.launches) == \
+        (before[0] + 2, before[1])
+    assert out.shape == ref.shape == (b, heads, n_q, d) and out.dtype == dtype
+    assert bool(torch.isfinite(out.float()).all())
+    assert _rel_elementwise(out, ref) <= ATTN_TOL[dtype]
+    assert torch.equal(out, again)
+    if dtype == torch.bfloat16:
+        math = TA.flash_attention_plain(q.float(), k.float(), v.float())
+        assert _rel_elementwise(out, math) <= ATTN_BF16_MATH
+
+
+@pytest.mark.parametrize("layout", ["s3hd", "h3d"])
+def test_flash_attention_kernel_reads_the_dits_packed_views(layout):
+    """The DiT's flash branch: q, k, v as [b, h, n, d] views of the packed qkv, read in
+    place, and the backward route's cotangent as the view of a [b, n, h, d] tensor, with
+    the gradients written at the views' strides; the same results as on contiguous
+    copies, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    qkv, g = _attn_inputs(4, 256, 6, 64, torch.bfloat16)
+    shape = (4, 256, 6, 3, 64) if layout == "h3d" else (4, 256, 3, 6, 64)
+    x = qkv.view(*shape)
+    views = [(x[..., i, :] if layout == "h3d" else x[:, :, i]).transpose(1, 2)
+             for i in range(3)]
+    g = g.view(4, 256, 6, 64).transpose(1, 2)
+    copies = [t.contiguous() for t in views]
+    with torch.inference_mode():
+        out = TA.flash_attention_cuda(*views)
+        ref = TA.flash_attention_cuda(*copies)
+        grads = TA.flash_attention_bwd_cuda(*views, g)
+        grads_ref = TA.flash_attention_bwd_cuda(*copies, g.contiguous())
+    assert out.transpose(1, 2).is_contiguous()  # the caller's transpose back is free
+    assert torch.equal(out, ref)
+    for grad, view, grad_ref in zip(grads, views, grads_ref):
+        assert grad.stride() == view.stride() and torch.equal(grad, grad_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_misaligned_rows(dtype):
+    """Rows the kernel cannot read as 16-byte chunks (a view one element into its buffer,
+    a token stride of d + 1 elements) are copied first: the same result as on
+    contiguous copies, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    q, k, v, _ = _bhnd_inputs(2, 2, 256, 256, 32, dtype)
+    shifted = torch.zeros(q.numel() + 1, dtype=dtype, device="cuda")
+    shifted[1:] = q.reshape(-1)
+    q_off = shifted[1:].view(q.shape)
+    wide = torch.zeros(2, 2, 256, 33, dtype=dtype, device="cuda")
+    wide[..., :32] = k
+    k_wide = wide[..., :32]
+    assert not TA._rows_aligned(q_off) and not TA._rows_aligned(k_wide)
+    with torch.inference_mode():
+        out = TA.flash_attention_cuda(q_off, k_wide, v)
+        ref = TA.flash_attention_cuda(q, k, v)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("b,heads,n_q,n_kv,d", FLASH_SHAPES)
+def test_flash_attention_grads_match_autograd_through_plain(b, heads, n_q, n_kv, d):
+    """f32: the flash path's autograd (the flash kernel, then the packed-qkv backward
+    kernel on [b, h, n, d] strides) against torch autograd through the plain version;
+    the backward's launches counted apart from the packed path's. bf16: the backward
+    kernel against the plain gradient in f32 on the same inputs, one rounding apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    *qkv, g = _bhnd_inputs(b, heads, n_q, n_kv, d, torch.float32, seed=1)
+    before = TA.flash_attention_bwd_cuda.launches, TA.fused_attention_qkv_bwd.launches
+    leaves = [t.clone().requires_grad_(True) for t in qkv]
+    TA.flash_attention(*leaves).backward(g)
+    assert (TA.flash_attention_bwd_cuda.launches, TA.fused_attention_qkv_bwd.launches) == \
+        (before[0] + 1, before[1])
+    ref = TA.flash_attention_bwd_plain(*qkv, g)
+    for leaf, r in zip(leaves, ref):
+        assert _rel_err(leaf.grad, r) <= ATTN_BWD_TOL[torch.float32]
+    low = [t.to(torch.bfloat16) for t in (*qkv, g)]
+    out = TA.flash_attention_bwd_cuda(*low)
+    again = TA.flash_attention_bwd_cuda(*low)
+    ref = TA.flash_attention_bwd_plain(*(t.float() for t in low))
+    for o, a, r in zip(out, again, ref):
+        assert o.dtype == torch.bfloat16 and torch.equal(o, a)
+        assert _rel_err(o, r) <= ATTN_BWD_TOL[torch.bfloat16]
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    q, k, v, _ = _bhnd_inputs(1, 2, 256, 256, 136, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        TA.flash_attention(q, k, v)
+    q, k, v, _ = _bhnd_inputs(1, 2, 256, 256, 12, torch.float32)
+    out = TA.scaled_dot_product_attention(q, k, v, use_pallas=True)  # d % 8: not the gate
+    assert torch.equal(out, TA.flash_attention_plain(q, k, v))
+    q, k, v, _ = _bhnd_inputs(1, 2, 256, 256, 32, torch.float32)
+    with pytest.raises(ValueError, match="one dtype"):
+        TA.flash_attention_cuda(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="do not fit"):
+        TA.flash_attention_cuda(q, k[:, :1], v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 32, 32, 3), (64, 64, 64, 3), (3, 5, 7, 1)])
+def test_fused_normalize_flip_kernel_matches_plain(shape, dtype):
+    """Bit for bit in f32 (the same f32 product); in bf16 within one bf16 step (both
+    round the same f32 value once). prepare_batch(backend="pallas") launches it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import preprocess as TP
+
+    rs = np.random.RandomState(3)
+    images = torch.tensor(rs.randint(0, 256, shape).astype(np.uint8), device="cuda")
+    flip = torch.tensor(rs.rand(shape[0]) < 0.5, device="cuda")
+    before = TP.fused_normalize_flip.launches
+    out = TP.fused_normalize_flip(images, flip, dtype)
+    batch = TP.prepare_batch({"image": images}, train=True, flip=flip, dtype=dtype,
+                             backend="pallas")
+    assert TP.fused_normalize_flip.launches == before + 2
+    ref = TP.fused_normalize_flip_plain(images, flip, dtype)
+    assert out.dtype == dtype and out.shape == shape and torch.equal(batch["image"], out)
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=0, rtol=2.0**-7)

@@ -1,7 +1,8 @@
 """The port's training path against the JAX package's, on the CPU.
 
 A tiny DDPM (UNet dim 16, dim_mults (1, 2), 16 px, f32) starts from one JAX
-``TrainState``, loaded into the port with ``load_flax_train_state``. The random draws
+``TrainState`` (the weights drawn by the port, ``torch_flax_params``), loaded into the
+port with ``load_flax_train_state``. The random draws
 of a JAX step (flip, t, noise from ``fold_in(rng, step)``, then ``split`` 3 and 5)
 are made with JAX's own key schedule and handed to the port, so both sides see the
 same batch, flips, timesteps and noise. Everything is f32, so the two differ only in
@@ -28,12 +29,8 @@ from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
 from lightning_generative_models_tpu_torch.train import cli
 from lightning_generative_models_tpu_torch.train.trainer import Trainer
-from lightning_generative_models_tpu_torch.weights import (
-    _TRANSFORMS,
-    flax_paths,
-    flatten_tree,
-    load_flax_train_state,
-)
+from lightning_generative_models_tpu_torch.weights import load_flax_train_state
+from torch_flax_params import as_port, state_from_port
 
 torch.set_num_threads(1)
 
@@ -46,11 +43,19 @@ B = 4
 def jax_setup():
     """The JAX model, a TrainState and a uint8 batch."""
     model = JaxDDPM(**MODEL_ARGS)
-    state = jax.jit(model.init_state)(jax.random.PRNGKey(0))
+    state = state_from_port(model, DDPM(**MODEL_ARGS, device="cpu"))
     rs = np.random.RandomState(0)
     batch = {"image": rs.randint(0, 256, (B, 16, 16, 3)).astype(np.uint8),
              "label": np.zeros(B, np.int32)}
     return model, state, batch
+
+
+@pytest.fixture(scope="module")
+def jitted(jax_setup):
+    """The JAX model's grad_step and apply_grad_step, jitted once for the module: its
+    train_step is apply_grad_step(grad_step(...)), so the step tests share two compiles."""
+    model = jax_setup[0]
+    return jax.jit(model.grad_step), jax.jit(model.apply_grad_step)
 
 
 def _draws(rng, step, shape):
@@ -70,17 +75,6 @@ def _port_model(state):
     ddpm = DDPM(**MODEL_ARGS, device="cpu")
     load_flax_train_state(ddpm, jax.device_get(state))
     return ddpm
-
-
-def _as_port(module, jax_tree):
-    """A flax-shaped tree -> tensors in the order of the port module's parameters."""
-    flat = flatten_tree(jax.device_get(jax_tree))
-    by_param = {id(p): (path, tr) for path, (p, tr) in flax_paths(module).items()}
-    out = []
-    for p in module.parameters():
-        path, tr = by_param[id(p)]
-        out.append(torch.tensor(_TRANSFORMS[tr](np.asarray(flat[path], np.float32))))
-    return out
 
 
 def _rel_to_max(port, ref):
@@ -112,23 +106,23 @@ def test_prepare_batch_and_p_losses_match_jax(jax_setup):
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
 
 
-def test_grad_step_matches_jax_grad(jax_setup):
+def test_grad_step_matches_jax_grad(jax_setup, jitted):
     """Loss and every parameter gradient, relative to the tensor's largest magnitude:
     a gradient is a sum over the batch and the pixels, so 1e-4 of its scale."""
     model, state, batch = jax_setup
     rng = jax.random.PRNGKey(3)
     draws, _ = _draws(rng, int(state.step), (B, 16, 16, 3))
-    jgrads, jmetrics = jax.jit(model.grad_step)(
+    jgrads, jmetrics = jitted[0](
         state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
     ddpm = _port_model(state)
     grads, metrics = ddpm.grad_step(batch, **draws)
     np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]), rtol=1e-5)
-    for g, jg in zip(grads, _as_port(ddpm.unet, jgrads)):
+    for g, jg in zip(grads, as_port(ddpm.unet, jgrads)):
         assert _rel_to_max(g, jg) <= 1e-4
 
 
 @pytest.mark.parametrize("step", [99, 100, 109, 110])
-def test_apply_grad_step_matches_jax_across_ema_boundaries(jax_setup, step):
+def test_apply_grad_step_matches_jax_across_ema_boundaries(jax_setup, jitted, step):
     """From a mid-run state (moments and EMA different from the weights) at step
     ``step``: the EMA copies at step 100, keeps at 101 and 111, decays at 110. The
     same grads go to both sides; weights, both Adam moments and the EMA match."""
@@ -148,8 +142,8 @@ def test_apply_grad_step_matches_jax_across_ema_boundaries(jax_setup, step):
     ddpm = _port_model(state)
     assert ddpm.step == step
 
-    new_state, _ = jax.jit(model.apply_grad_step)(state, grads, {"loss": jnp.float32(0.0)})
-    ddpm.apply_grad_step(_as_port(ddpm.unet, grads), {"loss": torch.tensor(0.0)})
+    new_state, _ = jitted[1](state, grads, {"loss": jnp.float32(0.0)})
+    ddpm.apply_grad_step(as_port(ddpm.unet, grads), {"loss": torch.tensor(0.0)})
     assert ddpm.step == int(new_state.step) == step + 1
 
     new_adam = new_state.opt_state["model"][0]
@@ -161,34 +155,34 @@ def test_apply_grad_step_matches_jax_across_ema_boundaries(jax_setup, step):
          new_adam.nu),
     ]
     for port, ref in checks:
-        for a, b in zip(port, _as_port(ddpm.unet, ref)):
+        for a, b in zip(port, as_port(ddpm.unet, ref)):
             np.testing.assert_allclose(a.detach().numpy(), b.numpy(), atol=1e-6, rtol=1e-5)
 
 
-def test_three_train_steps_match_jax(jax_setup):
+def test_three_train_steps_match_jax(jax_setup, jitted):
     """Three full steps from the same state and draws. The per-step loss agrees within
     rtol 1e-4. Each step's update is compared as a whole,
     ||d_port - d_jax|| / ||d_jax|| <= 1e-3: Adam's first steps move every weight by
     about lr * sign(g), so a gradient element near zero, whose sign the order of f32
     sums can flip, moves its weight by up to 2 lr on one side only; element-wise
     bounds would test that noise, the update's norm does not."""
-    model, state, batch = jax_setup
+    _, state, batch = jax_setup
     rng = jax.random.PRNGKey(11)
     ddpm = _port_model(state)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    train_step = jax.jit(model.train_step)
+    grad_step, apply_grad_step = jitted
     for _ in range(3):
         before = [p.detach().clone() for p in ddpm.unet.parameters()]
-        jbefore = _as_port(ddpm.unet, state.params["model"])
+        jbefore = as_port(ddpm.unet, state.params["model"])
         draws, _ = _draws(rng, int(state.step), (B, 16, 16, 3))
-        state, jmetrics = train_step(state, jbatch, rng)
+        state, jmetrics = apply_grad_step(state, *grad_step(state, jbatch, rng))
         metrics = ddpm.train_step(batch, **draws)
         np.testing.assert_allclose(float(metrics["train_loss"]),
                                    float(jmetrics["train_loss"]), rtol=1e-4)
         d_port = torch.cat([(p.detach() - b).reshape(-1)
                             for p, b in zip(ddpm.unet.parameters(), before)])
         d_jax = torch.cat([(a - b).reshape(-1) for a, b in
-                           zip(_as_port(ddpm.unet, state.params["model"]), jbefore)])
+                           zip(as_port(ddpm.unet, state.params["model"]), jbefore)])
         assert float((d_port - d_jax).norm() / d_jax.norm()) <= 1e-3
     assert ddpm.step == int(state.step) == 3
 
@@ -377,6 +371,24 @@ def test_refused_flags_raise_not_implemented(tmp_path, monkeypatch, flags):
 
 
 def test_prepare_batch_pallas_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="kernel #7"):
-        prepare_batch({"image": torch.zeros(1, 4, 4, 3, dtype=torch.uint8)},
-                      backend="pallas")
+    """Once the raise of the unported kernel #7, now its path: on a CPU batch
+    ``backend="pallas"`` takes ``fused_normalize_flip``'s plain version (f32 math, one
+    rounding), which in f32 equals the default path bit for bit, flips where asked and
+    scales without flipping at eval time; an unknown backend raises."""
+    from lightning_generative_models_tpu_torch.ops.preprocess import fused_normalize_flip
+
+    image = torch.from_numpy(np.random.RandomState(4).randint(0, 256, (3, 4, 5, 3))
+                             .astype(np.uint8))
+    flip = torch.tensor([True, False, True])
+    for train in (True, False):
+        fused = prepare_batch({"image": image}, train=train, flip=flip, backend="pallas")
+        xla = prepare_batch({"image": image}, train=train, flip=flip)
+        assert torch.equal(fused["image"], xla["image"])
+    bf16 = prepare_batch({"image": image}, train=True, flip=flip, backend="pallas",
+                         dtype=torch.bfloat16)["image"]
+    assert torch.equal(bf16, fused_normalize_flip(image, flip, torch.bfloat16))
+    scaled = image.float() * (1.0 / 255.0)
+    assert torch.equal(bf16, scaled.flip(2).where(flip.reshape(-1, 1, 1, 1), scaled)
+                       .to(torch.bfloat16))
+    with pytest.raises(ValueError, match="unknown backend"):
+        prepare_batch({"image": image}, backend="triton")

@@ -1,8 +1,10 @@
 """The port's UNet forward against the JAX UNet, with the same flax weights.
 
-A small UNet (dim 16, dim_mults (1, 2), 16 px) keeps the JAX init and apply cheap; it
-still has every block kind: ResnetBlocks with and without the 1x1 skip conv, linear
-attention, full attention with memory KV, down- and upsampling. f32 on both sides: the
+A small UNet (dim 16, dim_mults (1, 2), 16 px) keeps the JAX apply cheap; it still has
+every block kind: ResnetBlocks with and without the 1x1 skip conv, linear attention,
+full attention with memory KV, down- and upsampling. The weights are drawn by the port
+and handed to flax as its own tree (``torch_flax_params``: checked against the tree of
+``jax.eval_shape`` of the flax init, so no init compiles). f32 on both sides: the
 outputs (magnitude ~5) differ by the order of f32 sums through ~20 layers, so ATOL 1e-4.
 """
 
@@ -15,7 +17,9 @@ import torch
 from lightning_generative_models_tpu.models.diffusion.unet import UNet as JaxUNet
 from lightning_generative_models_tpu_torch.models.diffusion.unet import UNet
 from lightning_generative_models_tpu_torch.models.modules.attention import Attention
+from lightning_generative_models_tpu_torch.models.modules.layers import init_params
 from lightning_generative_models_tpu_torch.weights import flatten_tree, load_flax_params
+from torch_flax_params import flax_tree, init_shapes
 
 torch.set_num_threads(1)
 
@@ -41,11 +45,11 @@ def case(request):
     }
     jnet = JaxUNet(dim=16, dim_mults=(1, 2), **kw)
     jin = {k: None if v is None else jnp.asarray(v) for k, v in inputs.items()}
-    params = jnet.init(jax.random.PRNGKey(1), jin["x"], jin["time"],
-                       labels=jin["labels"])["params"]
-    out = jnet.apply({"params": params}, jin["x"], jin["time"], jin["x_self_cond"],
-                     labels=jin["labels"])
-    return kw, inputs, jax.device_get(params), np.asarray(out)
+    net = init_params(UNet(dim=16, dim_mults=(1, 2), **kw), torch.Generator().manual_seed(1))
+    params = flax_tree(net, init_shapes(jnet, jin["x"], jin["time"], labels=jin["labels"]))
+    out = jax.jit(jnet.apply)({"params": params}, jin["x"], jin["time"], jin["x_self_cond"],
+                              labels=jin["labels"])
+    return kw, inputs, params, np.asarray(out)
 
 
 def test_unet_matches_jax(case):
@@ -66,8 +70,8 @@ def test_unet_bf16_matches_jax_bf16(case):
     kw, inputs, params, _ = case
     jnet = JaxUNet(dim=16, dim_mults=(1, 2), dtype=jnp.bfloat16, **kw)
     jin = {k: None if v is None else jnp.asarray(v) for k, v in inputs.items()}
-    ref = np.asarray(jnet.apply({"params": params}, jin["x"], jin["time"],
-                                jin["x_self_cond"], labels=jin["labels"]))
+    ref = np.asarray(jax.jit(jnet.apply)({"params": params}, jin["x"], jin["time"],
+                                         jin["x_self_cond"], labels=jin["labels"]))
     net = load_flax_params(UNet(dim=16, dim_mults=(1, 2), dtype=torch.bfloat16, **kw), params)
     tin = {k: None if v is None else torch.from_numpy(v) for k, v in inputs.items()}
     with torch.inference_mode():
@@ -93,7 +97,26 @@ def test_conditional_unet_requires_labels():
         net(torch.zeros(1, 16, 16, 3), torch.zeros(1, dtype=torch.long))
 
 
-def test_flash_attention_not_ported_raises():
-    attn = Attention(32, flash=True, residual=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn(torch.zeros(1, 16, 16, 32))  # 256 + 4 keys: the flash path
+def test_flash_attention_not_ported_raises(monkeypatch):
+    """Once the flash path's raise, now the path itself: at 16 x 16 (256 + 4 keys)
+    ``Attention(flash=True)`` goes through the flash dispatcher with [b, h, n, d] views,
+    and on the CPU matches the f32 einsum path of ``flash=False`` with the same weights
+    (the two round q * scale at other points: within 1e-5). At 8 x 8 it keeps the
+    einsum path."""
+    from lightning_generative_models_tpu_torch.models.modules import attention as attn_mod
+
+    calls = []
+    sdpa = attn_mod.scaled_dot_product_attention
+    monkeypatch.setattr(attn_mod, "scaled_dot_product_attention",
+                        lambda q, k, v, **kw: calls.append((q.shape, k.shape, kw)) or
+                        sdpa(q, k, v, **kw))
+    flash = init_params(Attention(32, flash=True, residual=True),
+                        torch.Generator().manual_seed(0))
+    plain = Attention(32, flash=False, residual=True)
+    plain.load_state_dict(flash.state_dict())
+    x = torch.randn(2, 16, 16, 32, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        out, ref = flash(x), plain(x)
+        flash(x[:, :8, :8])
+    assert calls == [((2, 4, 256, 32), (2, 4, 260, 32), {"use_pallas": True})]
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
