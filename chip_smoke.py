@@ -45,10 +45,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      steps under torch.profiler (full table in chiprun_out/chip_smoke/vq_profile.txt);
  12. the packed-qkv attention kernels (#3 forward, #4 backward) against their plain
      versions at DiT-S/2's shape (b 128, n 256, h 6, d 64) in bf16 and f32 and both
-     layouts, at h 8, d 48 (h3d), at a ragged n = 200 and at n = 64: bit-identical
-     repeats, the autograd path against torch autograd through the plain version; times
-     of the kernels, the plain versions and scaled_dot_product_attention (forward, and
-     its backward alone), beside the bounds;
+     layouts, at h 8, d 48 (h3d), at a ragged n = 200, at n = 64 and at d 128 with a
+     ragged n = 260: bit-identical repeats, the autograd path against torch autograd
+     through the plain version; times of the kernels, the plain versions and
+     scaled_dot_product_attention (forward, and its backward alone), beside the bounds
+     (f32 operations at the 3xTF32 rate, PEAK_F32_ACCURATE_FLOPS);
  13. card against CPU, f32, bs2, the full-width DiT-S/2 of configs/diffusion/dit_cifar10.json
      (weights moved off adaLN-Zero's zeros): the forward, a 3-step DDIM chain with
      classifier-free guidance from one x_T, and one train step's loss and gradients;
@@ -66,7 +67,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (n_q 256, n_kv 260, d 32), a ragged n = 300 and a long n = 1024, bf16 and f32;
      bit-identical repeats; its backward route (kernel #4's entry on [b, h, n, d]
      strides) and the autograd path against autograd through the plain version; times of
-     the kernel, the plain versions and scaled_dot_product_attention, beside the bounds;
+     the kernel, the plain versions and scaled_dot_product_attention, beside the bounds,
+     and of kernel #3's kernel on the same operands (checked against the f32 math);
  18. the preprocess kernel (#7) against its plain version at 128 x 32 x 32 x 3 and
      64 x 64 x 64 x 3, f32 (bit for bit) and bf16; times beside the bound and the
      backend="xla" path; then prepare_batch(backend="pallas") over 8 train batches with
@@ -115,6 +117,12 @@ FM_RUN = "chip_smoke_fm_dit"  # experiments/FlowMatching/<this>
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 CUDA cores
 PEAK_TF32_FLOPS = 494.7e12  # TF32 tensor cores: the bound a TF32 VQ search would have
+# The rate of f32-accurate products on the tensor cores: 3xTF32 takes three TF32 products
+# for one f32 product. The softmax-attention kernels' f32 path runs at it, and can beat the
+# 67 TFLOP/s of f32 FMA, so their f32 operations bound is taken at this rate.
+PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
+ATTN_PEAK_FLOPS = {"bfloat16": PEAK_FLOPS["bfloat16"], "float32": PEAK_F32_ACCURATE_FLOPS}
+ATTN_PEAK_IS = {"bfloat16": "989 TFLOP/s bf16", "float32": "165 TFLOP/s f32-accurate (3xTF32)"}
 
 # Tolerances of a kernel against its plain version, on max |k - p| / (1 + |p|):
 # f32 differs by the order of f32 sums; bf16 by rounding points (the kernel keeps
@@ -151,12 +159,14 @@ VQGAN_STEPS, VQGAN_DISC_START = 40, 36
 
 # Kernels #3 and #4 (b, n, heads, d, layout, dtype): DiT-S/2 at bs128 (the train batch and
 # the guided sampling batch, 64 doubled) in both layouts and both dtypes, heads 8 at d 48
-# (dit_cifar10_tp / dit_moe_cifar10), a ragged n and a small n.
+# (dit_cifar10_tp / dit_moe_cifar10), a ragged n, a small n and d 128 at a ragged n.
 ATTN_MAIN = (128, 256, 6, 64)
 ATTN_CASES = [(*ATTN_MAIN, lay, dt) for dt in ("bfloat16", "float32") for lay in ("s3hd", "h3d")]
 ATTN_CASES += [(128, 256, 8, 48, "h3d", dt) for dt in ("bfloat16", "float32")]
 ATTN_CASES += [(128, 200, 6, 64, "s3hd", dt) for dt in ("bfloat16", "float32")]
 ATTN_CASES += [(128, 64, 6, 64, "h3d", dt) for dt in ("bfloat16", "float32")]
+# The widest head the kernels take (their d = 128 instances) at a ragged n.
+ATTN_CASES += [(64, 260, 2, 128, "s3hd", dt) for dt in ("bfloat16", "float32")]
 # Forward, max |k - p| / (1 + |p|): f32 the order of f32 sums; bf16 the plain version
 # rounds the logits (steps of 2^-6 at magnitude 2-4), the probabilities and p v to bf16
 # where the kernel keeps f32 and rounds the output once. ATTN_BF16_MATH: the bf16 kernel
@@ -1065,12 +1075,12 @@ def vq_train_breakdown(torch, vq, card: str, steps: int = 20, repeats: int = 3) 
 def attn_bound_ms(b, n, heads, d, dtype, backward=False):
     """(bytes ms, operations ms) of one call: qkv read and the output written once
     (backward: qkv and g read, dqkv written); 4 b h n^2 d flops forward (q k^T and p v),
-    10 b h n^2 d backward (the five [n, n] x d products), at the peak of the type."""
+    10 b h n^2 d backward (the five [n, n] x d products), at ATTN_PEAK_FLOPS of the type."""
     elt = 2 if dtype == "bfloat16" else 4
     hd = heads * d
     nbytes = b * n * (3 * hd + hd + (3 * hd if backward else 0)) * elt
     flops = (10 if backward else 4) * b * heads * n * n * d
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / ATTN_PEAK_FLOPS[dtype]
 
 
 def sdpa_views(qkv, heads, layout):
@@ -1155,8 +1165,8 @@ def check_attention(torch, ta) -> dict:
         shapes.append(shape)
         print(f"  time: forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
               f"{library_ms:.4f} ms, bound {shape['bound_ms']:.4f} ms (bytes {bytes_ms:.4f}, "
-              f"operations {ops_ms:.4f}); backward kernel {bwd_ms:.4f} ms, plain "
-              f"{bwd_plain_ms:.4f} ms, SDPA backward {bwd_library_ms:.4f} ms, bound "
+              f"operations {ops_ms:.4f} at {ATTN_PEAK_IS[dt]}); backward kernel {bwd_ms:.4f} "
+              f"ms, plain {bwd_plain_ms:.4f} ms, SDPA backward {bwd_library_ms:.4f} ms, bound "
               f"{shape['bwd_bound_ms']:.4f} ms (bytes {bbytes_ms:.4f}, operations "
               f"{bops_ms:.4f})", flush=True)
         if (b, n, heads, d) == ATTN_MAIN and (layout, dt) == ("s3hd", "bfloat16"):
@@ -1248,12 +1258,12 @@ def check_dit_card_vs_cpu(torch) -> None:
 def flash_bound_ms(b, heads, n_q, n_kv, d, dtype, backward=False):
     """(bytes ms, operations ms) of one call: q, k, v read and o written once (backward:
     q, k, v and g read, dq, dk, dv written); 4 b h n_q n_kv d flops forward, 10 backward
-    (the five [n_q, n_kv] x d products), at the peak of the type."""
+    (the five [n_q, n_kv] x d products), at ATTN_PEAK_FLOPS of the type."""
     elt = 2 if dtype == "bfloat16" else 4
     rows = (3 * n_q + 4 * n_kv) if backward else (2 * n_q + 2 * n_kv)
     nbytes = b * heads * rows * d * elt
     flops = (10 if backward else 4) * b * heads * n_q * n_kv * d
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / ATTN_PEAK_FLOPS[dtype]
 
 
 def flash_operands(torch, gen, b, heads, n_q, n_kv, d, operands, dtype):
@@ -1270,6 +1280,27 @@ def flash_operands(torch, gen, b, heads, n_q, n_kv, d, operands, dtype):
         bases = [randn(b, n_q, heads, d), randn(b, n_kv, heads, d), randn(b, n_kv, heads, d)]
         return bases, lambda t: [x.transpose(1, 2) for x in t]
     return [randn(b, heads, n_q, d), randn(b, heads, n_kv, d), randn(b, heads, n_kv, d)], list
+
+
+def qkv_kernel_on_views(torch, ta, q, k, v):
+    """Kernel #3's kernel (csrc/attention_qkv.cu) on [b, h, n, d] q, k and v through its C
+    entry, which takes any (batch, token, head) strides and n_q != n_kv: is it faster than
+    #5 on #5's own operands? Launched here only, so counted nowhere."""
+    import ctypes
+
+    b, h, n_q, d = q.shape
+    if not all(ta._rows_aligned(t) for t in (q, k, v)):
+        fail("the flash operands are not 16-byte aligned rows")
+    out = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(2), t.stride(1))]
+    strides = (ctypes.c_longlong * 12)(*strides, n_q * h * d, h * d, d)
+    lib = ta._library("attention_qkv", "lgm_attention_qkv_fwd", ta._FWD_ARGTYPES)
+    err = lib.lgm_attention_qkv_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
+        b, h, n_q, k.shape[2], d, int(q.dtype == torch.bfloat16), d**-0.5,
+        torch.cuda.current_stream().cuda_stream)
+    ta.cuda_build.check(lib, err, "attention kernel on [b, h, n, d] views")
+    return out.transpose(1, 2)
 
 
 def check_flash_attention(torch, ta) -> dict:
@@ -1330,6 +1361,11 @@ def check_flash_attention(torch, ta) -> dict:
             plain_ms = time_ms(lambda: ta.flash_attention_plain(q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             bwd_ms = time_ms(lambda: ta.flash_attention_bwd_cuda(q, k, v, g))
+            qkv_out = qkv_kernel_on_views(torch, ta, q, k, v)
+            qkv_ms = time_ms(lambda: qkv_kernel_on_views(torch, ta, q, k, v))
+        qkv_err = ((qkv_out.float() - math).abs() / (1 + math.abs())).max().item()
+        if qkv_err > (ATTN_TOL["float32"] if dt == "float32" else ATTN_BF16_MATH):
+            fail(f"kernel #3 on the flash operands disagrees with the plain math: {qkv_err:.2e}")
         bwd_plain_ms = time_ms(lambda: ta.flash_attention_bwd_plain(q, k, v, g))
         bwd_library_ms = time_ms(lambda: torch.autograd.grad(
             sdpa_out, sdpa_leaves, g, retain_graph=True))
@@ -1337,6 +1373,7 @@ def check_flash_attention(torch, ta) -> dict:
         bbytes_ms, bops_ms = flash_bound_ms(b, heads, n_q, n_kv, d, dt, backward=True)
         shape = {"b": b, "heads": heads, "n_q": n_q, "n_kv": n_kv, "d": d,
                  "operands": operands, "dtype": dt, "ms": ms, "plain_ms": plain_ms,
+                 "qkv_kernel_ms": qkv_ms, "qkv_kernel_math_rel_err": qkv_err,
                  "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
                  "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bwd_ms": bwd_ms,
                  "bwd_plain_ms": bwd_plain_ms, "bwd_library_ms": bwd_library_ms,
@@ -1348,7 +1385,9 @@ def check_flash_attention(torch, ta) -> dict:
         shapes.append(shape)
         print(f"  time: forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
               f"{library_ms:.4f} ms, bound {shape['bound_ms']:.4f} ms (bytes {bytes_ms:.4f}, "
-              f"operations {ops_ms:.4f}); backward route {bwd_ms:.4f} ms, plain (autograd) "
+              f"operations {ops_ms:.4f} at {ATTN_PEAK_IS[dt]}), kernel #3 on the same operands "
+              f"{qkv_ms:.4f} ms (vs f32 math {qkv_err:.2e}); backward route {bwd_ms:.4f} ms, "
+              f"plain (autograd) "
               f"{bwd_plain_ms:.4f} ms, SDPA backward {bwd_library_ms:.4f} ms, bound "
               f"{shape['bwd_bound_ms']:.4f} ms (bytes {bbytes_ms:.4f}, operations "
               f"{bops_ms:.4f})", flush=True)

@@ -45,6 +45,10 @@ namespace {
 using attn::Strides;
 using attn::from_f32;
 using attn::head_ptr;
+using attn::mma3;
+using attn::quad_max;
+using attn::quad_sum;
+using attn::split;
 using attn::to_f32;
 
 constexpr int kRows = 64;     // queries a block: 16 a warp
@@ -110,48 +114,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, long
   }
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo to ~2^-22 relative, hi and lo TF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a b for a 16 x 8 A (row-major fragment), an 8 x 8 B (column fragment), f32 c.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b in the 3xTF32 scheme, the small terms first. A B operand that is exactly
-// TF32 (kExactB: k and v given in bf16, whose 8-bit significand TF32 holds whole) has no
-// lo part: its term would add 0, so it is skipped and b goes in as its own bits.
-template <bool kExactB>
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_hi)[4],
-                                     const uint32_t (&a_lo)[4], const float b0,
-                                     const float b1) {
-  if (kExactB) {
-    const uint32_t b0_bits = __float_as_uint(b0), b1_bits = __float_as_uint(b1);
-    mma(c, a_lo, b0_bits, b1_bits);
-    mma(c, a_hi, b0_bits, b1_bits);
-    return;
-  }
-  uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
-  split(b0, b0_hi, b0_lo);
-  split(b1, b1_hi, b1_lo);
-  mma(c, a_lo, b0_hi, b1_hi);
-  mma(c, a_hi, b0_lo, b1_lo);
-  mma(c, a_hi, b0_hi, b1_hi);
-}
-
 // The A fragment of the 16 x 8 block at column c0 of a [16][ld] f32 tile (this warp's
 // rows), split: lane (g, t) holds rows g and g + 8 of columns c0 + t and c0 + t + 4.
 __device__ __forceinline__ void a_fragment(const float* tile, int ld, int c0, int g, int t,
@@ -160,16 +122,6 @@ __device__ __forceinline__ void a_fragment(const float* tile, int ld, int c0, in
   split(tile[(g + 8) * ld + c0 + t], hi[1], lo[1]);
   split(tile[g * ld + c0 + t + 4], hi[2], lo[2]);
   split(tile[(g + 8) * ld + c0 + t + 4], hi[3], lo[3]);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // DMAX: d rounded up to 32, 64 or 128; the loops over d's 8-wide steps stop at d.

@@ -145,7 +145,15 @@ def _kernel_args(qkv: torch.Tensor, heads: int, layout: str, what: str):
     if not (1 <= b <= KERNEL_MAX_BATCH and n >= 1):
         raise ValueError(f"the CUDA kernels take 1 <= b <= {KERNEL_MAX_BATCH} and n >= 1; "
                          f"got qkv of shape {tuple(qkv.shape)}")
-    return (b, n, d), qkv.detach().contiguous()
+    return (b, n, d), _aligned_contiguous(qkv)
+
+
+def _aligned_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """t detached and contiguous, with its first element 16-byte aligned: the kernels read
+    rows as 16-byte chunks, which fault at a misaligned address, and ``.contiguous()``
+    returns a contiguous view one element into its buffer as it is."""
+    t = t.detach().contiguous()
+    return t if _rows_aligned(t) else t.clone()
 
 
 def _packed_layout(qkv: torch.Tensor, layout: str, d: int):
@@ -188,10 +196,9 @@ def attention_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     if tuple(g.shape) != (b, n, heads * d) or g.device != qkv.device:
         raise ValueError(f"g of shape {tuple(g.shape)} on {g.device} does not fit qkv of "
                          f"shape {tuple(qkv.shape)} on {qkv.device}")
-    g = g.detach().to(qkv.dtype).contiguous()
+    g = _aligned_contiguous(g.to(qkv.dtype))
     dqkv = torch.empty_like(qkv)
-    # Per (batch row, head, query): the softmax's running max and sum, and rowsum(P * dP).
-    stats = torch.empty((3, b, heads, n), dtype=torch.float32, device=qkv.device)
+    stats = _bwd_stats(b, heads, n, qkv.device)
     offsets, strides = _packed_layout(qkv, layout, d)
 
     lib = _library("attention_qkv_bwd", "lgm_attention_qkv_bwd", _BWD_ARGTYPES)
@@ -205,6 +212,12 @@ def attention_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     cuda_build.check(lib, err, "attention backward kernel")
     fused_attention_qkv_bwd.launches += 1
     return dqkv
+
+
+def _bwd_stats(b: int, heads: int, n_q: int, device) -> torch.Tensor:
+    """The backward kernel's scratch: per (batch row, head, query) the softmax's max, 1 /
+    its sum, and rowsum(P * dP), the queries rounded up to the kernel's 64-row tiles."""
+    return torch.empty((3, b, heads, -(-n_q // 64) * 64), dtype=torch.float32, device=device)
 
 
 class FusedAttentionQKV(torch.autograd.Function):
@@ -309,13 +322,13 @@ def _flash_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: 
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
-    """Whether the flash kernel can read t's [d] rows in place as 16-byte chunks: the last
+    """Whether the kernels can read t's last-dim rows in place as 16-byte chunks: the last
     dim contiguous, the first element and every row 16-byte aligned. True of the DiT's
     views of a packed qkv and of any fresh tensor with d a multiple of 8; a copy is made
     otherwise."""
     size = t.element_size()
-    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(s * size % 16 == 0 for s in t.stride()[:3]))
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:-1]))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -356,11 +369,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"g of shape {tuple(g.shape)} on {g.device} does not fit q of shape "
                          f"{tuple(q.shape)} on {q.device}")
     g = g.detach().to(q.dtype)
-    if g.stride(3) != 1:
-        g = g.contiguous()
+    if not _rows_aligned(g):
+        g = g.clone(memory_format=torch.contiguous_format)
     dq, dk, dv = (torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
-    stats = torch.empty((3, b, h, n_q), dtype=torch.float32, device=q.device)
+    stats = _bwd_stats(b, h, n_q, q.device)
     # The kernel takes (batch, token, head) strides of q, k, v and g.
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, g)
                                          for s in (t.stride(0), t.stride(2), t.stride(1))))

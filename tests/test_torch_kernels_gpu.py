@@ -198,9 +198,13 @@ def test_vq_kernel_first_index_on_duplicated_codebook_and_refusals():
 # -- packed-qkv softmax attention (kernels #3 and #4) ----------------------------------
 
 # (b, n, heads, d): DiT-S/2's shape (n 256, d 64) at a small batch, a ragged n, heads 8 at
-# d 48 (the tp/MoE DiT configs), one token, and the widest head the kernels take.
+# d 48 (the tp/MoE DiT configs), one token, and the widest head the kernels take; then the
+# kernels' 64-row tiles' edges (n one below, at and one above a multiple of 64) at the
+# head widths whose k steps differ: d 8 and 48 (not a multiple of the bf16 product's 16,
+# so the k step is zero-padded), 32 and 128.
 ATTN_SHAPES = [(8, 256, 6, 64), (4, 200, 6, 64), (4, 64, 8, 48), (2, 1, 2, 8),
-               (2, 100, 1, 128)]
+               (2, 100, 1, 128), (2, 63, 2, 8), (2, 64, 2, 32), (2, 65, 3, 48),
+               (2, 127, 2, 128), (2, 129, 2, 48)]
 # Forward, on max |k - p| / (1 + |p|). f32: the order of f32 sums. bf16: the kernel keeps
 # the logits, the softmax and p v in f32 and rounds the output once; the plain version
 # rounds the logits (steps of 2^-6 at magnitude 2-4), the probabilities and the output to
@@ -292,6 +296,29 @@ def test_fused_attention_qkv_grads_match_autograd_through_plain(layout):
         grads.append(leaf.grad)
     assert _rel_elementwise(*outs) <= 1e-4
     assert _rel_err(*grads) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_qkv_kernels_take_misaligned_rows(dtype):
+    """A packed qkv (and a cotangent) one element into its buffer cannot be read as
+    16-byte chunks: the wrappers copy it first, with the same results as on aligned
+    tensors, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    qkv, g = _attn_inputs(2, 70, 2, 32, dtype, seed=4)
+    shifted = torch.zeros(qkv.numel() + g.numel() + 2, dtype=dtype, device="cuda")
+    qkv_off = shifted[1:1 + qkv.numel()].view(qkv.shape)
+    g_off = shifted[2 + qkv.numel():].view(g.shape)
+    qkv_off.copy_(qkv)
+    g_off.copy_(g)
+    assert qkv_off.is_contiguous() and not TA._rows_aligned(qkv_off)
+    assert not TA._rows_aligned(g_off)
+    with torch.inference_mode():
+        assert torch.equal(TA.attention_qkv_cuda(qkv_off, 2), TA.attention_qkv_cuda(qkv, 2))
+        assert torch.equal(TA.attention_qkv_bwd_cuda(qkv_off, g_off, 2),
+                           TA.attention_qkv_bwd_cuda(qkv, g, 2))
 
 
 def test_attention_qkv_kernel_rejects_what_it_does_not_take():
@@ -429,6 +456,27 @@ def test_flash_attention_grads_match_autograd_through_plain(b, heads, n_q, n_kv,
     for o, a, r in zip(out, again, ref):
         assert o.dtype == torch.bfloat16 and torch.equal(o, a)
         assert _rel_err(o, r) <= ATTN_BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,n_q,n_kv,d", [(2, 3, 130, 70, 48), (1, 2, 64, 193, 8)])
+def test_flash_attention_bwd_route_at_unequal_lengths(b, heads, n_q, n_kv, d, dtype):
+    """The backward kernel through the flash route with more queries than keys and fewer,
+    both ragged against the 64-row tiles: against the plain gradient in f32 on the same
+    inputs, each gradient at its input's shape, repeats bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    *qkv, g = _bhnd_inputs(b, heads, n_q, n_kv, d, dtype, seed=5)
+    with torch.inference_mode():
+        out = TA.flash_attention_bwd_cuda(*qkv, g)
+        again = TA.flash_attention_bwd_cuda(*qkv, g)
+    ref = TA.flash_attention_bwd_plain(*(t.float() for t in (*qkv, g)))
+    for o, a, r, t in zip(out, again, ref, qkv):
+        assert o.shape == t.shape and o.dtype == dtype and torch.equal(o, a)
+        assert _rel_err(o, r) <= ATTN_BWD_TOL[dtype]
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take():
