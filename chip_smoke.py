@@ -32,7 +32,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      on duplicated codebooks: every chosen code's distance within 1e-5 (1 + |d_min|)
      of the true minimum, indices equal on 99.9% of rows, first indices on ties, bit
      identical repeats; times of the kernel, the plain version and cuBLAS addmm +
-     argmin, beside the bound;
+     argmin, beside the bound (operations at the 3xTF32 rate, PEAK_F32_ACCURATE_FLOPS;
+     the f32 FMA bound printed beside it);
   9. card against CPU, f32, batch 4, full width: a VQ-VAE step's loss, metrics and
      gradients with the plain codebook and with the EMA codebook (and its buffers
      after the step), and a VQGAN step after disc_start (every metric);
@@ -64,7 +65,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      samples/s at bs64 with one batch under torch.profiler (dit_sample_profile.txt);
  17. flash attention (kernel #5) against its plain version on [b, h, n, d] operands: the
      views of DiT-S/2's packed qkv at bs128 in both layouts, the UNet's flash shape
-     (n_q 256, n_kv 260, d 32), a ragged n = 300 and a long n = 1024, bf16 and f32;
+     (n_q 256, n_kv 260, d 32), a ragged n = 300 and a long n = 1024, bf16 and f32
+     (f32 goes through kernel #3's forward), and d 128 at a ragged n = 260 in bf16;
      bit-identical repeats; its backward route (kernel #4's entry on [b, h, n, d]
      strides) and the autograd path against autograd through the plain version; times of
      the kernel, the plain versions and scaled_dot_product_attention, beside the bounds,
@@ -116,10 +118,11 @@ FM_RUN = "chip_smoke_fm_dit"  # experiments/FlowMatching/<this>
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time for a kernel's work.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 CUDA cores
-PEAK_TF32_FLOPS = 494.7e12  # TF32 tensor cores: the bound a TF32 VQ search would have
+PEAK_TF32_FLOPS = 494.7e12  # TF32 tensor cores
 # The rate of f32-accurate products on the tensor cores: 3xTF32 takes three TF32 products
-# for one f32 product. The softmax-attention kernels' f32 path runs at it, and can beat the
-# 67 TFLOP/s of f32 FMA, so their f32 operations bound is taken at this rate.
+# for one f32 product. The softmax-attention kernels' f32 path and the VQ search run at it,
+# and can beat the 67 TFLOP/s of f32 FMA, so their f32 operations bound is taken at this
+# rate.
 PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 ATTN_PEAK_FLOPS = {"bfloat16": PEAK_FLOPS["bfloat16"], "float32": PEAK_F32_ACCURATE_FLOPS}
 ATTN_PEAK_IS = {"bfloat16": "989 TFLOP/s bf16", "float32": "165 TFLOP/s f32-accurate (3xTF32)"}
@@ -187,15 +190,17 @@ FM_RESUME_STEPS = 10
 # Kernel #5, flash attention (b, heads, n_q, n_kv, d, operands, dtype): DiT-S/2 at bs128
 # as the flash DiT hands it over (views of the packed qkv in either layout), the UNet's
 # flash shape (16 x 16 queries and 4 memory keys more, [b, n, h, d] tensors seen as
-# [b, h, n, d]), a ragged n and a long n (contiguous [b, h, n, d]). Tolerances as kernel
-# #3's (ATTN_TOL, ATTN_BF16_MATH, ATTN_BWD_TOL): the same math and rounding points (#5's
-# 3xTF32 tensor-core products keep the f32 sums' accuracy).
+# [b, h, n, d]), a ragged n and a long n (contiguous [b, h, n, d]), and the widest head
+# (two 64-column slabs of the bf16 kernel) at a ragged n. Tolerances as kernel #3's
+# (ATTN_TOL, ATTN_BF16_MATH, ATTN_BWD_TOL): the same math and rounding points (in f32
+# the flash entry launches #3's kernel).
 FLASH_MAIN = (128, 6, 256, 256, 64, "s3hd", "bfloat16")
 FLASH_CASES = [(128, 6, 256, 256, 64, lay, dt) for dt in ("bfloat16", "float32")
                for lay in ("s3hd", "h3d")]
 FLASH_CASES += [(64, 4, 256, 260, 32, "bnhd", dt) for dt in ("bfloat16", "float32")]
 FLASH_CASES += [(128, 6, 300, 300, 64, "s3hd", dt) for dt in ("bfloat16", "float32")]
 FLASH_CASES += [(16, 4, 1024, 1024, 32, "bhnd", dt) for dt in ("bfloat16", "float32")]
+FLASH_CASES += [(64, 2, 260, 260, 128, "s3hd", "bfloat16")]
 # Kernel #7, uint8 -> float with the flip: the train batch at 32 px and a 64 px batch.
 PRE_SHAPES = [(128, 32, 32, 3), (64, 64, 64, 3)]
 PRE_MAIN = ((128, 32, 32, 3), "float32")
@@ -212,11 +217,11 @@ PROFILE_GROUPS = {
     "linear attention backward (csrc/linear_attention_bwd.cu)": (
         "stats_kernel", "token_a_kernel", "context_grad_kernel", "token_b_kernel",
         "atb_partial_kernel", "reduce_rows_kernel"),
-    "VQ nearest codes (csrc/vq.cu)": ("vq_nearest_kernel",),
+    "VQ nearest codes (csrc/vq.cu)": ("vq_nearest_wgmma_kernel",),
     "packed-qkv attention (csrc/attention_qkv.cu)": ("attention_fwd_kernel",),
     "packed-qkv attention backward (csrc/attention_qkv_bwd.cu)": (
         "attention_bwd_query_kernel", "attention_bwd_key_kernel"),
-    "flash attention (csrc/flash_attention.cu)": ("flash_attention_kernel",),
+    "flash attention (csrc/flash_attention.cu)": ("flash_fwd_wgmma_kernel",),
     "preprocess (csrc/preprocess.cu)": ("normalize_flip_kernel",),
     "optimizer and EMA (foreach)": ("multi_tensor_apply",),
     "convolution (cuDNN)": ("fprop", "convolve", "cudnn", "nhwcAddPadding", "wgrad"),
@@ -702,12 +707,13 @@ def vq_distances(torch, flat, codebook, idx):
 
 
 def vq_bound_ms(n, k, d):
-    """(bytes ms, f32 operations ms, TF32 operations ms) of one search: flat, codebook
-    and the indices read or written once; 2 n k d flops."""
+    """(bytes ms, operations ms, f32 FMA operations ms) of one search: flat, codebook and
+    the indices read or written once; 2 n k d flops of f32 accuracy, at the 3xTF32 rate
+    of the tensor cores (PEAK_F32_ACCURATE_FLOPS) and at the 67 TFLOP/s of f32 FMA."""
     nbytes = 4 * (n * d + k * d + n)
     flops = 2 * n * k * d
-    return (1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS["float32"],
-            1e3 * flops / PEAK_TF32_FLOPS)
+    return (1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_ACCURATE_FLOPS,
+            1e3 * flops / PEAK_FLOPS["float32"])
 
 
 def check_vq(torch, vq) -> dict:
@@ -740,16 +746,16 @@ def check_vq(torch, vq) -> dict:
         plain_ms = time_ms(lambda: vq.nearest_codes_plain(flat, codebook))
         library_ms = time_ms(
             lambda: torch.addmm(cb_sq, flat, codebook.T, alpha=-2.0).argmin(1))
-        bytes_ms, ops_ms, tf32_ms = vq_bound_ms(n, k, d)
+        bytes_ms, ops_ms, fma_ms = vq_bound_ms(n, k, d)
         shape = {"n": n, "k": k, "d": d, "ms": ms, "plain_ms": plain_ms,
                  "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-                 "bytes_ms": bytes_ms, "ops_ms": ops_ms, "tf32_ops_ms": tf32_ms,
+                 "bytes_ms": bytes_ms, "ops_ms": ops_ms, "fma_ops_ms": fma_ms,
                  "max_abs_err": abs_err}
         shapes.append(shape)
         print(f"  time N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, addmm + argmin "
-              f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-              f"{bytes_ms:.4f}, f32 operations {ops_ms:.4f}; TF32 tensor-core operations "
-              f"{tf32_ms:.4f})", flush=True)
+              f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.5f} ms (bytes "
+              f"{bytes_ms:.5f}, operations {ops_ms:.5f} at 165 TFLOP/s f32-accurate "
+              f"(3xTF32); at 67 TFLOP/s of f32 FMA {fma_ms:.5f})", flush=True)
         if (n, k, d) == VQ_MAIN:
             main = shape
     flat = torch.randn(4096, 64, device="cuda", generator=gen)
@@ -1058,7 +1064,7 @@ def vq_train_breakdown(torch, vq, card: str, steps: int = 20, repeats: int = 3) 
                               "vq_profile.txt", card)
     vq_us = sum(e.self_device_time_total for e in prof.key_averages()
                 if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                and "vq_nearest_kernel" in e.key)
+                and "vq_nearest_wgmma_kernel" in e.key)
     out = {"images_per_s": ips, "ms_per_step": 1e3 * wall / steps,
            "vq_launches_per_step": searches / profiled}
     if summary:
@@ -1777,7 +1783,7 @@ def main() -> None:
     print(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "Performance Loss")):
                 print(f"  ptxas {name}:", line.strip())
 
     print("[2] kernels against their plain versions", flush=True)
@@ -1942,7 +1948,8 @@ def main() -> None:
         "ms_is": "one search at N=4096, K=512, D=64, f32 (vqvae_cifar10 at bs256)",
         "max_abs_err_is": "max over rows of |d(z, kernel's code) - d(z, plain's code)|",
         "library_is": "torch.addmm(|e|^2, z, e^T, alpha=-2).argmin(1)",
-        "tf32_bound_ms": vq_stats["tf32_ops_ms"],
+        "bound_is": "2 N K D flops at 165 TFLOP/s f32-accurate (3xTF32 on the tensor cores)",
+        "fma_bound_ms": vq_stats["fma_ops_ms"],
         "shapes": vq_stats["shapes"],
     }, {
         "name": "attention_qkv",

@@ -1,7 +1,8 @@
 // Shared pieces of the softmax-attention kernels: the packed-qkv forward and backward
 // (attention_qkv.cu, replacing _vmem_attn_fwd_kernel; attention_qkv_bwd.cu, replacing
 // _vmem_attn_bwd_kernel) and the flash forward (flash_attention.cu, replacing
-// _flash_kernel), all of lightning_generative_models_tpu/ops/attention.py.
+// _flash_kernel), all of lightning_generative_models_tpu/ops/attention.py; the VQ search
+// (vq.cu) takes its TF32 split, fragment reads and copies.
 //
 // What bounds them on an H100 SXM: their [n, n] x d products (989 TFLOP/s bf16, 495 TF32
 // on the tensor cores, against 67 TFLOP/s of f32 FMA on the CUDA cores) and, at the DiT's
@@ -12,10 +13,9 @@
 //  - mma_bf16 (m16n8k16, bf16 operands) for operands that are exact in bf16: the bf16
 //    path's q, k, v and g, whose products are exact in the f32 accumulator.
 //  - mma (m16n8k8, TF32 operands) and the 3xTF32 scheme: an f32 x is split into a TF32
-//    hi and the remainder lo, and a b is taken as a_hi b_hi + a_hi b_lo + a_lo b_hi (the
-//    dropped a_lo b_lo is ~2^-21 relative), which keeps the f32 products' accuracy for
-//    the f32 path's operands. mma3 and split (conversions) are the flash kernel's;
-//    mma3_split and split_tf32 (integer rounding) the packed-qkv kernels'.
+//    hi and the remainder lo (split_tf32, by integer rounding), and a b is taken as
+//    a_hi b_hi + a_hi b_lo + a_lo b_hi (mma3_split; the dropped a_lo b_lo is ~2^-21
+//    relative), which keeps the f32 products' accuracy for the f32 path's operands.
 //  - split_bf16: an f32 intermediate (P, dS) as bf16 hi + bf16 lo (~2^-17 relative) for
 //    a product with an exact bf16 operand: two mma_bf16 where one f32 product was.
 //  - ldmatrix, plain and transposed, for bf16 fragments of row-major tiles, and plain
@@ -48,18 +48,6 @@ struct Strides {
   long long batch, token, head;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <typename T>
 __device__ __forceinline__ const T* head_ptr(const void* base, const Strides& s, int b, int h) {
   return static_cast<const T*>(base) + b * s.batch + h * s.head;
@@ -77,18 +65,6 @@ inline bool valid_shape(int b, int heads, int n_q, int n_kv, int d) {
 
 // -- TF32 products (3xTF32) ----------------------------------------------------------
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo to ~2^-22 relative, hi and lo TF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
 // c += a b for a 16 x 8 A (row-major fragment), an 8 x 8 B (column fragment), f32 c.
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
@@ -98,29 +74,9 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c += a b in the 3xTF32 scheme, the small terms first. A B operand that is exactly
-// TF32 (kExactB: k and v given in bf16, whose 8-bit significand TF32 holds whole) has no
-// lo part: its term would add 0, so it is skipped and b goes in as its own bits.
-template <bool kExactB>
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_hi)[4],
-                                     const uint32_t (&a_lo)[4], const float b0,
-                                     const float b1) {
-  if (kExactB) {
-    const uint32_t b0_bits = __float_as_uint(b0), b1_bits = __float_as_uint(b1);
-    mma(c, a_lo, b0_bits, b1_bits);
-    mma(c, a_hi, b0_bits, b1_bits);
-    return;
-  }
-  uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
-  split(b0, b0_hi, b0_lo);
-  split(b1, b1_hi, b1_lo);
-  mma(c, a_lo, b0_hi, b1_hi);
-  mma(c, a_hi, b0_lo, b1_lo);
-  mma(c, a_hi, b0_hi, b1_hi);
-}
-
-// x = hi + lo for the packed-qkv kernels' f32 path, in two integer operations and one
-// subtraction where split takes two conversions: hi rounded to TF32 by adding half of its
+// x = hi + lo for the f32 paths (the packed-qkv kernels, the VQ search), in two integer
+// operations and one subtraction where two cvt.rna.tf32 conversions would do: hi rounded
+// to TF32 by adding half of its
 // last place to the bits and clearing the 13 bits TF32 drops, lo the exact remainder,
 // which the mma reads truncated to TF32 (~2^-21 relative in all). The conversions were
 // a third of the f32 path's time on the H100. Finite x below 2^128 (1 - 2^-12) only: the rounding would carry past the largest float.

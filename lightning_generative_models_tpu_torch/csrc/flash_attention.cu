@@ -1,285 +1,570 @@
-// Flash attention forward on [b, h, n, d] operands, written by hand for Hopper (sm_90a).
+// Flash attention forward on [b, h, n, d] bf16 operands, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel lightning_generative_models_tpu/ops/attention.py:_flash_kernel
 // (launched through _flash_attention_impl, reached by scaled_dot_product_attention with
-// use_pallas=True at n_kv >= 256). Same math: q cast to f32 and scaled by d^-1/2, k and v
-// cast to f32, s = q k^T in f32, keys at or past n_kv masked to -inf, the online softmax's
-// running max and sum in f32, o accumulated as p v in f32 (the Pallas kernel's
-// p.astype(v_blk.dtype) is a cast to f32, since v_blk is already f32 there), o / l cast to
-// the output type once.
+// use_pallas=True at n_kv >= 256). Same function: s = q k^T scaled by d^-1/2 in f32, keys at
+// or past n_kv masked to -inf, the online softmax's running max and sum in f32, o
+// accumulated as p v in f32 with p never rounded to bf16 alone (the Pallas kernel casts k
+// and v to f32 first), o / l cast to bf16 once. Here the raw q k^T of the exact bf16 q and
+// k is scaled in f32 afterwards, as attention_qkv.cu does (d^-1/2 is not a power of two at
+// d = 48, so a scaled q would not be exact in bf16), with log2(e) folded into the scale so
+// that the softmax takes exp2.
 //
-// Operands are separate tensors read and written through their own (batch, head, token)
-// strides, the last dimension contiguous: the DiT's q, k and v are [b, h, n, d] views of
-// the packed [b, n, 3, h, d] or [b, n, h, 3, d] Dense output (no transpose copy), the
-// UNet's are views with the memory keys in front, and o may be a [b, h, n, d] view of a
-// [b, n, h, d] buffer, so that the caller's transpose back is free. n_q and n_kv are
-// independent (the UNet's attention has 4 memory keys more than queries).
+// f32 operands do not come here: flash_attention_cuda sends them to the forward of
+// attention_qkv.cu (kernel #3's), which takes the same [b, h, n, d] strides and n_q != n_kv
+// and was faster than this file's earlier 3xTF32 tile code at every measured f32 shape.
+//
+// Operands are read in place through their own (batch, head, token) strides, the last
+// dimension contiguous: the DiT's q, k and v are [b, h, n, d] views of the packed
+// [b, n, 3, h, d] or [b, n, h, 3, d] Dense output, the UNet's are views of [b, n, h, d]
+// tensors, and o is written through its strides (a [b, h, n, d] view of a [b, n, h, d]
+// buffer, so that the caller's transpose back is free). n_q and n_kv are independent.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): 4 b h n_q n_kv d flops
-// against q, k, v read once and o written once. At DiT-S/2 (b 128, h 6, n 256, d 64, bf16)
-// that is 12.9 GFLOP (13 us at the tensor-core peak) and 101 MB (30 us): bound by bytes.
+// against q, k, v read once and o written once. At DiT-S/2 (b 128, h 6, n 256, d 64) that
+// is 12.9 GFLOP (13 us at the tensor-core peak) and 101 MB (30 us): bound by bytes.
 //
-// Design. The TPU program runs one (batch*head row, 256-query block) per grid step and
-// walks the keys in blocks of 512, padded to a block multiple and masked. Here a block of
-// four warps takes one (b*h row, 64-query tile) of a 1-D grid in which the query tiles of
-// one row are neighbours, so that they run together and read the row's keys and values
-// from L2 rather than each from device memory. Each warp owns 16 query rows. The keys and
-// values stream through shared memory in f32 tiles of 64 (the ragged last tile masked in
-// place, no padded copies). Both products run on the tensor cores as warp-level
-// mma.sync.m16n8k8 on TF32 operands in the 3xTF32 scheme: every f32 operand x is split
-// into hi = tf32(x) and lo = tf32(x - hi), and a b is taken as a_hi b_hi + a_hi b_lo +
-// a_lo b_hi with f32 accumulation, which keeps the f32 products' accuracy (the dropped
-// a_lo b_lo term is ~2^-22 relative); bf16 k and v are TF32 already, so in bf16 the
-// products take two terms. The scores of a warp's 16 x 64 tile stay in its
-// registers in the mma accumulator layout for the online softmax (row max and sum over
-// the four lanes of a row); P goes through the warp's own rows of shared memory to
-// become the A operand of the P V product. The [n_q, n_kv] scores never reach device
-// memory. wgmma, TMA and pipelining are later work.
+// Design (TMA, wgmma, mbarriers, warp specialisation):
+//  - TMA tensor maps, one an operand and one for o, encoded on the host (the encoder is
+//    looked up at run time, so nothing is linked): dims (d, then the tensor's
+//    token, head and batch dims in increasing stride), its own strides in bytes, a box of
+//    64 columns by 64 tokens, 128-byte swizzle. TMA's out-of-bounds zero fill covers the
+//    ragged last key tile, query rows past n_q and the columns past d (d up to 64 is one
+//    64-column slab a tile, up to 128 two); the zero keys are masked to -inf.
+//  - A block of five warps takes one (b*h row, 64-query tile) of a 1-D grid in which the
+//    query tiles of a row are neighbours (they read the row's keys and values from L2);
+//    three blocks share an SM (two at d > 64). Warp 4 is the producer: one lane loads q and
+//    streams the K/V tiles of 64 keys through a ring of stages, each with a "full"
+//    mbarrier (TMA's byte count) and an "empty" one (an arrival from each consumer warp),
+//    so the copies of the next tiles are in flight while a tile's products run. Warps 0-3
+//    are the consumer warpgroup.
+//  - S = Q K^T as wgmma.m64n64k16, both operands read from shared memory by descriptors
+//    (K-major, 128-byte swizzle, the k step 32 bytes along the row): q and k are exact
+//    bf16, one product a step.
+//  - The online softmax on S in the accumulator registers: a thread holds rows g and g + 8
+//    of its warp's 16, a row's max and sum reduced over the four lanes of its quad; 2^x on
+//    the special-function unit.
+//  - O += P V as wgmma with A from registers: the accumulator layout of S is the A
+//    fragment layout, so P goes from the registers that made it into the product. V is
+//    the B operand read MN-major (the transpose bit). P is split into bf16 hi + lo (to
+//    ~2^-17 relative) and both parts meet the exact bf16 V: two products, so P is never
+//    rounded to bf16 alone.
+//  - The warpgroup's pipeline: tile j's scores and tile j - 1's P V are started together,
+//    the first half of tile j's softmax runs while that P V is in flight, and the stage of
+//    tile j - 1 goes back to the producer when it is done.
+//  - The epilogue writes o / l in bf16 to q's place in shared memory, swizzled as a TMA box,
+//    and one TMA store a slab sends whole rows to o's strides; the store drops the rows
+//    past n_q and the columns past d. No atomics: repeats are bit identical.
+// The loads set the pace at the DiT's shape, not the products: each 64-query block reads
+// its row's K and V from L2 (four times a row at n = 256). Sharing them between the blocks
+// of a thread-block cluster (TMA multicast) or between two consumer warpgroups of a block
+// measured slower on the H100 (PERF.md, Findings).
+
+#include <cuda.h>  // CUtensorMap and the encoder's types; the encoder is looked up at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
 
 #include <cstdint>
 
 #include "attention_qkv_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using attn::Strides;
-using attn::from_f32;
-using attn::head_ptr;
-using attn::mma3;
 using attn::quad_max;
 using attn::quad_sum;
-using attn::split;
-using attn::to_f32;
+using attn::smem_addr;
+using attn::split_bf16;
+using attn::store_pair;
+using wgmma::keep;
+using wgmma::mma_bf16_rs;
+using wgmma::mma_bf16_ss;
+using wgmma::wgmma_commit;
+using wgmma::wgmma_fence;
+using wgmma::wgmma_wait;
 
-constexpr int kRows = 64;     // queries a block: 16 a warp
-constexpr int kKeys = 64;     // keys a tile
-constexpr int kThreads = 128;
+constexpr int kRows = 64;           // queries a block: one consumer warpgroup
+constexpr int kKeys = 64;           // keys a tile
+constexpr int kThreads = 128 + 32;  // the consumer warpgroup and the producer warp
+constexpr int kSlabCols = 64;                    // bf16 columns of a 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr int kTileBytes = kKeys * kRowBytes;    // one slab of a K or V tile
 
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  Strides sq, sk, sv, so;  // (batch, token, head)
-  int heads, n_q, n_kv, d;
-  float scale;
+// Stages of the K/V ring and blocks an SM, by d rounded up (DMAX): three stages and three
+// blocks up to d = 64 (58 KB of shared memory a block), two and two at d = 128 (83 KB).
+template <int DMAX>
+constexpr int kStages = DMAX <= 64 ? 3 : 2;
+template <int DMAX>
+constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;
+
+template <int DMAX>
+struct Layout {
+  static constexpr int slabs = (DMAX + kSlabCols - 1) / kSlabCols;
+  static constexpr int q_bytes = slabs * kRows * kRowBytes;
+  static constexpr int stage_bytes = 2 * slabs * kTileBytes;  // K's slabs, then V's
+  static constexpr int barriers = 1 + 2 * kStages<DMAX>;      // q; full[s]; empty[s]
+  // 1024 bytes of slack to align the 128-byte swizzle's 1024-byte atoms.
+  static constexpr size_t smem = 1024 + q_bytes + kStages<DMAX> * stage_bytes + 8 * barriers;
 };
 
-// Row strides in floats of the shared tiles. q, k and p (d + 4, or 68 for p, = 4 mod 8):
-// the fragment reads (row g, column t) of the 32 lanes (g < 8, t < 4) fall in 32 banks.
-// v (d + 8): the reads (row t, column g) do, for d a multiple of 32. Both keep every row
-// 16-byte aligned for the float4 stores of load_rows.
-__host__ __device__ constexpr int ld_qk(int d) { return d + 4; }
-__host__ __device__ constexpr int ld_v(int d) { return d + 8; }
-constexpr int kLdP = kKeys + 4;
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
 
-size_t flash_smem(int d) {
-  return sizeof(float) * (kRows * ld_qk(d) + kKeys * ld_qk(d) + kKeys * ld_v(d) + kRows * kLdP);
+struct FlashArgs {
+  int heads, n_q, n_kv, d;
+  float scale_log2;  // d^-1/2 * log2(e)
+  int sel[4][3];     // per map (q, k, v, o): which of (token, head, batch) is map dim 1, 2, 3
+};
+
+// -- mbarriers, TMA, wgmma ---------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// dst[r][c] = src[row0 + r][c] * scale in f32 for r < 64, c < d; rows at or past n are 0.
-// A thread moves 16-byte chunks (8 bf16 or 4 f32 of a row; the wrapper passes 16-byte
-// aligned rows), up to eight at once: all eight loads are issued before the first store,
-// so a tile pays the memory latency about once, not once an element.
-template <typename T, int DMAX>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, long long token,
-                                          int row0, int n, int d, float scale) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kBatch = 8;
-  constexpr int kPerThread = (kRows * DMAX / kVec + kThreads - 1) / kThreads;
-  const int per_row = d / kVec, total = kRows * per_row;
+// Arrive and expect `bytes` of TMA traffic on the barrier's current phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t ns;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(ns));
+  return ns;
+}
+
+// Wait until the phase of the given parity has completed. A wait of 10 s (a fault: the
+// copies take microseconds) traps, so that the launch fails rather than hangs the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t since = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == 1024) since = global_ns();
+    if (tries > 1024 && tries % 1024 == 0 && global_ns() - since > 10000000000ull) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3)
+      : "memory");
+}
+
+// The box at dst to the global tensor; what lies past the tensor's bounds is not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The coordinate of tensor-map dim `which` (encode's sel): 0 token, 1 head, 2 batch row.
+__device__ __forceinline__ int coord(int which, int token, int h, int b) {
+  return which == 0 ? token : which == 1 ? h : b;
+}
+
+// Rows [token, token + box) of column slab `slab` of head h of batch row b.
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          const int (&sel)[3], uint32_t bar, int slab,
+                                          int token, int h, int b) {
+  tma_load_4d(dst, map, bar, slab * kSlabCols, coord(sel[0], token, h, b),
+              coord(sel[1], token, h, b), coord(sel[2], token, h, b));
+}
+
+// Shared-memory matrix descriptors, 128-byte swizzle (layout type 1 in bits 62-63), the
+// 8-row groups 1024 bytes apart (stride byte offset). K-major (q, k: a row of 64 bf16 along
+// k): the leading byte offset is unused. MN-major (v: a row of 64 bf16 along n, one row a
+// key): the leading byte offset is the step to the next 64 columns, unused at n = 64.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{kTileBytes >> 4} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0 (a probability that
+// small adds nothing to a row sum of at least 1).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -- the kernel ------------------------------------------------------------------------------
+
+// S = Q K^T for the block's 64 queries and a 64-key tile, over DMAX / 16 steps of k (the
+// columns past d are zero in both).
+template <int DMAX>
+__device__ __forceinline__ void start_qk(float (&s)[32], uint32_t q_s, uint32_t k_s) {
 #pragma unroll
-  for (int j0 = 0; j0 < kPerThread; j0 += kBatch) {
-    uint4 buf[kBatch];
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+    mma_bf16_ss(s, desc_k_major(q_s + (kk >> 2) * kRows * kRowBytes + (kk & 3) * 32),
+             desc_k_major(k_s + (kk >> 2) * kTileBytes + (kk & 3) * 32), kk > 0);
+}
+
+// O += (P_hi + P_lo) V over the tile's 64 keys, the small terms first.
+template <int SLABS>
+__device__ __forceinline__ void start_pv(float (&o)[SLABS][32], const uint32_t (&p_hi)[4][4],
+                                         const uint32_t (&p_lo)[4][4], uint32_t v_s) {
 #pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = threadIdx.x + (j0 + j) * kThreads;
-      const int r = i / per_row, c = i - r * per_row;
-      buf[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + j < kPerThread && i < total && row0 + r < n)
-        buf[j] = *reinterpret_cast<const uint4*>(src + (row0 + r) * token + c * kVec);
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int sl = 0; sl < SLABS; ++sl) {
+      const uint64_t dv = desc_mn_major(v_s + sl * kTileBytes + kk * 16 * kRowBytes);
+      mma_bf16_rs(o[sl], p_lo[kk], dv);
+      mma_bf16_rs(o[sl], p_hi[kk], dv);
+    }
+}
+
+// Pin the registers of the products in flight: no instruction but a product may define an
+// accumulator between wgmma.fence and the wait (or ptxas serializes the products), and an
+// operand's registers stay unchanged until the product that reads them is done.
+template <int SLABS>
+__device__ __forceinline__ void keep_all(float (&o)[SLABS][32], uint32_t (&p_hi)[4][4],
+                                         uint32_t (&p_lo)[4][4]) {
+#pragma unroll
+  for (int sl = 0; sl < SLABS; ++sl)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) keep(o[sl][r]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      keep(p_hi[kk][r]);
+      keep(p_lo[kk][r]);
+    }
+}
+
+// The first half of the online softmax on a tile's scores: scale to log2 units in f32,
+// mask the keys at or past n_kv to -inf, take each row's new running max, and turn s into
+// p = 2^(s - m_new) with this lane's row sums.
+__device__ __forceinline__ void scores_to_probs(float (&s)[32], const float (&m)[2],
+                                                float (&m_new)[2], float (&sum)[2], int k0,
+                                                int n_kv, float scale_log2, int t) {
+  const bool ragged = k0 + kKeys > n_kv;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      s[4 * jj + c] *= scale_log2;
+      if (ragged && k0 + 8 * jj + 2 * t + (c & 1) >= n_kv) s[4 * jj + c] = -INFINITY;
     }
 #pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = threadIdx.x + (j0 + j) * kThreads;
-      if (j0 + j >= kPerThread || i >= total) break;
-      const int r = i / per_row, c = i - r * per_row;
-      const T* e = reinterpret_cast<const T*>(&buf[j]);
-      float4* out = reinterpret_cast<float4*>(dst + r * ld + c * kVec);
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
 #pragma unroll
-      for (int u = 0; u < kVec / 4; ++u)
-        out[u] = make_float4(to_f32(e[4 * u]) * scale, to_f32(e[4 * u + 1]) * scale,
-                             to_f32(e[4 * u + 2]) * scale, to_f32(e[4 * u + 3]) * scale);
+    for (int jj = 0; jj < 8; ++jj) mx = fmaxf(mx, fmaxf(s[4 * jj + 2 * i], s[4 * jj + 2 * i + 1]));
+    m_new[i] = fmaxf(m[i], quad_max(mx));  // finite: the tile has a valid key
+    sum[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      s[4 * jj + 2 * i] = exp2_ftz(s[4 * jj + 2 * i] - m_new[i]);
+      s[4 * jj + 2 * i + 1] = exp2_ftz(s[4 * jj + 2 * i + 1] - m_new[i]);
+      sum[i] += s[4 * jj + 2 * i] + s[4 * jj + 2 * i + 1];
     }
   }
 }
 
-// The A fragment of the 16 x 8 block at column c0 of a [16][ld] f32 tile (this warp's
-// rows), split: lane (g, t) holds rows g and g + 8 of columns c0 + t and c0 + t + 4.
-__device__ __forceinline__ void a_fragment(const float* tile, int ld, int c0, int g, int t,
-                                           uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split(tile[g * ld + c0 + t], hi[0], lo[0]);
-  split(tile[(g + 8) * ld + c0 + t], hi[1], lo[1]);
-  split(tile[g * ld + c0 + t + 4], hi[2], lo[2]);
-  split(tile[(g + 8) * ld + c0 + t + 4], hi[3], lo[3]);
+// The second half, once the previous P V is done: rescale the running sum and O by
+// 2^(m - m_new), and split P into the A fragments (hi and lo) of the next P V, whose 16
+// keys of step kk are the 8-column blocks 2 kk (registers 8 kk .. 8 kk + 3) and 2 kk + 1.
+template <int SLABS>
+__device__ __forceinline__ void rescale_and_split(const float (&s)[32], float (&m)[2],
+                                                  const float (&m_new)[2], const float (&sum)[2],
+                                                  float (&l)[2], float (&o)[SLABS][32],
+                                                  uint32_t (&p_hi)[4][4],
+                                                  uint32_t (&p_lo)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float alpha = exp2_ftz(m[i] - m_new[i]);  // 0 on the first tile, where m is -inf
+    l[i] = l[i] * alpha + sum[i];
+#pragma unroll
+    for (int sl = 0; sl < SLABS; ++sl)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        o[sl][4 * jj + 2 * i] *= alpha;
+        o[sl][4 * jj + 2 * i + 1] *= alpha;
+      }
+    m[i] = m_new[i];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], p_hi[kk][r], p_lo[kk][r]);
 }
 
-// DMAX: d rounded up to 32, 64 or 128; the loops over d's 8-wide steps stop at d.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(FlashArgs a) {
-  constexpr int kSteps = DMAX / 8;
-  constexpr bool kExactB = sizeof(T) == 2;  // bf16 k and v
-  extern __shared__ float smem[];
-  const int d = a.d, ldq = ld_qk(d), ldv = ld_v(d);
-  float* q_s = smem;               // [64][ldq]: q * scale
-  float* k_s = q_s + kRows * ldq;  // [64][ldq]
-  float* v_s = k_s + kKeys * ldq;  // [64][ldv]
-  float* p_s = v_s + kKeys * ldv;  // [64][kLdP]: exp(s - running max), a warp's own rows
+// DMAX: d rounded up to 32, 64 or 128.
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DMAX>)
+    flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const FlashArgs a) {
+  using L = Layout<DMAX>;
+  constexpr int SLABS = L::slabs;
+  constexpr int STAGES = kStages<DMAX>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = smem_addr(smem);    // [slab][kRows][128 bytes]
+  const uint32_t kv_s = q_s + L::q_bytes;  // [stage][K slabs, V slabs][64][128 bytes]
+  const uint32_t bars = kv_s + STAGES * L::stage_bytes;
+  const uint32_t q_full = bars;
+  const auto full = [&](int s) { return bars + 8 * (1 + s); };
+  const auto empty = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+
   const int q_tiles = (a.n_q + kRows - 1) / kRows;
   const int row = blockIdx.x / q_tiles;  // b * heads + h
   const int b = row / a.heads, h = row - b * a.heads;
   const int q0 = (blockIdx.x - row * q_tiles) * kRows;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float* q_w = q_s + 16 * warp * ldq;
-  float* p_w = p_s + 16 * warp * kLdP;
+  const int n_tiles = (a.n_kv + kKeys - 1) / kKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const T* k = head_ptr<T>(a.k, a.sk, b, h);
-  const T* v = head_ptr<T>(a.v, a.sv, b, h);
-  load_rows<T, DMAX>(q_s, ldq, head_ptr<T>(a.q, a.sq, b, h), a.sq.token, q0, a.n_q, d,
-                     a.scale);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // Rows g (i = 0) and g + 8 (i = 1) of the warp's 16: the running max and this lane's
-  // share of the running sum; o[j] the accumulator fragment of columns 8 j .. 8 j + 7.
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[kSteps][4];
-#pragma unroll
-  for (int j = 0; j < kSteps; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  for (int k0 = 0; k0 < a.n_kv; k0 += kKeys) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, DMAX>(k_s, ldq, k, a.sk.token, k0, a.n_kv, d, 1.f);
-    load_rows<T, DMAX>(v_s, ldv, v, a.sv.token, k0, a.n_kv, d, 1.f);
-    __syncthreads();
-
-    // s = q k^T: eight 16 x 8 fragments, keys 8 j + 2 t and 8 j + 2 t + 1 of rows g, g + 8.
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kSteps; ++e) {
-      if (8 * e >= d) break;
-      uint32_t a_hi[4], a_lo[4];
-      a_fragment(q_w, ldq, 8 * e, g, t, a_hi, a_lo);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float* kr = k_s + (8 * j + g) * ldq + 8 * e + t;
-        mma3<kExactB>(s[j], a_hi, a_lo, kr[0], kr[4]);
+  if (warp == 4) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(q_full, L::q_bytes);
+      for (int s = 0; s < SLABS; ++s)
+        load_rows(q_s + s * kRows * kRowBytes, &maps.q, a.sel[0], q_full, s, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty(st), ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), L::stage_bytes);
+        const uint32_t k_dst = kv_s + st * L::stage_bytes;
+        for (int s = 0; s < SLABS; ++s) {
+          load_rows(k_dst + s * kTileBytes, &maps.k, a.sel[1], full(st), s, j * kKeys, h, b);
+          load_rows(k_dst + (SLABS + s) * kTileBytes, &maps.v, a.sel[2], full(st), s,
+                    j * kKeys, h, b);
+        }
       }
     }
-
-    // kv_valid: the ragged tile's missing keys score -inf (the tile has a valid key).
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        if (k0 + 8 * j + 2 * t + c >= a.n_kv) s[j][c] = s[j][c + 2] = -INFINITY;
-
-    // The online softmax: new max, rescale, p = exp(s - m) to this warp's rows of p_s.
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-      const float m_new = fmaxf(m[i], quad_max(mx));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile, where m is -inf
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p0 = expf(s[j][2 * i] - m_new), p1 = expf(s[j][2 * i + 1] - m_new);
-        sum += p0 + p1;
-        *reinterpret_cast<float2*>(p_w + (g + 8 * i) * kLdP + 8 * j + 2 * t) =
-            make_float2(p0, p1);
-      }
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int j = 0; j < kSteps; ++j) {
-        o[j][2 * i] *= alpha;
-        o[j][2 * i + 1] *= alpha;
-      }
-      m[i] = m_new;
-    }
-    __syncwarp();
-
-    // o += p v over the tile's keys, eight at a time.
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      uint32_t a_hi[4], a_lo[4];
-      a_fragment(p_w, kLdP, 8 * e, g, t, a_hi, a_lo);
-#pragma unroll
-      for (int j = 0; j < kSteps; ++j) {
-        if (8 * j >= d) break;
-        const float* vr = v_s + (8 * e + t) * ldv + 8 * j + g;
-        mma3<kExactB>(o[j], a_hi, a_lo, vr[0], vr[4 * ldv]);
-      }
-    }
+    return;
   }
 
-  T* out = head_ptr<T>(a.o, a.so, b, h);
+  const int g = lane >> 2, t = lane & 3;
+  const auto k_tile = [&](int j) { return kv_s + (j % STAGES) * L::stage_bytes; };
+
+  // Rows g (i = 0) and g + 8 (i = 1) of the warp's 16: the running max (in log2 units)
+  // and this lane's share of the running sum. o[sl] holds columns 64 sl .. 64 sl + 63 in
+  // the accumulator layout: o[sl][4 jj + c], jj the 8-column block, c as in the mma tile.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, m_new[2], sum[2];
+  float o[SLABS][32], s[32];
+  uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+  for (int sl = 0; sl < SLABS; ++sl)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) o[sl][r] = 0.f;
+
+  // Tile 0's scores alone; then each step starts tile j's scores and tile j - 1's P V
+  // together, and the softmax of tile j's scores runs while that P V is in flight.
+  mbar_wait(q_full, 0);
+  mbar_wait(full(0), 0);
+#pragma unroll
+  for (int r = 0; r < 32; ++r) keep(s[r]);
+  wgmma_fence();
+  start_qk<DMAX>(s, q_s, k_tile(0));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 32; ++r) keep(s[r]);
+  scores_to_probs(s, m, m_new, sum, 0, a.n_kv, a.scale_log2, t);
+  rescale_and_split(s, m, m_new, sum, l, o, p_hi, p_lo);
+
+  for (int j = 1; j < n_tiles; ++j) {
+    mbar_wait(full(j % STAGES), (j / STAGES) & 1);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) keep(s[r]);
+    keep_all(o, p_hi, p_lo);
+    wgmma_fence();
+    start_qk<DMAX>(s, q_s, k_tile(j));
+    wgmma_commit();
+    start_pv(o, p_hi, p_lo, k_tile(j - 1) + SLABS * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores (committed first) are done
+#pragma unroll
+    for (int r = 0; r < 32; ++r) keep(s[r]);
+    scores_to_probs(s, m, m_new, sum, j * kKeys, a.n_kv, a.scale_log2, t);
+    wgmma_wait<0>();  // and tile j - 1's P V: its stage goes back to the producer
+    keep_all(o, p_hi, p_lo);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty((j - 1) % STAGES));
+    rescale_and_split(s, m, m_new, sum, l, o, p_hi, p_lo);
+  }
+
+  keep_all(o, p_hi, p_lo);
+  wgmma_fence();
+  start_pv(o, p_hi, p_lo, k_tile(n_tiles - 1) + SLABS * kTileBytes);
+  wgmma_commit();
+  wgmma_wait<0>();
+  keep_all(o, p_hi, p_lo);
+
+  // o / l goes out through shared memory, in q's place (the last scores are done), laid
+  // out as TMA's 128-byte swizzle lays a box, and one TMA store a slab: whole rows, and
+  // nothing past n_q or d reaches memory.
+  const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float total = quad_sum(l[i]);
-    const int r = q0 + 16 * warp + g + 8 * i;
-    if (r >= a.n_q) continue;
+    const int r = 16 * warp + g + 8 * i;
 #pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      if (8 * j >= d) break;
-      T* dst = out + r * a.so.token + 8 * j + 2 * t;
-      dst[0] = from_f32<T>(o[j][2 * i] / total);
-      dst[1] = from_f32<T>(o[j][2 * i + 1] / total);
-    }
+    for (int sl = 0; sl < SLABS; ++sl)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        store_pair(reinterpret_cast<__nv_bfloat16*>(smem + sl * kRows * kRowBytes +
+                                                    r * kRowBytes + ((jj ^ (r & 7)) << 4)) +
+                       2 * t,
+                   o[sl][4 * jj + 2 * i] * inv[i], o[sl][4 * jj + 2 * i + 1] * inv[i]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the store
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");                // the four warps' rows
+  if (threadIdx.x == 0) {
+    const int(&sel)[3] = a.sel[3];
+    for (int sl = 0; sl < SLABS; ++sl)
+      tma_store_4d(&maps.o, q_s + sl * kRows * kRowBytes, sl * kSlabCols,
+                   coord(sel[0], q0, h, b), coord(sel[1], q0, h, b), coord(sel[2], q0, h, b));
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // before smem goes
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const FlashArgs& a, int rows, cudaStream_t stream) {
-  const size_t smem = flash_smem(a.d);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int blocks = rows * ((a.n_q + kRows - 1) / kRows);
-  flash_attention_kernel<T, DMAX><<<blocks, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+// -- host ----------------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda function, looked up at run time (the entry-point query) so
+// that nothing beyond the CUDA runtime is linked.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
-template <typename T>
-cudaError_t launch_for_width(const FlashArgs& a, int rows, cudaStream_t stream) {
-  if (a.d <= 32) return launch<T, 32>(a, rows, stream);
-  if (a.d <= 64) return launch<T, 64>(a, rows, stream);
-  return launch<T, 128>(a, rows, stream);
+// The tensor map of one [b, heads, n, d] bf16 operand with (batch, head, token) strides
+// in elements: dim 0 is d, dims 1-3 the token, head and batch dims in increasing stride
+// (a dim of size 1 is never stepped and sorts last); sel[i] names map dim i + 1 (0 token,
+// 1 head, 2 batch). The box: 64 columns by `rows` tokens.
+bool encode(CUtensorMap* map, int (&sel)[3], const void* base, const long long* strides,
+            int b, int heads, int n, int d, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  long long size[3] = {n, heads, b};
+  long long stride[3] = {strides[2], strides[1], strides[0]};
+  long long largest = d;
+  for (int i = 0; i < 3; ++i) {
+    if (size[i] > 1 && (stride[i] <= 0 || (2 * stride[i]) % 16 != 0)) return false;
+    if (size[i] > 1 && stride[i] > largest) largest = stride[i];
+  }
+  int order[3] = {0, 1, 2};
+  long long key[3];
+  for (int i = 0; i < 3; ++i) key[i] = size[i] > 1 ? stride[i] : largest + 1;
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (key[order[j]] < key[order[i]]) {
+        const int x = order[i];
+        order[i] = order[j];
+        order[j] = x;
+      }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
+  cuuint64_t bytes[3];
+  cuuint32_t box[4] = {kSlabCols, 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int w = order[i];
+    sel[i] = w;
+    dims[i + 1] = static_cast<cuuint64_t>(size[w]);
+    bytes[i] = static_cast<cuuint64_t>(2 * (size[w] > 1 ? stride[w] : largest));
+    if (w == 0) box[i + 1] = rows;
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, bytes,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DMAX>
+cudaError_t launch(const Maps& maps, const FlashArgs& a, int rows, cudaStream_t stream) {
+  constexpr size_t smem = Layout<DMAX>::smem;
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DMAX>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int blocks = rows * ((a.n_q + kRows - 1) / kRows);
+  flash_fwd_wgmma_kernel<DMAX><<<blocks, kThreads, smem, stream>>>(maps, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: element [0, 0, 0, 0] of each [b, heads, n, d] operand. strides: 12 int64, the
-// (batch, head, token) strides of q, k, v and o in elements; the last dimension is
-// contiguous; q, k and v 16-byte aligned, with strides of a multiple of 16 bytes. Elements are bf16 when bf16 is non-zero, else f32; d a multiple of 8 up to
-// 128; b * heads * ceil(n_q / 64) blocks at most 2^31 - 1. Returns a cudaError_t
-// (0: launched).
+// q, k, v, o: element [0, 0, 0, 0] of each [b, heads, n, d] bf16 operand. strides: 12 int64,
+// the (batch, head, token) strides of q, k, v and o in elements; the last dimension is
+// contiguous; q, k, v and o 16-byte aligned, with strides of a multiple of 16 bytes (TMA's
+// rule), none 0 where its dim is longer than 1. d a multiple of 8 up to 128; b * heads *
+// ceil(n_q / 64) blocks at most 2^31 - 1. Returns a cudaError_t (0: launched;
+// cudaErrorInvalidValue also when a tensor map cannot be encoded).
 extern "C" int lgm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        const void* strides, int b, int heads, int n_q,
-                                       int n_kv, int d, int bf16, float scale, void* stream) {
+                                       int n_kv, int d, float scale, void* stream) {
   if (!attn::valid_shape(b, heads, n_q, n_kv, d) ||
       static_cast<long long>(b) * heads * ((n_q + kRows - 1) / kRows) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* s = static_cast<const long long*>(strides);
-  const FlashArgs a{q, k, v, o,
-                    {s[0], s[2], s[1]}, {s[3], s[5], s[4]}, {s[6], s[8], s[7]},
-                    {s[9], s[11], s[10]},
-                    heads, n_q, n_kv, d, scale};
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps;
+  FlashArgs a{heads, n_q, n_kv, d, scale * 1.4426950408889634f, {}};
+  if (!encode(&maps.q, a.sel[0], q, s, b, heads, n_q, d, kRows) ||
+      !encode(&maps.k, a.sel[1], k, s + 3, b, heads, n_kv, d, kKeys) ||
+      !encode(&maps.v, a.sel[2], v, s + 6, b, heads, n_kv, d, kKeys) ||
+      !encode(&maps.o, a.sel[3], o, s + 9, b, heads, n_q, d, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 != 0 ? launch_for_width<__nv_bfloat16>(a, b * heads, st)
-                                    : launch_for_width<float>(a, b * heads, st));
+  return static_cast<int>(d <= 32   ? launch<32>(maps, a, b * heads, st)
+                          : d <= 64 ? launch<64>(maps, a, b * heads, st)
+                                    : launch<128>(maps, a, b * heads, st));
 }
 
 extern "C" const char* lgm_cuda_error_string(int err) {

@@ -21,7 +21,8 @@ The flash attention of the same JAX module (``scaled_dot_product_attention``,
 ``scaled_dot_product_attention(use_pallas=True)`` keeps JAX's shape gate (n_kv >= 256
 and d a multiple of 8) and then dispatches on the device: a CPU tensor takes
 ``flash_attention_plain`` (``_xla_attention``, cast for cast), a CUDA tensor
-``FlashAttention``, whose forward is the kernel in ``csrc/flash_attention.cu`` and whose
+``FlashAttention``, whose forward is the kernel in ``csrc/flash_attention.cu`` in bf16 and
+the forward kernel of ``csrc/attention_qkv.cu`` on the same strides in f32, and whose
 backward is the gradient of ``_xla_attention`` as JAX's custom VJP takes it, computed in
 f32 by the backward kernel of ``csrc/attention_qkv_bwd.cu`` on ``[b, h, n, d]`` strides
 (``flash_attention_bwd_cuda``; ``flash_attention_bwd_plain`` is its yardstick).
@@ -272,7 +273,7 @@ fused_attention_qkv_bwd.launches = 0
 FLASH_MIN_KV = 256
 FLASH_DIM_HEAD_MULTIPLE = 8
 
-_FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _check_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -301,7 +302,8 @@ def _bhnd_strides(t: torch.Tensor) -> list:
 
 def _flash_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str):
     """Check what the flash kernels take; returns q, k and v, each as it is where the
-    kernel reads it in place (``_rows_aligned``), else as a contiguous copy."""
+    kernels read it in place (``_rows_aligned``, ``_no_zero_stride``), else as a contiguous
+    copy."""
     _check_bhnd(q, k, v)
     if not (q.device.type == k.device.type == v.device.type == "cuda"):
         raise ValueError(f"{what} needs CUDA tensors, got {q.device}, {k.device}, {v.device}")
@@ -317,8 +319,14 @@ def _flash_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: 
             and k.shape[2] >= 1):
         raise ValueError(f"{what} takes 1 <= b, h <= {KERNEL_MAX_BATCH} and n >= 1; got q "
                          f"of shape {tuple(q.shape)} and k of shape {tuple(k.shape)}")
-    return [t.detach() if _rows_aligned(t)
+    return [t.detach() if _rows_aligned(t) and _no_zero_stride(t)
             else t.detach().clone(memory_format=torch.contiguous_format) for t in (q, k, v)]
+
+
+def _no_zero_stride(t: torch.Tensor) -> bool:
+    """Whether no dim longer than 1 has stride 0 (an expanded dim): the flash kernel's
+    tensor maps take none, so such a tensor is copied."""
+    return all(s > 0 for s, n in zip(t.stride(), t.shape) if n > 1)
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -332,23 +340,37 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[b, h, n_q, d] attention through the flash kernel (``csrc/flash_attention.cu``),
-    with no autograd graph (``flash_attention`` has one). q, k and v are read in place
-    through their strides; the output is a [b, h, n_q, d] view of a [b, n_q, h, d]
-    tensor, so that transposing it back to tokens-major is free. Raises ValueError for
-    what the kernel does not take. Counts its launches in ``flash_attention.launches``."""
+    """[b, h, n_q, d] attention through the flash kernel, with no autograd graph
+    (``flash_attention`` has one): in bf16 the kernel of ``csrc/flash_attention.cu``; in
+    f32 the forward kernel of ``csrc/attention_qkv.cu`` (kernel #3's), which computes the
+    same function on the same strides and was the faster f32 design at every measured
+    shape. The dtype decides; nothing is caught. q, k and v are read in place through
+    their strides; the output is a [b, h, n_q, d] view of a [b, n_q, h, d] tensor, so
+    that transposing it back to tokens-major is free. Raises ValueError for what the
+    kernels do not take. Counts its launches, either kernel's, in
+    ``flash_attention.launches``."""
     q, k, v = _flash_kernel_args(q, k, v, "flash_attention_cuda")
     b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
     out = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _bhnd_strides(t)))
 
-    lib = _library("flash_attention", "lgm_flash_attention_fwd", _FLASH_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.lgm_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
-            b, h, n_q, k.shape[2], d, int(q.dtype == torch.bfloat16), d**-0.5, stream,
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if q.dtype == torch.bfloat16:
+            strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                                 for s in _bhnd_strides(t)))
+            lib = _library("flash_attention", "lgm_flash_attention_fwd", _FLASH_ARGTYPES)
+            err = lib.lgm_flash_attention_fwd(*ptrs, ctypes.addressof(strides), b, h, n_q,
+                                              n_kv, d, d**-0.5, stream)
+        else:
+            # (batch, token, head) strides, the order of kernel #3's entry.
+            strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                                 for s in (t.stride(0), t.stride(2),
+                                                           t.stride(1))))
+            lib = _library("attention_qkv", "lgm_attention_qkv_fwd", _FWD_ARGTYPES)
+            err = lib.lgm_attention_qkv_fwd(*ptrs, ctypes.addressof(strides), b, h, n_q, n_kv,
+                                            d, 0, d**-0.5, stream)
     cuda_build.check(lib, err, "flash attention kernel")
     flash_attention.launches += 1
     return out

@@ -21,7 +21,8 @@ import torch
 
 from lightning_generative_models_tpu_torch.ops import cuda_build
 
-#: Latent widths the CUDA kernel takes (it holds a row in registers).
+#: Latent widths the CUDA kernel takes (a warp holds its rows' operand fragments in
+#: registers, one template instance a width).
 KERNEL_DIMS = (8, 16, 32, 64, 128)
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -64,8 +65,8 @@ def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tens
         raise ValueError(f"the CUDA kernel takes N, K < 2^31; got N={n}, K={k}")
     flat = flat.detach().to(torch.float32).contiguous()
     codebook = codebook.detach().to(torch.float32).contiguous()
-    if flat.data_ptr() % 16:  # the kernel reads rows as float4
-        flat = flat.clone()
+    # The kernel copies rows in 16-byte chunks.
+    flat, codebook = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (flat, codebook))
     out = torch.empty(n, dtype=torch.int32, device=flat.device)
 
     lib = cuda_build.load("vq")

@@ -195,6 +195,30 @@ def test_vq_kernel_first_index_on_duplicated_codebook_and_refusals():
         vq.nearest_codes(flat[:, :48], base[:, :48])
 
 
+def test_vq_kernel_first_index_across_cluster_shares_and_nan_rows():
+    """The kernel splits the codebook between the blocks of a cluster (halves, in 64-code
+    tiles): a code and its copy in the other half ([E; E] at K 1,024), or in another tile
+    ([E; E] at K 200), give the first index; a row of NaN still gets a code of the book
+    and leaves the other rows as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import vq
+
+    flat, base = _vq_inputs(4096, 512, 64, seed=2)
+    ref = vq.nearest_codes(flat, base)
+    assert torch.equal(vq.nearest_codes(flat, torch.cat([base, base])), ref)
+    small = base[:100]
+    assert torch.equal(vq.nearest_codes(flat, torch.cat([small, small])),
+                       vq.nearest_codes(flat, small))
+    nan_rows = flat.clone()
+    nan_rows[[7, 4000]] = float("nan")
+    out = vq.nearest_codes(nan_rows, base)
+    assert bool(((out >= 0) & (out < 512)).all())
+    keep = torch.ones(4096, dtype=torch.bool, device="cuda")
+    keep[[7, 4000]] = False
+    assert torch.equal(out[keep], ref[keep])
+
+
 # -- packed-qkv softmax attention (kernels #3 and #4) ----------------------------------
 
 # (b, n, heads, d): DiT-S/2's shape (n 256, d 64) at a small batch, a ragged n, heads 8 at
@@ -376,6 +400,58 @@ def test_flash_attention_kernel_matches_plain(b, heads, n_q, n_kv, d, dtype):
     if dtype == torch.bfloat16:
         math = TA.flash_attention_plain(q.float(), k.float(), v.float())
         assert _rel_elementwise(out, math) <= ATTN_BF16_MATH
+
+
+# The bf16 kernel's edges (b, heads, n_q, n_kv, d): head widths whose k steps are
+# zero-filled past d (8, 24, 48) and the two 64-column slabs of d 128; one ragged key tile
+# (n_kv < 64); a single query; more queries than keys, and fewer.
+FLASH_BF16_EDGES = [(2, 3, 200, 200, 8), (2, 3, 200, 200, 24), (2, 3, 200, 200, 48),
+                    (2, 2, 260, 260, 128), (2, 2, 100, 37, 64), (2, 2, 1, 300, 64),
+                    (2, 3, 300, 70, 48), (2, 3, 70, 300, 48)]
+
+
+@pytest.mark.parametrize("b,heads,n_q,n_kv,d", FLASH_BF16_EDGES)
+def test_flash_attention_bf16_kernel_at_its_edges(b, heads, n_q, n_kv, d):
+    """The bf16 kernel (TMA tiles, wgmma) at the edges of its tiles: loosely against the
+    plain version, within one output rounding of the plain math in f32, repeats bit for
+    bit, counted as flash launches only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    q, k, v, _ = _bhnd_inputs(b, heads, n_q, n_kv, d, torch.bfloat16, seed=3)
+    before = TA.flash_attention.launches, TA.fused_attention_qkv.launches
+    with torch.inference_mode():
+        out = TA.flash_attention_cuda(q, k, v)
+        again = TA.flash_attention_cuda(q, k, v)
+        ref = TA.flash_attention_plain(q, k, v)
+        math = TA.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (TA.flash_attention.launches, TA.fused_attention_qkv.launches) == \
+        (before[0] + 2, before[1])
+    assert out.shape == (b, heads, n_q, d) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    assert _rel_elementwise(out, ref) <= ATTN_TOL[torch.bfloat16]
+    assert _rel_elementwise(out, math) <= ATTN_BF16_MATH
+
+
+def test_flash_attention_f32_route_is_counted_as_flash():
+    """In f32 the flash entry launches kernel #3's forward on the same strides: the plain
+    version's result within 1e-4, counted in flash_attention.launches and not in
+    fused_attention_qkv.launches, so that the flash paths' counts stay exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from lightning_generative_models_tpu_torch.ops import attention as TA
+
+    q, k, v, _ = _bhnd_inputs(2, 3, 130, 70, 48, torch.float32, seed=4)
+    before = TA.flash_attention.launches, TA.fused_attention_qkv.launches
+    with torch.inference_mode():
+        out = TA.flash_attention_cuda(q, k, v)
+        again = TA.flash_attention_cuda(q, k, v)
+    assert (TA.flash_attention.launches, TA.fused_attention_qkv.launches) == \
+        (before[0] + 2, before[1])
+    assert torch.equal(out, again)
+    assert _rel_elementwise(out, TA.flash_attention_plain(q, k, v)) <= ATTN_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("layout", ["s3hd", "h3d"])

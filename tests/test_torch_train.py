@@ -370,11 +370,10 @@ def test_refused_flags_raise_not_implemented(tmp_path, monkeypatch, flags):
         port_train.main(argv)
 
 
-def test_prepare_batch_pallas_backend_not_ported():
-    """Once the raise of the unported kernel #7, now its path: on a CPU batch
-    ``backend="pallas"`` takes ``fused_normalize_flip``'s plain version (f32 math, one
-    rounding), which in f32 equals the default path bit for bit, flips where asked and
-    scales without flipping at eval time; an unknown backend raises."""
+def test_prepare_batch_pallas_backend_matches_default_on_cpu():
+    """On a CPU batch ``backend="pallas"`` takes ``fused_normalize_flip``'s plain version
+    (f32 math, one rounding), which in f32 equals the default path bit for bit, flips
+    where asked and scales without flipping at eval time; an unknown backend raises."""
     from lightning_generative_models_tpu_torch.ops.preprocess import fused_normalize_flip
 
     image = torch.from_numpy(np.random.RandomState(4).randint(0, 256, (3, 4, 5, 3))

@@ -97,12 +97,11 @@ def test_conditional_unet_requires_labels():
         net(torch.zeros(1, 16, 16, 3), torch.zeros(1, dtype=torch.long))
 
 
-def test_flash_attention_not_ported_raises(monkeypatch):
-    """Once the flash path's raise, now the path itself: at 16 x 16 (256 + 4 keys)
-    ``Attention(flash=True)`` goes through the flash dispatcher with [b, h, n, d] views,
-    and on the CPU matches the f32 einsum path of ``flash=False`` with the same weights
-    (the two round q * scale at other points: within 1e-5). At 8 x 8 it keeps the
-    einsum path."""
+def test_flash_attention_path_matches_einsum_path_on_cpu(monkeypatch):
+    """At 16 x 16 (256 + 4 keys) ``Attention(flash=True)`` goes through the flash
+    dispatcher with [b, h, n, d] views, and on the CPU matches the f32 einsum path of
+    ``flash=False`` with the same weights (the two round q * scale at other points:
+    within 1e-5). At 8 x 8 it keeps the einsum path."""
     from lightning_generative_models_tpu_torch.models.modules import attention as attn_mod
 
     calls = []
