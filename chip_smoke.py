@@ -11,9 +11,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      sampling path's shapes (batch 64, bf16) and at batch 128 in f32 and bf16, with
      and without the residual, plus a head-scale-disparity input; the backward at the
      training batch (128) in f32 and bf16, residual on and off, plus the disparity
-     input, with two calls compared bit for bit; the autograd path (forward kernel +
-     backward kernel) against torch autograd through the plain version; times by
-     CUDA events;
+     input; for both, two calls compared bit for bit; the autograd path (forward
+     kernel + backward kernel) against torch autograd through the plain version; times
+     by CUDA events, and each kernel's time split by launch at its main shape under
+     torch.profiler;
   3. card against CPU, f32, the same weights and inputs: the full-width DDPM UNet
      (dim 64) forward, a 3-step DDIM chain, and one train step's loss and gradients;
   4. sampling path: the port's generate entry point samples DDIM-50 at batch 64 in
@@ -212,11 +213,12 @@ MAIN_BATCH = 64
 DDIM_STEPS = 50
 
 # Device kernels grouped by a mark in their names, for the profile's summary.
+# The two linear-attention libraries share their first four kernels: those carry the
+# direction as a template tag (LaFwd, LaBwd) in their names, the others a la_fwd_/la_bwd_
+# prefix.
 PROFILE_GROUPS = {
-    "linear attention (csrc/linear_attention.cu)": ("context_kernel", "output_kernel"),
-    "linear attention backward (csrc/linear_attention_bwd.cu)": (
-        "stats_kernel", "token_a_kernel", "context_grad_kernel", "token_b_kernel",
-        "atb_partial_kernel", "reduce_rows_kernel"),
+    "linear attention (csrc/linear_attention.cu)": ("LaFwd", "la_fwd_"),
+    "linear attention backward (csrc/linear_attention_bwd.cu)": ("LaBwd", "la_bwd_"),
     "VQ nearest codes (csrc/vq.cu)": ("vq_nearest_wgmma_kernel",),
     "packed-qkv attention (csrc/attention_qkv.cu)": ("attention_fwd_kernel",),
     "packed-qkv attention backward (csrc/attention_qkv_bwd.cu)": (
@@ -281,14 +283,56 @@ def la_inputs(b, n, c, dtype, gen, m=4, disparity=False):
 
 def la_bound_ms(b, n, c, dtype, m=4):
     """(bytes ms, operations ms) of one call: each input read once and the output
-    written once at the memory rate; the block's flops at the peak rate of the compute
-    type. The least time the card could take is the larger of the two."""
+    written once at the memory rate; the block's flops at the tensor cores' rate for the
+    compute type (ATTN_PEAK_FLOPS: bf16, or f32-accurate 3xTF32, which the kernel runs).
+    The least time the card could take is the larger of the two."""
     elt = 2 if dtype == "bfloat16" else 4
     params = 4 * (c * 384 + 2 * 128 * m + 128 * c + 3 * c)
     nbytes = 2 * b * n * c * elt + params
     per_token = 2 * c * 384 + 2 * 4 * 32 * 32 + 2 * 4 * 32 * 32 + 2 * 128 * c
     flops = b * n * per_token + b * 4 * 2 * m * 32 * 32
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / ATTN_PEAK_FLOPS[dtype]
+
+
+def exclusive_kernel_us(torch, prof) -> dict:
+    """{kernel name: [exclusive µs, launches]} of a profile's device kernels. A kernel
+    launched with programmatic dependent launch starts while its predecessor on the stream
+    finishes and waits for it, so durations overlap: each kernel is charged only the time
+    after the previous kernel's end (its end minus the later of its start and that end), and
+    the charges add up to the time the device was busy. User annotations and the
+    optimizer's spans are left out: they also carry device time, that of the kernels inside."""
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    and not e.name.startswith("Optimizer.")), key=lambda s: s[1])
+    out, prev_end = {}, float("-inf")
+    for name, start, end in spans:
+        us = max(0.0, end - max(start, prev_end))
+        prev_end = max(prev_end, end)
+        entry = out.setdefault(name, [0.0, 0])
+        entry[0] += us
+        entry[1] += 1
+    return out
+
+
+def launch_split(torch, fn, what: str, calls: int = 5) -> None:
+    """Each kernel's exclusive device time per call of ``fn`` (a warm-up call, then
+    ``calls`` calls under torch.profiler; exclusive_kernel_us), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted(exclusive_kernel_us(torch, prof).items(), key=lambda kv: -kv[1][0])
+    total = sum(us for us, _ in dict(kernels).values()) / calls / 1e3
+    print(f"  launches of one call, {what}: {total:.4f} ms of device time (each kernel's time "
+          f"after its predecessor's end)", flush=True)
+    for name, (us, count) in kernels:
+        name = name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+        print(f"    {us / calls / 1e3:8.4f} ms  {count // calls:2d}x  {name[:100]}", flush=True)
 
 
 def check_linear_attention(torch, la) -> dict:
@@ -303,22 +347,24 @@ def check_linear_attention(torch, la) -> dict:
         dtype = getattr(torch, dt)
         args = la_inputs(b, n, c, dtype, gen, disparity=disp)
         out = la.linear_attention_cuda(*args, 4, 32, dtype, res)
+        again = la.linear_attention_cuda(*args, 4, 32, dtype, res)
         ref = la.linear_attention_plain(*args, 4, 32, dtype, res)
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
         abs_err = diff.max().item()
         rel_err = (diff / (1 + ref.float().abs())).max().item()
         finite = bool(torch.isfinite(out.float()).all())
+        same = torch.equal(out, again)
         # Disparity in bf16: head 0's logits (~1e3) round to bf16 steps of ~4 in the
         # plain version and not in the kernel, so their softmaxes differ by design (the
         # JAX package's own disparity test is f32). What must hold is finiteness.
-        ok = finite and (rel_err <= TOL[dt] or (disp and dt == "bfloat16"))
+        ok = finite and same and (rel_err <= TOL[dt] or (disp and dt == "bfloat16"))
         print(f"  linear_attention b={b} n={n} c={c} {dt} residual={res} disparity={disp}: "
               f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} tol={TOL[dt]:.0e} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"bit-identical repeat={same} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            fail(f"linear_attention kernel disagrees with its plain version at b={b} "
-                 f"n={n} c={c} {dt} residual={res}")
+            fail(f"linear_attention kernel disagrees with its plain version or repeats "
+                 f"differently at b={b} n={n} c={c} {dt} residual={res}")
         if not (disp and dt == "bfloat16"):
             worst[dt] = max(worst[dt], rel_err)
         if b == MAIN_BATCH:
@@ -329,10 +375,13 @@ def check_linear_attention(torch, la) -> dict:
             bytes_ms, ops_ms = la_bound_ms(b, n, c, dt)
             shapes.append({"b": b, "n": n, "c": c, "dtype": dt, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                           "bytes_ms": bytes_ms, "ops_ms": ops_ms})
+                           "bytes_ms": bytes_ms, "ops_ms": ops_ms, "rel_err": rel_err})
             print(f"  time b={b} n={n} c={c} {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
                   f" bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
                   f"operations {ops_ms:.4f})", flush=True)
+            if (b, n, c) == (MAIN_BATCH, *LA_SHAPES[0]):
+                launch_split(torch, lambda: la.linear_attention_cuda(*args, 4, 32, dtype, True),
+                             f"linear_attention b={b} n={n} c={c} {dt}")
     # One UNet evaluation of the main path runs the (1024, 64) shape twice.
     per_eval = [s for s in shapes if s["b"] == MAIN_BATCH]
     per_eval = per_eval + [per_eval[0]]
@@ -352,12 +401,12 @@ def la_bwd_bound_ms(b, n, c, dtype, m=4):
     """(bytes ms, operations ms) of one backward call: x and dout read and dx written
     once, the f32 parameters read once and their f32 gradients written once; the
     flops of _bwd_kernel's per-token products, per head (3072 c + 49152 a token), and
-    the memory tokens' terms (6 m 4096 a batch row)."""
+    the memory tokens' terms (6 m 4096 a batch row), at ATTN_PEAK_FLOPS of the type."""
     elt = 2 if dtype == "bfloat16" else 4
     params = 4 * (c * 384 + 2 * 128 * m + 128 * c + 3 * c)
     nbytes = 3 * b * n * c * elt + 2 * params
     flops = b * n * (3072 * c + 49152) + b * 6 * m * 4096
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype]
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / ATTN_PEAK_FLOPS[dtype]
 
 
 def grad_err(k, p) -> float:
@@ -408,6 +457,10 @@ def check_linear_attention_bwd(torch, la) -> dict:
             print(f"  time bwd b={b} n={n} c={c} {dt}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
                   f"{bytes_ms:.4f}, operations {ops_ms:.4f})", flush=True)
+            if (n, c) == LA_SHAPES[0]:
+                launch_split(
+                    torch, lambda: la.linear_attention_bwd_cuda(*args, dout, 4, 32, dtype, True),
+                    f"linear_attention_bwd b={b} n={n} c={c} {dt}")
     # One train step runs the (1024, 64) shape twice.
     per_step = shapes + [shapes[0]]
     return {
@@ -512,31 +565,26 @@ def profile_summary(torch, prof, wall_us: float, what: str, out_name: str,
                     card: str) -> dict:
     """Print the device's busy share of ``wall_us`` and its time by kernel group from a
     torch.profiler run; write the full table to chiprun_out/chip_smoke/<out_name>."""
-    # Kernels only: a user annotation (Optimizer.step#Adam.step) also carries device
-    # time, the span of the kernels inside it, and would count them twice.
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not e.key.startswith("Optimizer.")]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_us = sum(e.self_device_time_total for e in events)
+    # Kernels only, each charged its time after the previous kernel's end
+    # (exclusive_kernel_us): the linear-attention kernels overlap their predecessors.
+    events = sorted(exclusive_kernel_us(torch, prof).items(), key=lambda kv: -kv[1][0])
+    busy_us = sum(us for _, (us, _) in events)
     if busy_us == 0:
         print("  profiler: no device time recorded; busy share not measured")
         return {}
-    launches = sum(e.count for e in events)
+    launches = sum(count for _, (_, count) in events)
     print(f"  profiled {what}: wall {wall_us / 1e3:.1f} ms (profiler on), device busy "
           f"{busy_us / 1e3:.1f} ms = {100 * busy_us / wall_us:.1f}% of wall, {launches} "
           f"kernel launches on {card}")
     groups = dict.fromkeys(PROFILE_GROUPS, 0.0)
-    for e in events:
+    for name, (us, _) in events:
         group = next((g for g, marks in PROFILE_GROUPS.items()
-                      if any(mark in e.key for mark in marks)), "elementwise and other")
-        groups[group] += e.self_device_time_total
+                      if any(mark in name for mark in marks)), "elementwise and other")
+        groups[group] += us
     for group, us in groups.items():
         print(f"    {group}: {us / 1e3:.2f} ms, {100 * us / busy_us:.1f}% of device time")
-    lines = [f"{100 * e.self_device_time_total / busy_us:6.2f}%  "
-             f"{e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:110]}"
-             for e in events]
+    lines = [f"{100 * us / busy_us:6.2f}%  {us / 1e3:9.3f} ms  {count:6d}x  {name[:110]}"
+             for name, (us, count) in events]
     for line in lines[:12]:
         print("   ", line)
     OUT_DIR.mkdir(parents=True, exist_ok=True)

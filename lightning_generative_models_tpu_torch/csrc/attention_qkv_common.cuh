@@ -9,13 +9,11 @@
 // n = 256, the bytes of qkv (3.35 TB/s). So every product here runs on the tensor cores
 // as warp-level mma.sync, and the operand tiles stream through shared memory by cp.async.
 //
-// The building blocks:
+// The building blocks (the products, ldmatrix and cp.async themselves in mma_sync.cuh):
 //  - mma_bf16 (m16n8k16, bf16 operands) for operands that are exact in bf16: the bf16
 //    path's q, k, v and g, whose products are exact in the f32 accumulator.
-//  - mma (m16n8k8, TF32 operands) and the 3xTF32 scheme: an f32 x is split into a TF32
-//    hi and the remainder lo (split_tf32, by integer rounding), and a b is taken as
-//    a_hi b_hi + a_hi b_lo + a_lo b_hi (mma3_split; the dropped a_lo b_lo is ~2^-21
-//    relative), which keeps the f32 products' accuracy for the f32 path's operands.
+//  - mma (m16n8k8, TF32 operands) and the 3xTF32 scheme (split_tf32, mma3_split), which
+//    keeps the f32 products' accuracy for the f32 path's operands.
 //  - split_bf16: an f32 intermediate (P, dS) as bf16 hi + bf16 lo (~2^-17 relative) for
 //    a product with an exact bf16 operand: two mma_bf16 where one f32 product was.
 //  - ldmatrix, plain and transposed, for bf16 fragments of row-major tiles, and plain
@@ -39,7 +37,23 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "mma_sync.cuh"
+
 namespace attn {
+
+// The tensor-core products, fragment loads and copies of mma_sync.cuh, shared with the
+// linear-attention kernels.
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldmatrix_x4;
+using tc::ldmatrix_x4_trans;
+using tc::mma;
+using tc::mma3_split;
+using tc::mma_bf16;
+using tc::pack_bf16;
+using tc::smem_addr;
+using tc::split_tf32;
 
 constexpr int kMaxD = 128;  // head width, a multiple of 8
 
@@ -63,54 +77,7 @@ inline bool valid_shape(int b, int heads, int n_q, int n_kv, int d) {
          d >= 8 && d <= kMaxD && d % 8 == 0;
 }
 
-// -- TF32 products (3xTF32) ----------------------------------------------------------
-
-// c += a b for a 16 x 8 A (row-major fragment), an 8 x 8 B (column fragment), f32 c.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo for the f32 paths (the packed-qkv kernels, the VQ search), in two integer
-// operations and one subtraction where two cvt.rna.tf32 conversions would do: hi rounded
-// to TF32 by adding half of its
-// last place to the bits and clearing the 13 bits TF32 drops, lo the exact remainder,
-// which the mma reads truncated to TF32 (~2^-21 relative in all). The conversions were
-// a third of the f32 path's time on the H100. Finite x below 2^128 (1 - 2^-12) only: the rounding would carry past the largest float.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a b in the 3xTF32 scheme on split operands, the small terms first.
-__device__ __forceinline__ void mma3_split(float (&c)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], uint32_t b0_hi,
-                                           uint32_t b0_lo, uint32_t b1_hi, uint32_t b1_lo) {
-  mma(c, a_lo, b0_hi, b1_hi);
-  mma(c, a_hi, b0_lo, b1_lo);
-  mma(c, a_hi, b0_hi, b1_hi);
-}
-
-// -- bf16 products ---------------------------------------------------------------------
-
-// c += a b for a 16 x 16 A (row-major fragment), a 16 x 8 B (column fragment), both bf16
-// pairs, f32 c.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x and y (x in the low half) as a bf16 pair.
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
+// -- split operands ----------------------------------------------------------------------
 
 // The pair (x, y) as hi + lo, both bf16 pairs: hi the rounded values, lo the rounded
 // remainders, to ~2^-17 relative.
@@ -143,22 +110,6 @@ __device__ __forceinline__ void acc_to_a_tf32(const float (&c)[4], uint32_t (&hi
 }
 
 // -- shared-memory fragments (bf16) ------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 // The A fragment of the 16 x 16 block at (row r0, column c0) of a row-major bf16 tile.
 __device__ __forceinline__ void a_frag_bf16(uint32_t (&a)[4], const __nv_bfloat16* tile,
@@ -202,22 +153,6 @@ __device__ __forceinline__ void b_frags_nk_f32(uint32_t (&b)[4], const float* ti
 }
 
 // -- cp.async ------------------------------------------------------------------------------
-
-// 16 bytes from global to shared memory; zeros where !valid (no byte is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most n groups of this thread's copies are in flight.
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(n));
-}
 
 // Start copying rows row0 .. row0 + ROWS - 1 of a [n, d] slice (row stride token, d a
 // multiple of 16 bytes' worth) into a [ROWS][ld] tile, rows at or past n zero-filled.

@@ -7,9 +7,10 @@
 //   q, k, v = xn @ Wqkv                                       (f32 sums)
 //   qs  = softmax over each head's d features of q, * d^-1/2  -> T
 //         (stabilised by the true per-head max: a row-wide max underflows a whole head to 0/0)
-//   ke  = exp(k - max over tokens of k), the m memory tokens merged through the shared max
-//         and a summed normaliser z                           -> T
-//   ctx = (ke^T v) / z per head                               -> T
+//   ke  = exp(k - kmax), kmax the max over the row's tokens and the m memory tokens of
+//         each feature: ke is rounded to T against this final max, as _kernel does
+//   z   = sum over tokens of ke (f32) + sum over memory tokens of exp(memk - kmax)
+//   ctx = (keᵀ v + meᵀ memv) * (1 / z) per head               -> T
 //   a   = qs . ctx                                            -> T
 //   y   = a @ Wo + bo;  out = RMSNorm(y) * g1 * sqrt(c)  (+ x when residual)
 //
@@ -20,322 +21,215 @@
 // 16.8 MB (5.0 us); [128,64,128] 1.2 GFLOP (1.2 us), 4.2 MB (1.3 us); [128,64,256]
 // 2.3 GFLOP (2.3 us), 8.4 MB (2.5 us).
 //
-// Design. The TPU program holds a whole [rows, n, c] slab in VMEM and relies on its grid
-// running in order. Neither carries over: one [1024, 64] row is 256 KB in f32, more than a
-// block's shared memory, and blocks run in no order. So the block is two launches:
-//  (a) context pass, grid (heads, b): loops over 32-token tiles; recomputes the RMSNorm and
-//      this head's k and v columns from a shared-memory copy of its Wqkv slice; keeps a
-//      running per-feature max of k, rescaling the [d, d] context and z as flash attention
-//      does, starting from the memory tokens. Writes ctx / z in f32 to a [b, heads, d, d]
-//      scratch buffer.
-//  (b) output pass, grid (n / 32, b): RMSNorm, q = xn @ Wq, per-head softmax, a = qs . ctx,
-//      y = a @ Wo + bo, RMSNorm, residual.
-// Each warp owns 4 tokens of a tile and lane l owns feature l of every head (q, a) or the
-// columns l, l + 32, ... (x, y), so every per-token reduction is a warp shuffle. Products
-// are FMA loops in f32 over operands rounded to T, which is what a tensor-core product with
-// f32 accumulation computes. Tensor cores (wgmma), TMA and tuning are later work.
+// Design (the shared pieces in linear_attention_common.cuh). The TPU program holds a whole
+// [rows, n, c] slab in VMEM and relies on its grid running in order; here blocks run in no
+// order, and ke must be rounded against the row's final max before the context sums it.
+// So the row-wide quantities come first, as per-block partials merged in a fixed order,
+// and the forward is five launches on one stream:
+//  (1) prep: the weights rounded to T once a call, in the fragment order of the products'
+//      B operands (one coalesced load a warp's block);
+//  (2) kmax: per block (a chunk of consecutive 16-token subtiles of one row, Plan), RMSNorm
+//      once a subtile into shared memory, then warp h's k = xn Wk for head h, the max of
+//      each feature;
+//  (3) context: the max merged (memory tokens included), k and v again (a product costs
+//      less than storing k), ke = exp(k - kmax) rounded, its f32 sum z and keᵀ v per head in
+//      registers, one partial a block;
+//  (4) merge, a (row, head) a block: the partials added in block order and the memory
+//      tokens' meᵀ memv, ctx = U / z rounded;
+//  (5) output: one subtile a block: warp h q = xn Wq, the head softmax, qs and a = qs ctx
+//      for head h, from registers; warp w y = a Wo + bo for a quarter of the columns, the
+//      RMSNorm's row sums over the four warps, g1, the residual.
+// Every product is mma.sync on the tensor cores: bf16 m16n8k16 on operands already rounded
+// to bf16 (exact in the f32 accumulator, so only the order of the f32 sums differs from the
+// reference), 3xTF32 m16n8k8 in f32. Subtiles come in through a two-stage cp.async ring.
+// The launches use programmatic dependent launch, so each overlaps its predecessor's tail.
+// At bs64 the smallest call of the UNet, (64, 256), has 256 blocks a pass. No float atomics:
+// repeats are bit-identical. wgmma, which wants 64-row tiles, is later work.
 
 #include "linear_attention_common.cuh"
 
 namespace {
 
-// (a) ctx[b, h] = (softmax_tokens(k)^T v) / z for one batch row and one head.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-context_kernel(const T* __restrict__ x, const float* __restrict__ g0,
-               const float* __restrict__ wqkv, const float* __restrict__ mem_kv,
-               float* __restrict__ ctx, int n, int m) {
-  constexpr int C = NC * 32;
-  const int h = blockIdx.x, bb = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  extern __shared__ float smem[];
-  float* w_s = smem;                 // [C][64]: this head's k columns, then its v columns
-  float* xn_s = w_s + C * 64;        // [kTile][C]
-  float* k_s = xn_s + kTile * C;     // [kTile][32] k logits
-  float* e_s = k_s + kTile * 32;     // [kTile][32] exp(k - running max), rounded
-  float* v_s = e_s + kTile * 32;     // [kTile][32] v, rounded
-  float* stat_s = v_s + kTile * 32;  // [32] per-feature max, rescale factor, then z
-
-  for (int i = tid; i < C * 64; i += kThreads) {
-    const int r = i >> 6, j = i & 63;
-    const int col = (j < 32 ? kHD : 2 * kHD) + h * kDimHead + (j & 31);
-    w_s[i] = rnd<T>(wqkv[static_cast<size_t>(r) * kQKV + col]);
-  }
-
-  // mem_kv is [2, heads, d, m]: memk[f * m + j] is memory token j of this head's feature f.
-  const float* memk = mem_kv + static_cast<size_t>(h) * kDimHead * m;
-  const float* memv = mem_kv + static_cast<size_t>(kHeads + h) * kDimHead * m;
-
-  // Warp 0 keeps the running max and z of feature `lane`, starting from the memory tokens.
-  float run_max = -INFINITY, run_z = 0.f;
-  if (warp == 0) {
-    for (int j = 0; j < m; ++j) run_max = fmaxf(run_max, memk[lane * m + j]);
-    for (int j = 0; j < m; ++j) run_z += expf(memk[lane * m + j] - run_max);
-    stat_s[lane] = run_max;
-  }
-  __syncthreads();
-
-  // This thread's part of the context: row dk (a k feature), columns e0 .. e0 + 3.
-  const int dk = tid >> 3, e0 = (tid & 7) * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  {
-    const float mx = stat_s[dk];
-    for (int j = 0; j < m; ++j) {
-      const float e = rnd<T>(expf(memk[dk * m + j] - mx));
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += e * rnd<T>(memv[(e0 + q) * m + j]);
-    }
-  }
-
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();  // every thread is done with the previous tile's e_s, v_s, stat_s
-    rmsnorm_rows<T, NC>(x + (static_cast<size_t>(bb) * n + t0) * C, g0, xn_s, warp, lane);
-    __syncwarp();
-
-    float ka[kRows], va[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) ka[i] = va[i] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < C; ++kk) {
-      const float wk = w_s[kk * 64 + lane], wv = w_s[kk * 64 + 32 + lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float xv = xn_s[(warp * kRows + i) * C + kk];
-        ka[i] += xv * wk;
-        va[i] += xv * wv;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      k_s[(warp * kRows + i) * 32 + lane] = ka[i];
-      v_s[(warp * kRows + i) * 32 + lane] = rnd<T>(va[i]);
-    }
-    __syncthreads();
-
-    if (warp == 0) {
-      float tmax = run_max;
-      for (int t = 0; t < kTile; ++t) tmax = fmaxf(tmax, k_s[t * 32 + lane]);
-      const float scale = expf(run_max - tmax);
-      float z = run_z * scale;
-      for (int t = 0; t < kTile; ++t) {
-        const float e = expf(k_s[t * 32 + lane] - tmax);
-        z += e;
-        e_s[t * 32 + lane] = rnd<T>(e);
-      }
-      run_max = tmax;
-      run_z = z;
-      stat_s[lane] = scale;
-    }
-    __syncthreads();
-
-    const float scale = stat_s[dk];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] *= scale;
-#pragma unroll 8
-    for (int t = 0; t < kTile; ++t) {
-      const float e = e_s[t * 32 + dk];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += e * v_s[t * 32 + e0 + q];
-    }
-  }
-
-  __syncthreads();
-  if (warp == 0) stat_s[lane] = run_z;
-  __syncthreads();
-  const float inv_z = 1.f / stat_s[dk];
-  float* out = ctx + ((static_cast<size_t>(bb) * kHeads + h) * kDimHead + dk) * kDimHead + e0;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) out[q] = acc[q] * inv_z;
-}
-
-// (b) out = RMSNorm(qs . ctx @ Wo + bo) * g1 * sqrt(c) (+ x) for one 32-token tile.
+// (5) out = RMSNorm(qs ctx Wo + bo) * g1 * sqrt(c) (+ x) for the subtiles of a block's chunk.
+// Warp h: q = xn Wq for head h, its softmax, qs rounded, a = qs ctx from registers, rounded
+// into the shared a; then warp w: y = a Wo + bo for columns w C / 4 .. (w + 1) C / 4, the
+// RMSNorm's row sums over the four warps, g1 and the residual.
 template <typename T, int NC, bool kResidual>
-__global__ void __launch_bounds__(kThreads)
-output_kernel(const T* __restrict__ x, const float* __restrict__ g0,
-              const float* __restrict__ wqkv, const float* __restrict__ ctx,
-              const float* __restrict__ wo, const float* __restrict__ bo,
-              const float* __restrict__ g1, T* __restrict__ out, int n) {
+__global__ void __launch_bounds__(kWarps * 32)
+la_fwd_output_kernel(const T* __restrict__ x, const float* __restrict__ g0,
+                     const T* __restrict__ w_qkv, const T* __restrict__ ctx_a,
+                     const T* __restrict__ w_y, const float* __restrict__ bo,
+                     const float* __restrict__ g1, T* __restrict__ out, int n, int S, int chunk) {
+  pdl_enter();
+  using L = SubtileSmem<T, NC>;
   constexpr int C = NC * 32;
-  constexpr int kWCols = C > kHD ? C : kHD;
-  const int t0 = blockIdx.x * kTile, bb = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  extern __shared__ float smem[];
-  float* xn_s = smem;                // [kTile][C]
-  float* w_s = xn_s + kTile * C;     // [32][kWCols]: 32 rows of Wq, then of Wo
-  float* a_s = w_s + 32 * kWCols;    // [kTile][kHD]: qs, then a = qs . ctx
-  float* ctx_s = a_s + kTile * kHD;  // [heads][d][d]
-
-  for (int i = tid; i < kHeads * kDimHead * kDimHead; i += kThreads)
-    ctx_s[i] = rnd<T>(ctx[static_cast<size_t>(bb) * kHeads * kDimHead * kDimHead + i]);
-  const T* x_tile = x + (static_cast<size_t>(bb) * n + t0) * C;
-  rmsnorm_rows<T, NC>(x_tile, g0, xn_s, warp, lane);
-
-  // q = xn @ Wq: lane holds feature `lane` of head hh for each of the warp's tokens.
-  float qa[kRows][kHeads] = {};
-  for (int k0 = 0; k0 < C; k0 += 32) {
-    __syncthreads();
-    for (int i = tid; i < 32 * kHD; i += kThreads)
-      w_s[i] = rnd<T>(wqkv[static_cast<size_t>(k0 + (i >> 7)) * kQKV + (i & 127)]);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < 32; ++kk) {
-      float wv[kHeads];
-#pragma unroll
-      for (int hh = 0; hh < kHeads; ++hh) wv[hh] = w_s[kk * kHD + hh * 32 + lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float xv = xn_s[(warp * kRows + i) * C + k0 + kk];
-#pragma unroll
-        for (int hh = 0; hh < kHeads; ++hh) qa[i][hh] += xv * wv[hh];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const float mx = warp_max(qa[i][hh]);
-      const float e = expf(qa[i][hh] - mx);
-      const float p = e / warp_sum(e);
-      a_s[(warp * kRows + i) * kHD + hh * 32 + lane] = rnd<T>(p * kInvSqrtD);
-    }
-  }
-  __syncwarp();
-
-  float aa[kRows][kHeads] = {};
-#pragma unroll 4
-  for (int d = 0; d < kDimHead; ++d) {
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const float cv = ctx_s[(hh * kDimHead + d) * kDimHead + lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        aa[i][hh] += a_s[(warp * kRows + i) * kHD + hh * 32 + d] * cv;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh)
-      a_s[(warp * kRows + i) * kHD + hh * 32 + lane] = rnd<T>(aa[i][hh]);
-  __syncwarp();
-
-  // y = a @ Wo: lane holds columns q * 32 + lane.
-  float ya[kRows][NC] = {};
-  for (int k0 = 0; k0 < kHD; k0 += 32) {
-    __syncthreads();
-    for (int i = tid; i < 32 * C; i += kThreads)
-      w_s[i] = rnd<T>(wo[static_cast<size_t>(k0) * C + i]);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < 32; ++kk) {
-      float av[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) av[i] = a_s[(warp * kRows + i) * kHD + k0 + kk];
-#pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        const float wv = w_s[kk * C + q * 32 + lane];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) ya[i][q] += av[i] * wv;
-      }
-    }
-  }
-
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = threadIdx.x >> 5, g = lane_g(), t = lane_t();
+  T* a_s = reinterpret_cast<T*>(smem + L::bytes);  // [16][kLdh]
+  float* red = reinterpret_cast<float*>(smem + L::bytes + al16(kSub * kLdh * sizeof(T)));
+  const Chunk ck(n, S, chunk);
+  const size_t tok0 = static_cast<size_t>(ck.row) * n;
+  const T* ctx = ctx_a + static_cast<size_t>(ck.row) * kCtx + h * kDimHead * kDimHead;
   const float sqrt_c = sqrtf(static_cast<float>(C));
+
+  walk_subtiles<T, NC, true>(x + tok0 * C, ck, g0, smem, static_cast<T*>(nullptr), tok0,
+                             NoFetch(), [&](const T* xn, const T* xr, int, int s) {
+    float q[4][4];
+    zero(q);
+    head_projection<T, NC>(q, xn, w_qkv, 0, h);
+    head_softmax4(q);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int tok = warp * kRows + i;
-    float ss = 0.f;
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      ya[i][q] += bo[q * 32 + lane];
-      ss += ya[i][q] * ya[i][q];
+      for (int r = 0; r < 4; ++r) q[nt][r] = rnd<T>(q[nt][r] * kInvSqrtD);
+    float a[4][4];
+    zero(a);
+    product_regs<T, 4>(a, q, [&](auto& b, int j, int k0) { load_b_frag(b, ctx, kDimHead, j, k0); });
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        store_pair(a_s + (g + 8 * half) * kLdh + h * kDimHead + 8 * nt + 2 * t, a[nt][2 * half],
+                   a[nt][2 * half + 1]);
+    __syncthreads();  // a is complete
+
+    float y[NC][4];
+    zero(y);
+    product<T, NC, kHD>(
+        y, [&](auto& fa, int k0) { load_a_mk(fa, a_s, kLdh, k0); },
+        [&](auto& b, int j, int k0) { load_b_frag(b, w_y, kHD, h * NC + j, k0); });
+    float ss[1][2] = {{0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const float2 bv = load_pair(bo + 8 * (h * NC + j) + 2 * t);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        y[j][2 * half] += bv.x;
+        y[j][2 * half + 1] += bv.y;
+        ss[0][half] += y[j][2 * half] * y[j][2 * half] + y[j][2 * half + 1] * y[j][2 * half + 1];
+      }
     }
-    const float r1 = rsqrtf(warp_sum(ss) + kEps);
+    rows_sum(ss, red);
+    T* orow = out + (tok0 + static_cast<size_t>(s) * kSub) * C;
 #pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      const int col = q * 32 + lane;
-      float o = ya[i][q] * r1 * (g1[col] * sqrt_c);
-      if (kResidual) o += to_f(x_tile[static_cast<size_t>(tok) * C + col]);
-      out[(static_cast<size_t>(bb) * n + t0 + tok) * C + col] = from_f<T>(o);
+    for (int j = 0; j < NC; ++j) {
+      const int col = 8 * (h * NC + j) + 2 * t;
+      const float2 gv = load_pair(g1 + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = g + 8 * half;
+        const float r1 = rsqrtf(ss[0][half] + kEps);
+        float o0 = y[j][2 * half] * r1 * (gv.x * sqrt_c);
+        float o1 = y[j][2 * half + 1] * r1 * (gv.y * sqrt_c);
+        if (kResidual) {
+          const float2 xv = load_pair(xr + row * (C + 8) + col);
+          o0 += xv.x;
+          o1 += xv.y;
+        }
+        store_pair(orow + row * C + col, o0, o1);
+      }
     }
-  }
+  });
 }
+
+template <typename T, int NC>
+constexpr size_t output_smem() {
+  return SubtileSmem<T, NC>::bytes + al16(kSub * kLdh * sizeof(T)) + kWarps * kSub * sizeof(float);
+}
+
+// Workspace of the forward: the rounded weights, the per-block partials, the rows' ctx.
+struct FwdLayout {
+  size_t w_qkv, w_y, part_kmax, part_z, part_ctx, ctx_a, total;
+  FwdLayout(const Plan& P, int b, int c, size_t elt) {
+    Carve cv;
+    w_qkv = cv.take(static_cast<size_t>(kQKV) * c * elt);
+    w_y = cv.take(static_cast<size_t>(c) * kHD * elt);
+    part_kmax = cv.take(static_cast<size_t>(P.blocks) * kHD * 4);
+    part_z = cv.take(static_cast<size_t>(P.blocks) * kHD * 4);
+    part_ctx = cv.take(static_cast<size_t>(P.blocks) * kCtx * 4);
+    ctx_a = cv.take(static_cast<size_t>(b) * kCtx * elt);
+    total = cv.at;
+  }
+};
 
 template <typename T, int NC>
 cudaError_t run(const void* x, const float* g0, const float* wqkv, const float* mem_kv,
-                const float* wo, const float* bo, const float* g1, void* out, float* ctx,
-                int b, int n, int m, bool residual, cudaStream_t stream) {
+                const float* wo, const float* bo, const float* g1, void* out, char* ws, int b,
+                int n, int m, bool residual, cudaStream_t stream) {
   constexpr int C = NC * 32;
-  constexpr int kWCols = C > kHD ? C : kHD;
-  const int smem_ctx = sizeof(float) * (C * 64 + kTile * C + 3 * kTile * 32 + 32);
-  const int smem_out =
-      sizeof(float) * (kTile * C + 32 * kWCols + kTile * kHD + kHeads * kDimHead * kDimHead);
+  const Plan P(b, n);
+  const FwdLayout L(P, b, C, sizeof(T));
   const T* xt = static_cast<const T*>(x);
+  T* w_qkv = reinterpret_cast<T*>(ws + L.w_qkv);
+  T* w_y = reinterpret_cast<T*>(ws + L.w_y);
+  T* ctx_a = reinterpret_cast<T*>(ws + L.ctx_a);
+  const CtxOut<T> merged{ctx_a, nullptr, nullptr, nullptr, nullptr};
+  LGM_TRY((launch_context<LaFwd, T, NC>(
+      P, xt, g0, wqkv, mem_kv, wo, w_qkv, w_y, nullptr, nullptr,
+      reinterpret_cast<float*>(ws + L.part_kmax), reinterpret_cast<float*>(ws + L.part_z),
+      reinterpret_cast<float*>(ws + L.part_ctx), nullptr, merged, b, n, m, stream)));
 
-  cudaError_t err = cudaFuncSetAttribute(context_kernel<T, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_ctx);
-  if (err != cudaSuccess) return err;
-  context_kernel<T, NC><<<dim3(kHeads, b), kThreads, smem_ctx, stream>>>(xt, g0, wqkv, mem_kv,
-                                                                         ctx, n, m);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  using OutputKernel = void (*)(const T*, const float*, const float*, const float*,
-                                const float*, const float*, const float*, T*, int);
-  OutputKernel kern = output_kernel<T, NC, false>;
-  if (residual) kern = output_kernel<T, NC, true>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_out);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(n / kTile, b), kThreads, smem_out, stream>>>(xt, g0, wqkv, ctx, wo, bo, g1,
-                                                           static_cast<T*>(out), n);
-  return cudaGetLastError();
+  // The output pass has no row-wide sums: one subtile a block, the finest grid.
+  const int S = n / kSub;
+  auto kern = residual ? la_fwd_output_kernel<T, NC, true> : la_fwd_output_kernel<T, NC, false>;
+  return launch(kern, b * S, kWarps * 32, output_smem<T, NC>(), stream, xt, g0, w_qkv,
+                static_cast<const T*>(ctx_a), static_cast<const T*>(w_y), bo, g1,
+                static_cast<T*>(out), n, S, 1);
 }
 
 template <typename T>
 cudaError_t dispatch(int c, const void* x, const float* g0, const float* wqkv,
                      const float* mem_kv, const float* wo, const float* bo, const float* g1,
-                     void* out, float* ctx, int b, int n, int m, bool residual,
+                     void* out, char* ws, int b, int n, int m, bool residual,
                      cudaStream_t stream) {
   switch (c) {
     case 64:
-      return run<T, 2>(x, g0, wqkv, mem_kv, wo, bo, g1, out, ctx, b, n, m, residual, stream);
+      return run<T, 2>(x, g0, wqkv, mem_kv, wo, bo, g1, out, ws, b, n, m, residual, stream);
     case 128:
-      return run<T, 4>(x, g0, wqkv, mem_kv, wo, bo, g1, out, ctx, b, n, m, residual, stream);
+      return run<T, 4>(x, g0, wqkv, mem_kv, wo, bo, g1, out, ws, b, n, m, residual, stream);
     case 256:
-      return run<T, 8>(x, g0, wqkv, mem_kv, wo, bo, g1, out, ctx, b, n, m, residual, stream);
+      return run<T, 8>(x, g0, wqkv, mem_kv, wo, bo, g1, out, ws, b, n, m, residual, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+bool shape_ok(int b, int n, int c, int m) {
+  return b >= 1 && b <= 65535 && n >= kTile && n % kTile == 0 && m >= 1 &&
+         (c == 64 || c == 128 || c == 256);
+}
+
 }  // namespace
+
+// Bytes of device workspace that lgm_linear_attention_fwd needs for these shapes (0 for
+// shapes it does not take).
+extern "C" size_t lgm_linear_attention_fwd_workspace(int b, int n, int c, int m, int bf16) {
+  if (!shape_ok(b, n, c, m)) return 0;
+  return FwdLayout(Plan(b, n), b, c, bf16 ? 2 : 4).total;
+}
 
 // x, out: [b, n, c] in f32 (bf16 == 0) or bf16 (bf16 == 1), which is also the compute type.
 // g0, bo, g1: [c]; wqkv: [c, 384]; mem_kv: [2, 4, 32, m]; wo: [128, c]; all f32.
-// ctx: f32 scratch of b * 4 * 32 * 32 values. Heads 4, dim_head 32, c in {64, 128, 256},
-// n a multiple of 32. Launches on `stream` and returns cudaGetLastError().
+// workspace: at least lgm_linear_attention_fwd_workspace bytes, 256-byte aligned. Heads 4,
+// dim_head 32, c in {64, 128, 256}, n a multiple of 32. Launches on `stream` and returns
+// the first CUDA error.
 extern "C" int lgm_linear_attention_fwd(const void* x, const void* g0, const void* wqkv,
                                         const void* mem_kv, const void* wo, const void* bo,
-                                        const void* g1, void* out, void* ctx, int b, int n,
+                                        const void* g1, void* out, void* workspace, int b, int n,
                                         int c, int m, int residual, int bf16, void* stream) {
-  if (b < 1 || b > 65535 || n < kTile || n % kTile != 0 || m < 1) return cudaErrorInvalidValue;
+  if (!shape_ok(b, n, c, m)) return cudaErrorInvalidValue;
   const float* f_g0 = static_cast<const float*>(g0);
   const float* f_wqkv = static_cast<const float*>(wqkv);
   const float* f_mem = static_cast<const float*>(mem_kv);
   const float* f_wo = static_cast<const float*>(wo);
   const float* f_bo = static_cast<const float*>(bo);
   const float* f_g1 = static_cast<const float*>(g1);
-  float* f_ctx = static_cast<float*>(ctx);
+  char* ws = static_cast<char*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return dispatch<__nv_bfloat16>(c, x, f_g0, f_wqkv, f_mem, f_wo, f_bo, f_g1, out, f_ctx, b, n,
+    return dispatch<__nv_bfloat16>(c, x, f_g0, f_wqkv, f_mem, f_wo, f_bo, f_g1, out, ws, b, n,
                                    m, residual != 0, s);
-  return dispatch<float>(c, x, f_g0, f_wqkv, f_mem, f_wo, f_bo, f_g1, out, f_ctx, b, n, m,
+  return dispatch<float>(c, x, f_g0, f_wqkv, f_mem, f_wo, f_bo, f_g1, out, ws, b, n, m,
                          residual != 0, s);
 }
 

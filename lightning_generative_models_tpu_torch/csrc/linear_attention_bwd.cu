@@ -4,688 +4,630 @@
 // (launched through _pallas_backward). It recomputes the forward (see linear_attention.cu)
 // and returns dx and the f32 gradients of g0, Wqkv, mem_kv, Wo, bo and g1, rounding to the
 // compute type T exactly where _bwd_kernel rounds: xn, v, ke, me, memv, context, qs, a,
-// dy, da, du and dp. Everything else is f32.
+// dy, da, du and dp. Everything else is f32; ke is rounded against the row's final max,
+// and dk = ke dke takes ke in f32, as _bwd_kernel does.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): per token 3072 * c + 49152
 // flops (the forward's products again, then dWo, da, dqs, dcontext, dke, dv, dxn and dW,
 // per head) against 3 * c * sizeof(T) bytes of activations (x, dout, dx). In bf16 at
 // [128, 1024, 64] that is 32.2 GFLOP (32.6 us) against 50 MB (15.0 us): operations bound.
 //
-// Design. The TPU kernel sums every weight gradient into output blocks that stay resident
-// across its sequential grid. CUDA blocks run concurrently and in no order, so nothing is
-// summed across blocks here: every cross-block sum is a per-block partial, reduced later in
-// a fixed order, and no float atomics are used. Two calls on the same inputs give the same
-// bits. The backward is nine launches on one stream:
-//  (1) stats, grid (heads, b): per batch row and head, two passes over 32-token tiles. The
-//      first recomputes RMSNorm and this head's k and v, keeps k in f32 and v in T in a
-//      workspace and takes the per-feature max of k (memory tokens included). The second
-//      turns k into ke = exp(k - kmax), sums z and the context U = ke^T v + me^T memv, and
-//      writes kmax, z and C = U / z. The forward's context is recomputed rather than saved,
-//      because the backward needs kmax and z too, and ke rounded against the final max.
-//  (2) token pass A, grid (n / 32, b): q, the per-head softmax, a = qs . C, y = a @ Wo + bo,
-//      then dy, da = dy @ Wo^T, dqs = da . C^T and dq. Writes qs, a, da, dy and dq in T for
-//      the later passes, and per-tile partials of dbo and dg1.
-//  (3) context gradient, grid (heads, b): dC = qs^T da over the row's tokens, du = dC / z,
-//      dz = -sum(dC * C) / z; the memory tokens' grads (per-row partials of dmem_kv); then
-//      dk = ke * (v . du^T + dz) and dv = ke . du for every token of the row.
-//  (4) token pass B, grid (n / 32, b): dxn = dp @ Wqkv^T, the RMSNorm gradient, dx (+ dout
-//      with the residual); per-tile partials of dg0.
-//  (5, 6) dW = xn^T dp and dWo = a^T dy: a 32 x 32 output tile per block and the b * n
-//      tokens split in a fixed number of chunks, one partial per chunk.
-//  (7-9) fixed-order sums of the partials: dW, dWo, dbo, dg1, dg0, dmem_kv.
-// Products are f32 FMA loops over operands rounded to T, as in the forward. Tensor cores,
-// fewer launches and keeping the intermediates out of device memory are later work.
+// Design (the shared pieces in linear_attention_common.cuh). The TPU kernel sums every
+// weight gradient into output blocks that stay resident across its sequential grid. CUDA
+// blocks run concurrently and in no order, so every cross-block sum is a per-block
+// partial, summed later in a fixed order, and no float atomics are used: two calls on the
+// same inputs give the same bits. Every product is mma.sync on the tensor cores: bf16
+// m16n8k16 on operands already rounded to bf16, 3xTF32 m16n8k8 in f32. A block of four
+// warps takes a chunk of a row's 16-token subtiles (Plan), one subtile at a time: per-head
+// work by warp h, the full-width products split by columns between the warps. Ten launches
+// on one stream, with programmatic dependent launch:
+//  (1-4) prep, kmax, context, merge: as the forward (one RMSNorm and one projection a
+//      subtile), xn kept in T for (5) and (8); the merge also keeps C in f32, z and kmax;
+//  (5) token pass A: q, pq, qs and a = qs Cc for head h; y = a Wo + bo and dy through the
+//      second RMSNorm for a quarter of the columns; da = dy Woᵀ, dqs = da Ccᵀ and dq for
+//      head h; a, dy and dq (into dp) in T for the later passes; per-block partials of dbo,
+//      dg1 and dC = qsᵀ da (in registers);
+//  (6) dC merge, a (row, head) a block: du = dC / z, dz = -sum(dC C) / z, and the memory
+//      tokens' gradients (this row's share) as tensor-core products;
+//  (7) token pass B: k and v again for head h, dk = ke (v duᵀ + dz) and dv = ke du from
+//      registers, dp = [dq, dk, dv] in T; dxn = dp Wqkvᵀ for a quarter of the columns, dx
+//      through the first RMSNorm (+ dout with the residual); a per-block partial of dg0;
+//  (8, 9) dW = xnᵀ dp and dWo = aᵀ dy: a 64-row output tile a block, the tokens in a fixed
+//      number of chunks streamed through a cp.async ring, one partial per chunk;
+//  (10) one launch of fixed-order sums: dW, dWo, dbo, dg1, dg0 and dmem_kv.
+// The token passes take their subtiles through two-stage cp.async rings. wgmma, which wants
+// 64-row tiles, and keeping dp out of device memory are later work.
 
 #include "linear_attention_common.cuh"
 
 namespace {
 
-constexpr int kPad = kDimHead + 1;  // row stride of [d][d] tiles in shared memory
+constexpr int kLdp = kQKV + 8;  // row stride of a dp subtile in shared memory
 
-__host__ __device__ constexpr size_t align_up(size_t v) { return (v + 255) / 256 * 256; }
+// Where a row's merged context gradient goes (6), and what it reads besides the partials:
+// du rounded to T in fragment order, as the B of dke = v duᵀ (du_k) and of dv = ke du
+// (du_v); dz; this row's share of the memory tokens' gradients (part_mem).
+template <typename T>
+struct DctxOut {
+  const float *mem_kv, *c32, *z, *kmax;
+  int m;
+  T *du_k, *du_v;
+  float *dz, *part_mem;
+};
 
-// Chunks of the token axis for the weight-gradient products: enough blocks for two per
-// SM, never a chunk below one 32-token tile.
-int token_splits(int out_tiles, int tokens) {
-  const int s = (2 * 132 + out_tiles - 1) / out_tiles;
-  return s < tokens / kTile ? s : tokens / kTile;
+// (6) One head of a row's context gradient, a warp a block, grid (b, 4): dC summed over the
+// blocks in order, du = dC / z rounded, dz = -sum_e dC C / z, and this row's share of the
+// memory tokens' gradients: dmemk[d, j] = me (memv duᵀ + dz), dmemv[e, j] = (me du)[j, e],
+// on the tensor cores with the memory axis (m <= 8) as 16 zero-padded rows.
+template <typename T>
+__global__ void __launch_bounds__(32)
+la_bwd_dcontext_merge_kernel(const float* __restrict__ part_dc, int S, DctxOut<T> o) {
+  pdl_enter();
+  constexpr int kLdd = kDimHead + 8;
+  __shared__ __align__(16) T dus[kDimHead * kLdd];
+  __shared__ float dz_s[kDimHead];
+  const int row = blockIdx.x, h = blockIdx.y;
+  const int g = lane_g(), t = lane_t();
+  const int m = o.m;
+  const size_t base = static_cast<size_t>(row) * kCtx + h * kDimHead * kDimHead;
+  const float* zr = o.z + static_cast<size_t>(row) * kHD + h * kDimHead;
+  const float* kr = o.kmax + static_cast<size_t>(row) * kHD + h * kDimHead;
+  float dc[32];
+  sum_partials(part_dc + static_cast<size_t>(row) * S * kCtx, S, h, dc);
+  float dzp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int d = frag_row(i), e = frag_col(i);
+    const T v = from_f<T>(dc[i] / zr[d]);
+    o.du_k[base + frag_off<T>(e, d, kDimHead)] = v;
+    o.du_v[base + frag_off<T>(d, e, kDimHead)] = v;
+    dus[d * kLdd + e] = v;
+    dzp[i >> 4][(i >> 1) & 1] += dc[i] * o.c32[base + d * kDimHead + e];
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float sum = quad_sum(dzp[mt][half]);
+      const int d = 16 * mt + g + 8 * half;
+      if (t == 0) {
+        const float dz = -sum / zr[d];
+        o.dz[static_cast<size_t>(row) * kHD + h * kDimHead + d] = dz;
+        dz_s[d] = dz;
+      }
+    }
+  __syncwarp();
+
+  const float* memk = o.mem_kv + static_cast<size_t>(h) * kDimHead * m;        // [d][j]
+  const float* memv = o.mem_kv + static_cast<size_t>(kHD + h * kDimHead) * m;  // [e][j]
+  float* pm = o.part_mem + static_cast<size_t>(row) * 2 * kHD * m;
+  // dme[j, d] = memv[j] . du[d] (B(e, d) = du[d][e]); dmemk[d, j] = me (dme + dz).
+  float acc[4][4];
+  zero(acc);
+#pragma unroll
+  for (int k0 = 0; k0 < kDimHead; k0 += Frag<T>::kK) {
+    typename Frag<T>::A a;
+    make_a(a, [&](int r, int k) { return r < m ? rnd<T>(memv[(k0 + k) * m + r]) : 0.f; });
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      typename Frag<T>::B b;
+      load_b_nk(b, dus, kLdd, 8 * nt, k0);
+      mma(acc[nt], a, b);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // rows g + 8 are past m <= 8
+      const int j = g, d = 8 * nt + 2 * t + r;
+      if (j < m) {
+        const float me = expf(memk[d * m + j] - kr[d]);
+        pm[(h * kDimHead + d) * m + j] = me * (acc[nt][r] + dz_s[d]);
+      }
+    }
+  // dmv[j, e] = me_c[j] . du[:, e] (B(d, e) = du[d][e]).
+  zero(acc);
+#pragma unroll
+  for (int k0 = 0; k0 < kDimHead; k0 += Frag<T>::kK) {
+    typename Frag<T>::A a;
+    make_a(a, [&](int r, int k) {
+      const int d = k0 + k;
+      return r < m ? rnd<T>(expf(memk[d * m + r] - kr[d])) : 0.f;
+    });
+    typename Frag<T>::B b[4];
+    load_b_kn2(b[0], b[1], dus, kLdd, 0, k0);
+    load_b_kn2(b[2], b[3], dus, kLdd, 16, k0);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) mma(acc[nt], a, b[nt]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = g, e = 8 * nt + 2 * t + r;
+      if (j < m) pm[(kHD + h * kDimHead + e) * m + j] = acc[nt][r];
+    }
 }
 
-int token_chunk(int splits, int tokens) {
-  const int tiles = tokens / kTile;
-  return (tiles + splits - 1) / splits * kTile;
+// Shared memory of token pass A after the subtile walk's (whose ring holds xn): qs, a (then
+// da) and dy, rounded, and the rows' sums.
+template <typename T, int NC>
+struct TokenASmem {
+  static constexpr int C = NC * 32, kLdx = C + 8;
+  static constexpr size_t qs = SubtileSmem<T, NC>::bytes;
+  static constexpr size_t a = qs + al16(kSub * kLdh * sizeof(T));
+  static constexpr size_t dy = a + al16(kSub * kLdh * sizeof(T));
+  static constexpr size_t red = dy + al16(kSub * kLdx * sizeof(T));
+  static constexpr size_t bytes = red + 2 * kWarps * kSub * sizeof(float);
+};
+
+// (5) For the subtiles of a block's chunk: qs, a, y, dy, da, dq; partials of dC, dbo, dg1.
+// Warp h: q = xn Wq for head h, pq, qs, a = qs Cc; warp w: y = a Wo + bo and dy for columns
+// w C / 4 .. (w + 1) C / 4 (the RMSNorm's row sums over the four warps); warp h again:
+// da = dy Woᵀ for head h, dqs = da Ccᵀ and dq, and dC += qsᵀ da in registers.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kWarps * 32)
+la_bwd_token_a_kernel(const T* __restrict__ xn_ws, const T* __restrict__ w_qkv,
+                      const T* __restrict__ ctx_a, const T* __restrict__ ctx_dq,
+                      const T* __restrict__ w_y, const T* __restrict__ w_da,
+                      const float* __restrict__ bo, const float* __restrict__ g1,
+                      const T* __restrict__ dout, T* __restrict__ ac_ws, T* __restrict__ dyc_ws,
+                      T* __restrict__ dpc_ws, float* __restrict__ part_dc,
+                      float* __restrict__ part_bg, int n, int S, int chunk) {
+  pdl_enter();
+  using L = TokenASmem<T, NC>;
+  constexpr int C = NC * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane_g(), t = lane_t();
+  T* qs_s = reinterpret_cast<T*>(smem + L::qs);
+  T* a_s = reinterpret_cast<T*>(smem + L::a);
+  T* dy_s = reinterpret_cast<T*>(smem + L::dy);
+  float* red = reinterpret_cast<float*>(smem + L::red);
+  const Chunk ck(n, S, chunk);
+  const size_t tok0 = static_cast<size_t>(ck.row) * n;
+  const T* ca = ctx_a + static_cast<size_t>(ck.row) * kCtx + h * kDimHead * kDimHead;
+  const T* cq = ctx_dq + static_cast<size_t>(ck.row) * kCtx + h * kDimHead * kDimHead;
+  const float sqrt_c = sqrtf(static_cast<float>(C));
+  float u[2][4][4];  // dC of head h
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) zero(u[mt]);
+  float bsum[NC][2], gsum[NC][2];  // this warp's columns' sums of dy and of dout y r1
+#pragma unroll
+  for (int j = 0; j < NC; ++j) bsum[j][0] = bsum[j][1] = gsum[j][0] = gsum[j][1] = 0.f;
+
+  walk_subtiles<T, NC, false>(xn_ws + tok0 * C, ck, nullptr, smem, static_cast<T*>(nullptr),
+                              tok0, NoFetch(), [&](const T* xn, const T*, int, int s) {
+    const size_t trow = tok0 + static_cast<size_t>(s) * kSub;  // token of the subtile's row 0
+    // pq of head h (kept for dq), qs rounded, a = qs Cc rounded.
+    float pq[4][4], qs[4][4], a[4][4];
+    zero(pq);
+    head_projection<T, NC>(pq, xn, w_qkv, 0, h);
+    head_softmax4(pq);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qs[nt][r] = rnd<T>(pq[nt][r] * kInvSqrtD);
+    zero(a);
+    product_regs<T, 4>(a, qs, [&](auto& b, int j, int k0) { load_b_frag(b, ca, kDimHead, j, k0); });
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = g + 8 * half, col = h * kDimHead + 8 * nt + 2 * t;
+        store_pair(qs_s + row * kLdh + col, qs[nt][2 * half], qs[nt][2 * half + 1]);
+        store_pair(a_s + row * kLdh + col, a[nt][2 * half], a[nt][2 * half + 1]);
+        store_pair(ac_ws + (trow + row) * kHD + col, a[nt][2 * half], a[nt][2 * half + 1]);
+      }
+    __syncthreads();  // a is complete
+
+    // y = a Wo + bo and dy for this warp's columns.
+    float y[NC][4];
+    zero(y);
+    product<T, NC, kHD>(
+        y, [&](auto& fa, int k0) { load_a_mk(fa, a_s, kLdh, k0); },
+        [&](auto& b, int j, int k0) { load_b_frag(b, w_y, kHD, h * NC + j, k0); });
+    float sums[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // per row: sum y^2, sum u1 y
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = 8 * (h * NC + j) + 2 * t;
+      const float2 bv = load_pair(bo + col), gv = load_pair(g1 + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float2 dv = load_pair(dout + (trow + g + 8 * half) * C + col);
+        y[j][2 * half] += bv.x;
+        y[j][2 * half + 1] += bv.y;
+        sums[0][half] += y[j][2 * half] * y[j][2 * half] + y[j][2 * half + 1] * y[j][2 * half + 1];
+        sums[1][half] += dv.x * (gv.x * sqrt_c) * y[j][2 * half] +
+                         dv.y * (gv.y * sqrt_c) * y[j][2 * half + 1];
+      }
+    }
+    rows_sum(sums, red);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = 8 * (h * NC + j) + 2 * t;
+      const float2 gv = load_pair(g1 + col);
+      const float gvv[2] = {gv.x, gv.y};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = g + 8 * half;
+        const float r1 = rsqrtf(sums[0][half] + kEps), s1 = sums[1][half];
+        const float r13 = r1 * r1 * r1;
+        const float2 dv = load_pair(dout + (trow + row) * C + col);
+        const float dvv[2] = {dv.x, dv.y};
+        float dy[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float yv = y[j][2 * half + c];
+          dy[c] = dvv[c] * (gvv[c] * sqrt_c) * r1 - yv * r13 * s1;
+          bsum[j][c] += dy[c];
+          gsum[j][c] += dvv[c] * yv * r1;
+        }
+        store_pair(dy_s + row * L::kLdx + col, dy[0], dy[1]);
+        store_pair(dyc_ws + (trow + row) * C + col, dy[0], dy[1]);
+      }
+    }
+    __syncthreads();  // dy is complete; every warp is done with a
+
+    // da = dy Woᵀ for head h, rounded (into a_s for dC); dqs = da Ccᵀ; dq.
+    float da[4][4], dq[4][4];
+    zero(da);
+    product<T, 4, C>(
+        da, [&](auto& fa, int k0) { load_a_mk(fa, dy_s, L::kLdx, k0); },
+        [&](auto& b, int j, int k0) { load_b_frag(b, w_da, C, 4 * h + j, k0); });
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) da[nt][r] = rnd<T>(da[nt][r]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        store_pair(a_s + (g + 8 * half) * kLdh + h * kDimHead + 8 * nt + 2 * t, da[nt][2 * half],
+                   da[nt][2 * half + 1]);
+    zero(dq);
+    product_regs<T, 4>(dq, da, [&](auto& b, int j, int k0) { load_b_frag(b, cq, kDimHead, j, k0); });
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float tsum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) tsum += dq[nt][2 * half + c] * kInvSqrtD * pq[nt][2 * half + c];
+      tsum = quad_sum(tsum);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float v[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = pq[nt][2 * half + c];
+          v[c] = p * (dq[nt][2 * half + c] * kInvSqrtD) - p * tsum;
+        }
+        store_pair(dpc_ws + (trow + g + 8 * half) * kQKV + h * kDimHead + 8 * nt + 2 * t, v[0],
+                   v[1]);
+      }
+    }
+    __syncwarp();  // this warp's da columns are in a_s
+    // dC += qsᵀ da over the subtile's 16 tokens.
+#pragma unroll
+    for (int k0 = 0; k0 < kSub; k0 += Frag<T>::kK) {
+      typename Frag<T>::A a0, a1;
+      typename Frag<T>::B b[4];
+      load_a_km(a0, qs_s, kLdh, h * kDimHead, k0);
+      load_a_km(a1, qs_s, kLdh, h * kDimHead + 16, k0);
+      load_b_kn2(b[0], b[1], a_s, kLdh, h * kDimHead, k0);
+      load_b_kn2(b[2], b[3], a_s, kLdh, h * kDimHead + 16, k0);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        mma(u[0][nt], a0, b[nt]);
+        mma(u[1][nt], a1, b[nt]);
+      }
+    }
+  });
+  float* out = part_dc + static_cast<size_t>(blockIdx.x) * kCtx + h * 32 * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) out[i * 32] = u[i >> 4][(i >> 2) & 3][i & 3];
+  float* bg = part_bg + static_cast<size_t>(blockIdx.x) * 2 * C + h * (C / 4);
+  store_col_sums(bsum, bg, 1.f);
+  store_col_sums(gsum, bg + C, sqrt_c);
 }
 
-// Workspace: one device buffer cut into these arrays (each 256-byte aligned).
-struct Layout {
-  size_t ke, v3, xn, qs, ac, da3, dyc, dpc, kmax, z, ctx, part_bg, part_g0, part_mem,
-      part_w, part_wo, total;
-  int splits_w, chunk_w, splits_wo, chunk_wo;
+// Shared memory of token pass B after the subtile walk's (whose ring holds x): a ring of
+// two dp subtiles (dq comes in with the subtile), the rows' sums, and the row's kmax and dz.
+template <typename T, int NC>
+struct TokenBSmem {
+  static constexpr size_t dp = SubtileSmem<T, NC>::bytes;
+  static constexpr size_t red = dp + al16(2 * kSub * kLdp * sizeof(T));
+  static constexpr size_t kmax = red + kWarps * kSub * sizeof(float);
+  static constexpr size_t dz = kmax + kHD * sizeof(float);
+  static constexpr size_t bytes = dz + kHD * sizeof(float);
+};
 
-  Layout(int b, int n, int c, int m, size_t elt) {
-    const size_t tok = static_cast<size_t>(b) * n, tiles = tok / kTile;
-    splits_w = token_splits((c / 32) * (kQKV / 32), static_cast<int>(tok));
-    chunk_w = token_chunk(splits_w, static_cast<int>(tok));
-    splits_wo = token_splits((kHD / 32) * (c / 32), static_cast<int>(tok));
-    chunk_wo = token_chunk(splits_wo, static_cast<int>(tok));
-    size_t at = 0;
-    auto take = [&at](size_t bytes) { const size_t here = at; at += align_up(bytes); return here; };
-    ke = take(tok * kHD * 4);
-    v3 = take(tok * kHD * elt);
-    xn = take(tok * c * elt);
-    qs = take(tok * kHD * elt);
-    ac = take(tok * kHD * elt);
-    da3 = take(tok * kHD * elt);
-    dyc = take(tok * c * elt);
-    dpc = take(tok * kQKV * elt);
-    kmax = take(static_cast<size_t>(b) * kHD * 4);
-    z = take(static_cast<size_t>(b) * kHD * 4);
-    ctx = take(static_cast<size_t>(b) * kHeads * kDimHead * kDimHead * 4);
-    part_bg = take(tiles * 2 * c * 4);
-    part_g0 = take(tiles * c * 4);
-    part_mem = take(static_cast<size_t>(b) * 2 * kHD * m * 4);
-    part_w = take(static_cast<size_t>(splits_w) * c * kQKV * 4);
-    part_wo = take(static_cast<size_t>(splits_wo) * kHD * c * 4);
-    total = at;
+// (7) For the subtiles of a block's chunk: dk, dv, dp, dxn, dx; a partial of dg0. Warp h: k
+// and v again for head h, ke (f32), dk = ke (v duᵀ + dz) and dv = ke du from registers, into
+// dp; warp w: dxn = dp Wqkvᵀ and dx for columns w C / 4 .. (w + 1) C / 4 (the RMSNorm's row
+// sum over the four warps).
+template <typename T, int NC, bool kResidual>
+__global__ void __launch_bounds__(kWarps * 32)
+la_bwd_token_b_kernel(const T* __restrict__ x, const float* __restrict__ g0,
+                      const T* __restrict__ w_qkv, const T* __restrict__ w_dxn,
+                      const float* __restrict__ kmax, const float* __restrict__ dz,
+                      const T* __restrict__ du_k, const T* __restrict__ du_v,
+                      const T* __restrict__ dout, T* __restrict__ dpc_ws, T* __restrict__ dx,
+                      float* __restrict__ part_g0, int n, int S, int chunk) {
+  pdl_enter();
+  using L = TokenBSmem<T, NC>;
+  constexpr int C = NC * 32, kVec = 16 / sizeof(T), kPerRow = kHD / kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = threadIdx.x >> 5, g = lane_g(), t = lane_t();
+  T* dp = reinterpret_cast<T*>(smem + L::dp);
+  float* red = reinterpret_cast<float*>(smem + L::red);
+  float* kmax_s = reinterpret_cast<float*>(smem + L::kmax);
+  float* dz_s = reinterpret_cast<float*>(smem + L::dz);
+  const float* r0_s = reinterpret_cast<const float*>(smem + SubtileSmem<T, NC>::r0);
+  const Chunk ck(n, S, chunk);
+  const size_t tok0 = static_cast<size_t>(ck.row) * n;
+  const T* duk = du_k + static_cast<size_t>(ck.row) * kCtx + h * kDimHead * kDimHead;
+  const T* duv = du_v + static_cast<size_t>(ck.row) * kCtx + h * kDimHead * kDimHead;
+  const float sqrt_c = sqrtf(static_cast<float>(C));
+  for (int col = threadIdx.x; col < kHD; col += blockDim.x) {
+    kmax_s[col] = kmax[static_cast<size_t>(ck.row) * kHD + col];
+    dz_s[col] = dz[static_cast<size_t>(ck.row) * kHD + col];
+  }
+  float gsum[NC][2];  // this warp's columns' sums of dxn x r0
+#pragma unroll
+  for (int j = 0; j < NC; ++j) gsum[j][0] = gsum[j][1] = 0.f;
+
+  auto fetch_dq = [&](int slot, int s) {
+    const T* src = dpc_ws + (tok0 + static_cast<size_t>(s) * kSub) * kQKV;
+    for (int i = threadIdx.x; i < kSub * kPerRow; i += blockDim.x) {
+      const int r = i / kPerRow, c = i % kPerRow;
+      tc::cp_async16(dp + (slot * kSub + r) * kLdp + c * kVec, src + r * kQKV + c * kVec, true);
+    }
+  };
+  walk_subtiles<T, NC, true>(x + tok0 * C, ck, g0, smem, static_cast<T*>(nullptr), tok0,
+                             fetch_dq, [&](const T* xn, const T* xr, int slot, int s) {
+    const size_t trow = tok0 + static_cast<size_t>(s) * kSub;
+    T* dpb = dp + slot * kSub * kLdp;
+    float kk[4][4], vv[4][4], kec[4][4], dke[4][4], dv[4][4];
+    zero(kk);
+    zero(vv);
+    head_projection<T, NC>(kk, xn, w_qkv, 1, h);
+    head_projection<T, NC>(vv, xn, w_qkv, 2, h);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        kk[nt][r] = expf(kk[nt][r] - kmax_s[h * kDimHead + 8 * nt + 2 * t + (r & 1)]);
+        kec[nt][r] = rnd<T>(kk[nt][r]);
+        vv[nt][r] = rnd<T>(vv[nt][r]);
+      }
+    zero(dke);
+    zero(dv);
+    product_regs<T, 4>(dke, vv, [&](auto& b, int j, int k0) { load_b_frag(b, duk, kDimHead, j, k0); });
+    product_regs<T, 4>(dv, kec, [&](auto& b, int j, int k0) { load_b_frag(b, duv, kDimHead, j, k0); });
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = g + 8 * half, col = h * kDimHead + 8 * nt + 2 * t;
+        const float dk0 = kk[nt][2 * half] * (dke[nt][2 * half] + dz_s[col]);
+        const float dk1 = kk[nt][2 * half + 1] * (dke[nt][2 * half + 1] + dz_s[col + 1]);
+        store_pair(dpb + row * kLdp + kHD + col, dk0, dk1);
+        store_pair(dpb + row * kLdp + 2 * kHD + col, dv[nt][2 * half], dv[nt][2 * half + 1]);
+        store_pair(dpc_ws + (trow + row) * kQKV + kHD + col, dk0, dk1);
+        store_pair(dpc_ws + (trow + row) * kQKV + 2 * kHD + col, dv[nt][2 * half],
+                   dv[nt][2 * half + 1]);
+      }
+    __syncthreads();  // dp is complete
+
+    // dxn = dp Wqkvᵀ for this warp's columns; dx through the first RMSNorm.
+    float dxn[NC][4];
+    zero(dxn);
+    product<T, NC, kQKV>(
+        dxn, [&](auto& fa, int k0) { load_a_mk(fa, dpb, kLdp, k0); },
+        [&](auto& b, int j, int k0) { load_b_frag(b, w_dxn, kQKV, h * NC + j, k0); });
+    float su[1][2] = {{0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = 8 * (h * NC + j) + 2 * t;
+      const float2 gv = load_pair(g0 + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float2 xv = load_pair(xr + (g + 8 * half) * (C + 8) + col);
+        su[0][half] += dxn[j][2 * half] * (gv.x * sqrt_c) * xv.x +
+                       dxn[j][2 * half + 1] * (gv.y * sqrt_c) * xv.y;
+      }
+    }
+    rows_sum(su, red);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = 8 * (h * NC + j) + 2 * t;
+      const float2 gv = load_pair(g0 + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = g + 8 * half;
+        const float r0 = r0_s[row], r03 = r0 * r0 * r0, s0 = su[0][half];
+        const float2 xv = load_pair(xr + row * (C + 8) + col);
+        float d0 = dxn[j][2 * half] * (gv.x * sqrt_c) * r0 - xv.x * r03 * s0;
+        float d1 = dxn[j][2 * half + 1] * (gv.y * sqrt_c) * r0 - xv.y * r03 * s0;
+        if (kResidual) {
+          const float2 dv2 = load_pair(dout + (trow + row) * C + col);
+          d0 += dv2.x;
+          d1 += dv2.y;
+        }
+        store_pair(dx + (trow + row) * C + col, d0, d1);
+        gsum[j][0] += dxn[j][2 * half] * xv.x * r0;
+        gsum[j][1] += dxn[j][2 * half + 1] * xv.y * r0;
+      }
+    }
+  });
+  store_col_sums(gsum, part_g0 + static_cast<size_t>(blockIdx.x) * C + h * (C / 4), sqrt_c);
+}
+
+// (8, 9) out[split] = A[tokens of the split]ᵀ B[tokens of the split]: A [K][M] (row stride
+// lda), B [K][N] (ldb), both T; a 64 x NB tile of the [M, N] output a block, warp w its
+// rows 16 w .. 16 w + 15; the split's tokens through a two-stage cp.async ring of 32.
+constexpr int kGemmStage = 32;
+
+template <typename T, int NB>
+struct GemmSmem {
+  static constexpr int kLa = 64 + 8, kLb = NB + 8;
+  static constexpr size_t a = 0;
+  static constexpr size_t b = a + al16(2 * kGemmStage * kLa * sizeof(T));
+  static constexpr size_t bytes = b + al16(2 * kGemmStage * kLb * sizeof(T));
+};
+
+template <typename T, int NB>
+__global__ void __launch_bounds__(128)
+la_bwd_atb_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B, int ldb, int K, int M,
+           int N, int chunk, float* __restrict__ out) {
+  pdl_enter();
+  using L = GemmSmem<T, NB>;
+  constexpr int kVec = 16 / sizeof(T), kPa = 64 / kVec, kPb = NB / kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* a_s = reinterpret_cast<T*>(smem + L::a);
+  T* b_s = reinterpret_cast<T*>(smem + L::b);
+  const int n0 = blockIdx.x * NB, m0 = blockIdx.y * 64, split = blockIdx.z;
+  const int warp = threadIdx.x >> 5, g = lane_g(), t = lane_t();
+  const int k_begin = split * chunk, k_end = k_begin + chunk < K ? k_begin + chunk : K;
+
+  auto fetch = [&](int slot, int k0) {
+    for (int i = threadIdx.x; i < kGemmStage * kPa; i += 128) {
+      const int r = i / kPa, c = i % kPa;
+      tc::cp_async16(a_s + (slot * kGemmStage + r) * L::kLa + c * kVec,
+                     A + static_cast<size_t>(k0 + r) * lda + m0 + c * kVec, true);
+    }
+    for (int i = threadIdx.x; i < kGemmStage * kPb; i += 128) {
+      const int r = i / kPb, c = i % kPb;
+      tc::cp_async16(b_s + (slot * kGemmStage + r) * L::kLb + c * kVec,
+                     B + static_cast<size_t>(k0 + r) * ldb + n0 + c * kVec, true);
+    }
+  };
+  float acc[NB / 8][4];
+  zero(acc);
+  int buf = 0;
+  fetch(0, k_begin);
+  tc::cp_async_commit();
+  for (int k0 = k_begin; k0 < k_end; k0 += kGemmStage) {
+    if (k0 + kGemmStage < k_end) fetch(buf ^ 1, k0 + kGemmStage);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const T* as = a_s + buf * kGemmStage * L::kLa;
+    const T* bs = b_s + buf * kGemmStage * L::kLb;
+#pragma unroll
+    for (int kk = 0; kk < kGemmStage; kk += Frag<T>::kK) {
+      typename Frag<T>::A a;
+      load_a_km(a, as, L::kLa, 16 * warp, kk);
+#pragma unroll
+      for (int p = 0; p < NB / 16; ++p) {
+        typename Frag<T>::B b0, b1;
+        load_b_kn2(b0, b1, bs, L::kLb, 16 * p, kk);
+        mma(acc[2 * p], a, b0);
+        mma(acc[2 * p + 1], a, b1);
+      }
+    }
+    __syncthreads();  // the slot is refilled next
+    buf ^= 1;
+  }
+  tc::cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + 16 * warp + g + 8 * half, col = n0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(out + (static_cast<size_t>(split) * M + row) * N + col) =
+          make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+}
+
+// Chunks of the token axis for a product with `tiles` output tiles: enough blocks for two
+// an SM, never a chunk below one stage of the ring.
+struct Splits {
+  int splits, chunk;
+  Splits(int tiles, int tokens) {
+    const int stages = tokens / kGemmStage;
+    int s = (2 * kSMs + tiles - 1) / tiles;
+    if (s > stages) s = stages;
+    chunk = (stages + s - 1) / s * kGemmStage;
+    splits = (tokens + chunk - 1) / chunk;
   }
 };
 
-// (1) kmax, z and C = (ke^T v + me^T memv) / z for one batch row and one head; k (f32,
-// then ke) and v (T) of every token into the workspace, and xn (T) from head 0's block.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const T* __restrict__ x, const float* __restrict__ g0,
-             const float* __restrict__ wqkv, const float* __restrict__ mem_kv,
-             T* __restrict__ xn_out, float* __restrict__ ke, T* __restrict__ v3,
-             float* __restrict__ kmax_out, float* __restrict__ z_out,
-             float* __restrict__ ctx, int n, int m) {
-  constexpr int C = NC * 32;
-  const int h = blockIdx.x, bb = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// (10) The fixed-order sums, one launch: output j of sum k is the sum over r < rows of
+// src[r * ld + j]. A block takes 32 outputs, warp w the rows r = w (mod 8) of each; then
+// the eight warps' sums in order.
+struct RowSum {
+  const float* src;
+  float* dst;
+  long long ld;
+  int rows, len;
+};
+constexpr int kSums = 6;
+struct RowSums {
+  RowSum s[kSums];
+  long long start[kSums + 1];
+};
 
-  extern __shared__ float smem[];
-  float* w_s = smem;                   // [C][64]: this head's k columns, then its v columns
-  float* xn_s = w_s + C * 64;          // [kTile][C]
-  float* e_s = xn_s + kTile * C;       // [kTile][32] ke rounded to T
-  float* eu_s = e_s + kTile * 32;      // [kTile][32] ke in f32
-  float* v_s = eu_s + kTile * 32;      // [kTile][32] v
-  float* red_s = v_s + kTile * 32;     // [kWarps][32] per-warp max of k
-  float* kmax_s = red_s + kWarps * 32; // [32]
-  float* z_s = kmax_s + 32;            // [32]
-
-  for (int i = tid; i < C * 64; i += kThreads) {
-    const int r = i >> 6, j = i & 63;
-    const int col = (j < 32 ? kHD : 2 * kHD) + h * kDimHead + (j & 31);
-    w_s[i] = rnd<T>(wqkv[static_cast<size_t>(r) * kQKV + col]);
-  }
-  __syncthreads();
-
-  const float* memk = mem_kv + static_cast<size_t>(h) * kDimHead * m;
-  const float* memv = mem_kv + static_cast<size_t>(kHeads + h) * kDimHead * m;
-
-  // Pass 1: k and v of every token; each warp's max of k for feature `lane`. The rows of
-  // xn_s that a warp writes are the only ones it reads, so a warp barrier suffices.
-  float mx = -INFINITY;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const size_t row0 = static_cast<size_t>(bb) * n + t0;
-    __syncwarp();
-    rmsnorm_rows<T, NC>(x + row0 * C, g0, xn_s, warp, lane);
-    __syncwarp();
-    if (h == 0) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int tok = warp * kRows + i;
-#pragma unroll
-        for (int q = 0; q < NC; ++q)
-          xn_out[(row0 + tok) * C + q * 32 + lane] = from_f<T>(xn_s[tok * C + q * 32 + lane]);
-      }
-    }
-    float ka[kRows], va[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) ka[i] = va[i] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < C; ++kk) {
-      const float wk = w_s[kk * 64 + lane], wv = w_s[kk * 64 + 32 + lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float xv = xn_s[(warp * kRows + i) * C + kk];
-        ka[i] += xv * wk;
-        va[i] += xv * wv;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const size_t idx = (row0 + warp * kRows + i) * kHD + h * kDimHead + lane;
-      ke[idx] = ka[i];
-      v3[idx] = from_f<T>(va[i]);
-      mx = fmaxf(mx, ka[i]);
-    }
-  }
-  red_s[warp * 32 + lane] = mx;
-  __syncthreads();  // also makes this block's global writes of k and v visible to it
-  if (warp == 0) {
-    float k = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) k = fmaxf(k, red_s[w * 32 + lane]);
-    for (int j = 0; j < m; ++j) k = fmaxf(k, memk[lane * m + j]);
-    kmax_s[lane] = k;
-    kmax_out[static_cast<size_t>(bb) * kHD + h * kDimHead + lane] = k;
-  }
-
-  // Pass 2: ke = exp(k - kmax) in place of k; z and U. Thread (dk, e0..e0+3) of U.
-  const int dk = tid >> 3, e0 = (tid & 7) * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float zsum = 0.f;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();  // kmax_s is set; every thread is done with the previous tile
-#pragma unroll
-    for (int r = 0; r < (kTile * 32) / kThreads; ++r) {
-      const int i = tid + r * kThreads, t = i >> 5, f = i & 31;
-      const size_t idx = (static_cast<size_t>(bb) * n + t0 + t) * kHD + h * kDimHead + f;
-      const float e = expf(ke[idx] - kmax_s[f]);
-      ke[idx] = e;
-      eu_s[i] = e;
-      e_s[i] = rnd<T>(e);
-      v_s[i] = to_f(v3[idx]);
-    }
-    __syncthreads();
-    if (warp == 0)
-      for (int t = 0; t < kTile; ++t) zsum += eu_s[t * 32 + lane];
-#pragma unroll 8
-    for (int t = 0; t < kTile; ++t) {
-      const float e = e_s[t * 32 + dk];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += e * v_s[t * 32 + e0 + q];
-    }
-  }
-
-  // The memory tokens, summed apart and added, as the reference does.
-  float macc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int j = 0; j < m; ++j) {
-    const float e = rnd<T>(expf(memk[dk * m + j] - kmax_s[dk]));
-#pragma unroll
-    for (int q = 0; q < 4; ++q) macc[q] += e * rnd<T>(memv[(e0 + q) * m + j]);
-  }
-  if (warp == 0) {
-    float mz = 0.f;
-    for (int j = 0; j < m; ++j) mz += expf(memk[lane * m + j] - kmax_s[lane]);
-    z_s[lane] = zsum + mz;
-    z_out[static_cast<size_t>(bb) * kHD + h * kDimHead + lane] = zsum + mz;
-  }
-  __syncthreads();
-  float* out = ctx + ((static_cast<size_t>(bb) * kHeads + h) * kDimHead + dk) * kDimHead + e0;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) out[q] = (acc[q] + macc[q]) / z_s[dk];
-}
-
-// (2) For one 32-token tile: qs, a, y, dy, da, dq; partials of dbo and dg1.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-token_a_kernel(const T* __restrict__ xn, const float* __restrict__ wqkv,
-               const float* __restrict__ ctx, const float* __restrict__ wo,
-               const float* __restrict__ bo, const float* __restrict__ g1,
-               const T* __restrict__ dout, T* __restrict__ qs_out, T* __restrict__ ac_out,
-               T* __restrict__ da3_out, T* __restrict__ dyc_out, T* __restrict__ dpc,
-               float* __restrict__ part_bg, int n) {
-  constexpr int C = NC * 32;
-  constexpr int kWCols = C > kHD ? C : kHD;
-  const int t0 = blockIdx.x * kTile, bb = blockIdx.y;
-  const int tile = bb * gridDim.x + blockIdx.x;
-  const size_t row0 = static_cast<size_t>(bb) * n + t0;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  extern __shared__ float smem[];
-  float* ctx_s = smem;                       // [heads][d][kPad], rounded to T
-  float* xn_s = ctx_s + kHeads * kDimHead * kPad;  // [kTile][C]
-  float* w_s = xn_s + kTile * C;             // [32][kWCols]: staged rows of a weight
-  float* a_s = w_s + 32 * kWCols;            // [kTile][kHD]: qs, then a, then da
-  float* dy_s = a_s + kTile * kHD;           // [kTile][C]: dy rounded to T
-  float* red_b = dy_s + kTile * C;           // [kWarps][C]
-  float* red_g = red_b + kWarps * C;         // [kWarps][C]
-
-  for (int i = tid; i < kHeads * kDimHead * kDimHead; i += kThreads) {
-    const int hh = i >> 10, d = (i >> 5) & 31, e = i & 31;
-    ctx_s[(hh * kDimHead + d) * kPad + e] =
-        rnd<T>(ctx[static_cast<size_t>(bb) * kHeads * kDimHead * kDimHead + i]);
-  }
-  for (int i = tid; i < kTile * C; i += kThreads) xn_s[i] = to_f(xn[row0 * C + i]);
-
-  // q = xn @ Wq: lane holds feature `lane` of head hh for each of the warp's tokens.
-  float qa[kRows][kHeads] = {};
-  for (int k0 = 0; k0 < C; k0 += 32) {
-    __syncthreads();
-    for (int i = tid; i < 32 * kHD; i += kThreads)
-      w_s[i] = rnd<T>(wqkv[static_cast<size_t>(k0 + (i >> 7)) * kQKV + (i & 127)]);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < 32; ++kk) {
-      float wv[kHeads];
-#pragma unroll
-      for (int hh = 0; hh < kHeads; ++hh) wv[hh] = w_s[kk * kHD + hh * 32 + lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float xv = xn_s[(warp * kRows + i) * C + k0 + kk];
-#pragma unroll
-        for (int hh = 0; hh < kHeads; ++hh) qa[i][hh] += xv * wv[hh];
-      }
-    }
-  }
-
-  // pq = per-head softmax of q (kept in qa), qs = pq * d^-1/2 rounded.
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int tok = warp * kRows + i;
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const float mx = warp_max(qa[i][hh]);
-      const float e = expf(qa[i][hh] - mx);
-      qa[i][hh] = e / warp_sum(e);
-      const float qs = rnd<T>(qa[i][hh] * kInvSqrtD);
-      a_s[tok * kHD + hh * 32 + lane] = qs;
-      qs_out[(row0 + tok) * kHD + hh * 32 + lane] = from_f<T>(qs);
-    }
-  }
-  __syncwarp();
-
-  // a = qs . C (per head), rounded.
-  float aa[kRows][kHeads] = {};
-#pragma unroll 4
-  for (int d = 0; d < kDimHead; ++d) {
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const float cv = ctx_s[(hh * kDimHead + d) * kPad + lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        aa[i][hh] += a_s[(warp * kRows + i) * kHD + hh * 32 + d] * cv;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int tok = warp * kRows + i;
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const float a = rnd<T>(aa[i][hh]);
-      a_s[tok * kHD + hh * 32 + lane] = a;
-      ac_out[(row0 + tok) * kHD + hh * 32 + lane] = from_f<T>(a);
-    }
-  }
-  __syncwarp();
-
-  // y = a @ Wo + bo: lane holds columns q * 32 + lane.
-  float ya[kRows][NC] = {};
-  for (int k0 = 0; k0 < kHD; k0 += 32) {
-    __syncthreads();
-    for (int i = tid; i < 32 * C; i += kThreads)
-      w_s[i] = rnd<T>(wo[static_cast<size_t>(k0) * C + i]);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < 32; ++kk) {
-      float av[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) av[i] = a_s[(warp * kRows + i) * kHD + k0 + kk];
-#pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        const float wv = w_s[kk * C + q * 32 + lane];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) ya[i][q] += av[i] * wv;
-      }
-    }
-  }
-
-  // dy through out = y * r1 * g1 * sqrt(c); sums of dy and dout * y * r1 for dbo, dg1.
-  const float sqrt_c = sqrtf(static_cast<float>(C));
-  float bsum[NC] = {}, gsum[NC] = {};
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int tok = warp * kRows + i;
-    float dv[NC], u1[NC];
-    float ss = 0.f, su = 0.f;
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      const int col = q * 32 + lane;
-      ya[i][q] += bo[col];
-      ss += ya[i][q] * ya[i][q];
-      dv[q] = to_f(dout[(row0 + tok) * C + col]);
-      u1[q] = dv[q] * (g1[col] * sqrt_c);
-      su += u1[q] * ya[i][q];
-    }
-    const float r1 = rsqrtf(warp_sum(ss) + kEps);
-    const float s1 = warp_sum(su);
-    const float r13 = r1 * r1 * r1;
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      const int col = q * 32 + lane;
-      const float dy = u1[q] * r1 - ya[i][q] * r13 * s1;
-      bsum[q] += dy;
-      gsum[q] += dv[q] * ya[i][q] * r1;
-      const float dyc = rnd<T>(dy);
-      dy_s[tok * C + col] = dyc;
-      dyc_out[(row0 + tok) * C + col] = from_f<T>(dyc);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    red_b[warp * C + q * 32 + lane] = bsum[q];
-    red_g[warp * C + q * 32 + lane] = gsum[q];
-  }
-
-  // da = dy @ Wo^T: lane holds feature `lane` of head hh.
-  float daa[kRows][kHeads] = {};
-  for (int k0 = 0; k0 < C; k0 += 32) {
-    __syncthreads();
-    for (int i = tid; i < 32 * kHD; i += kThreads) {
-      const int kk = i >> 7, j = i & 127;
-      w_s[kk * kHD + j] = rnd<T>(wo[static_cast<size_t>(j) * C + k0 + kk]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < 32; ++kk) {
-      float wv[kHeads];
-#pragma unroll
-      for (int hh = 0; hh < kHeads; ++hh) wv[hh] = w_s[kk * kHD + hh * 32 + lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float dv = dy_s[(warp * kRows + i) * C + k0 + kk];
-#pragma unroll
-        for (int hh = 0; hh < kHeads; ++hh) daa[i][hh] += dv * wv[hh];
-      }
-    }
-  }
-  // Every warp has written red_b and red_g (the barriers above): the tile's partials.
-  for (int col = tid; col < C; col += kThreads) {
-    float sb = 0.f, sg = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      sb += red_b[w * C + col];
-      sg += red_g[w * C + col];
-    }
-    part_bg[static_cast<size_t>(tile) * 2 * C + col] = sb;
-    part_bg[static_cast<size_t>(tile) * 2 * C + C + col] = sg * sqrt_c;
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int tok = warp * kRows + i;
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const float da = rnd<T>(daa[i][hh]);
-      a_s[tok * kHD + hh * 32 + lane] = da;
-      da3_out[(row0 + tok) * kHD + hh * 32 + lane] = from_f<T>(da);
-    }
-  }
-  __syncwarp();
-
-  // dqs = da . C^T (lane = feature d), then the per-head softmax gradient.
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int tok = warp * kRows + i;
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) {
-      float s = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < kDimHead; ++e)
-        s += a_s[tok * kHD + hh * 32 + e] * ctx_s[(hh * kDimHead + lane) * kPad + e];
-      const float pq = qa[i][hh];
-      const float dpq = s * kInvSqrtD;
-      const float dq = pq * dpq - pq * warp_sum(dpq * pq);
-      dpc[(row0 + tok) * kQKV + hh * 32 + lane] = from_f<T>(dq);
-    }
-  }
-}
-
-// (3) For one batch row and one head: dC, du, dz, the memory tokens' grads, dk and dv.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-context_grad_kernel(const T* __restrict__ qs, const T* __restrict__ da3,
-                    const float* __restrict__ ctx, const float* __restrict__ z,
-                    const float* __restrict__ kmax, const float* __restrict__ mem_kv,
-                    const float* __restrict__ ke, const T* __restrict__ v3,
-                    T* __restrict__ dpc, float* __restrict__ part_mem, int n, int m) {
-  const int h = blockIdx.x, bb = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int col0 = h * kDimHead;
-
-  __shared__ float a_s[kTile * 32];       // qs, then ke
-  __shared__ float b_s[kTile * 32];       // da, then v
-  __shared__ float du_s[kDimHead * kPad]; // du rounded to T
-  __shared__ float dz_s[kDimHead];
-  __shared__ float kmax_s[kDimHead];
-
-  if (tid < kDimHead) kmax_s[tid] = kmax[static_cast<size_t>(bb) * kHD + col0 + tid];
-
-  // dC[dk, e0..e0+3] = sum over tokens of qs[., dk] da[., e].
-  const int dk = tid >> 3, e0 = (tid & 7) * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < (kTile * 32) / kThreads; ++r) {
-      const int i = tid + r * kThreads, t = i >> 5, f = i & 31;
-      const size_t idx = (static_cast<size_t>(bb) * n + t0 + t) * kHD + col0 + f;
-      a_s[i] = to_f(qs[idx]);
-      b_s[i] = to_f(da3[idx]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < kTile; ++t) {
-      const float qv = a_s[t * 32 + dk];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += qv * b_s[t * 32 + e0 + q];
-    }
-  }
-
-  // du = dC / z[dk] (rounded); dz[dk] = -sum_e dC * C / z[dk], summed over the 8 threads
-  // of row dk (consecutive lanes) in a fixed butterfly.
-  const float* cb = ctx + (static_cast<size_t>(bb) * kHeads + h) * kDimHead * kDimHead;
-  const float zd = z[static_cast<size_t>(bb) * kHD + col0 + dk];
-  float dzp = 0.f;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    dzp += acc[q] * cb[dk * kDimHead + e0 + q];
-    du_s[dk * kPad + e0 + q] = rnd<T>(acc[q] / zd);
-  }
-  dzp += __shfl_xor_sync(0xffffffffu, dzp, 1);
-  dzp += __shfl_xor_sync(0xffffffffu, dzp, 2);
-  dzp += __shfl_xor_sync(0xffffffffu, dzp, 4);
-  if ((tid & 7) == 0) dz_s[dk] = -dzp / zd;
-  __syncthreads();
-
-  // Memory tokens: thread (j, f) for j < m. dmemk[f, j] = me * (memv . du^T + dz);
-  // dmemv[f, j] = me . du, this row's share.
-  if (tid < m * kDimHead) {
-    const int j = tid / kDimHead, f = tid % kDimHead;
-    const float* memk = mem_kv + static_cast<size_t>(h) * kDimHead * m;
-    const float* memv = mem_kv + static_cast<size_t>(kHeads + h) * kDimHead * m;
-    float dme = 0.f, dmv = 0.f;
-    for (int e = 0; e < kDimHead; ++e) {
-      dme += rnd<T>(memv[e * m + j]) * du_s[f * kPad + e];
-      dmv += rnd<T>(expf(memk[e * m + j] - kmax_s[e])) * du_s[e * kPad + f];
-    }
-    const float me = expf(memk[f * m + j] - kmax_s[f]);
-    float* part = part_mem + static_cast<size_t>(bb) * 2 * kHD * m;
-    part[(col0 + f) * m + j] = me * (dme + dz_s[f]);
-    part[(kHD + col0 + f) * m + j] = dmv;
-  }
-
-  // dk = ke * (v . du^T + dz) for feature `lane`, dv = ke_T . du for feature `lane`.
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < (kTile * 32) / kThreads; ++r) {
-      const int i = tid + r * kThreads, t = i >> 5, f = i & 31;
-      const size_t idx = (static_cast<size_t>(bb) * n + t0 + t) * kHD + col0 + f;
-      a_s[i] = ke[idx];
-      b_s[i] = to_f(v3[idx]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int t = warp * kRows + i;
-      float dke = 0.f, dv = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < kDimHead; ++e) {
-        dke += b_s[t * 32 + e] * du_s[lane * kPad + e];
-        dv += rnd<T>(a_s[t * 32 + e]) * du_s[e * kPad + lane];
-      }
-      const float dk_val = a_s[t * 32 + lane] * (dke + dz_s[lane]);
-      T* out = dpc + (static_cast<size_t>(bb) * n + t0 + t) * kQKV;
-      out[kHD + col0 + lane] = from_f<T>(dk_val);
-      out[2 * kHD + col0 + lane] = from_f<T>(dv);
-    }
-  }
-}
-
-// (4) For one 32-token tile: dxn = dp @ Wqkv^T, dx through the first RMSNorm; dg0 partial.
-template <typename T, int NC, bool kResidual>
-__global__ void __launch_bounds__(kThreads)
-token_b_kernel(const T* __restrict__ x, const float* __restrict__ g0,
-               const float* __restrict__ wqkv, const T* __restrict__ dpc,
-               const T* __restrict__ dout, T* __restrict__ dx,
-               float* __restrict__ part_g0, int n) {
-  constexpr int C = NC * 32;
-  const int t0 = blockIdx.x * kTile, bb = blockIdx.y;
-  const int tile = bb * gridDim.x + blockIdx.x;
-  const size_t row0 = static_cast<size_t>(bb) * n + t0;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  extern __shared__ float smem[];
-  float* p_s = smem;               // [kTile][kQKV]: dp rounded to T
-  float* w_s = p_s + kTile * kQKV; // [32][C]: Wqkv^T rows j0 .. j0 + 31
-  float* red_s = w_s + 32 * C;     // [kWarps][C]
-
-  for (int i = tid; i < kTile * kQKV; i += kThreads) p_s[i] = to_f(dpc[row0 * kQKV + i]);
-
-  float dxa[kRows][NC] = {};
-  for (int j0 = 0; j0 < kQKV; j0 += 32) {
-    __syncthreads();
-    for (int i = tid; i < 32 * C; i += kThreads) {
-      const int jj = i / C, col = i % C;
-      w_s[i] = rnd<T>(wqkv[static_cast<size_t>(col) * kQKV + j0 + jj]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < 32; ++jj) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = p_s[(warp * kRows + i) * kQKV + j0 + jj];
-#pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        const float wv = w_s[jj * C + q * 32 + lane];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) dxa[i][q] += pv[i] * wv;
-      }
-    }
-  }
-
-  const float sqrt_c = sqrtf(static_cast<float>(C));
-  float gsum[NC] = {};
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const size_t base = (row0 + warp * kRows + i) * C;
-    float xv[NC], u0[NC];
-    float ss = 0.f;
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      xv[q] = to_f(x[base + q * 32 + lane]);
-      ss += xv[q] * xv[q];
-    }
-    const float r0 = rsqrtf(warp_sum(ss) + kEps);
-    float su = 0.f;
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      u0[q] = dxa[i][q] * (g0[q * 32 + lane] * sqrt_c);
-      su += u0[q] * xv[q];
-    }
-    const float s0 = warp_sum(su);
-    const float r03 = r0 * r0 * r0;
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      const int col = q * 32 + lane;
-      float d = u0[q] * r0 - xv[q] * r03 * s0;
-      if (kResidual) d += to_f(dout[base + col]);
-      dx[base + col] = from_f<T>(d);
-      gsum[q] += dxa[i][q] * xv[q] * r0;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < NC; ++q) red_s[warp * C + q * 32 + lane] = gsum[q];
-  __syncthreads();
-  for (int col = tid; col < C; col += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red_s[w * C + col];
-    part_g0[static_cast<size_t>(tile) * C + col] = s * sqrt_c;
-  }
-}
-
-// (5, 6) out[split] = A[rows of the split]^T B[rows of the split], A [K, M], B [K, N] in T;
-// one 32 x 32 tile of the [M, N] output per block, thread (r, c4 .. c4 + 3).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-atb_partial_kernel(const T* __restrict__ A, const T* __restrict__ B, int K, int M, int N,
-                   int chunk, float* __restrict__ out) {
-  __shared__ float a_s[32][kPad];
-  __shared__ float b_s[32][kPad];
-  const int tm = blockIdx.x * 32, tn = blockIdx.y * 32, split = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 3, c4 = (tid & 7) * 4;
-  const int k_begin = split * chunk;
-  const int k_end = k_begin + chunk < K ? k_begin + chunk : K;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = k_begin; k0 < k_end; k0 += 32) {
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < (32 * 32) / kThreads; ++rr) {
-      const int i = tid + rr * kThreads, kk = i >> 5, col = i & 31;
-      a_s[kk][col] = to_f(A[static_cast<size_t>(k0 + kk) * M + tm + col]);
-      b_s[kk][col] = to_f(B[static_cast<size_t>(k0 + kk) * N + tn + col]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < 32; ++kk) {
-      const float av = a_s[kk][r];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += av * b_s[kk][c4 + q];
-    }
-  }
-  float* o = out + (static_cast<size_t>(split) * M + tm + r) * N + tn + c4;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) o[q] = acc[q];
-}
-
-// (7-9) out[j] = sum over r of in[r * ld + col0 + j], j < len, in a fixed order: eight
-// strided groups of rows, then the eight group sums in order.
-__global__ void __launch_bounds__(kThreads)
-reduce_rows_kernel(const float* __restrict__ in, int rows, int ld, int col0, int len,
-                   float* __restrict__ out) {
-  __shared__ float s[kWarps][32];
-  const int tid = threadIdx.x, g = tid >> 5, lane = tid & 31;
-  const int j = blockIdx.x * 32 + lane;
+__global__ void __launch_bounds__(256) la_bwd_sum_kernel(RowSums sums) {
+  pdl_enter();
+  __shared__ float part[8][32];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long i = blockIdx.x * 32LL + lane;
+  const bool live = i < sums.start[kSums];
+  int k = 0;
+  while (live && i >= sums.start[k + 1]) ++k;
+  const RowSum s = sums.s[k];
+  const long long j = i - sums.start[k];
   float acc = 0.f;
-  if (j < len)
-    for (int r = g; r < rows; r += kWarps) acc += in[static_cast<size_t>(r) * ld + col0 + j];
-  s[g][lane] = acc;
+  if (live)
+    for (int r = w; r < s.rows; r += 8) acc += s.src[r * s.ld + j];
+  part[w][lane] = acc;
   __syncthreads();
-  if (g == 0 && j < len) {
-    float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += s[w][lane];
-    out[j] = t;
+  if (w == 0 && live) {
+    float sum = 0.f;
+    for (int ww = 0; ww < 8; ++ww) sum += part[ww][lane];
+    s.dst[j] = sum;
   }
 }
 
-cudaError_t reduce_rows(const float* in, int rows, int ld, int col0, int len, float* out,
-                        cudaStream_t stream) {
-  reduce_rows_kernel<<<(len + 31) / 32, kThreads, 0, stream>>>(in, rows, ld, col0, len, out);
-  return cudaGetLastError();
-}
+// Workspace of the backward: one device buffer cut into these arrays.
+struct BwdLayout {
+  size_t w_qkv, w_dxn, w_y, w_da, xn, ac, dyc, dpc, part_kmax, part_z, part_ctx, ctx_a, ctx_dq,
+      du_k, du_v, c32, z, kmax, dz, part_bg, part_g0, part_mem, part_w, part_wo, total;
+  Splits sw, swo;
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kern, int bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-#define LGM_TRY(expr)                      \
-  do {                                     \
-    const cudaError_t e_ = (expr);         \
-    if (e_ != cudaSuccess) return e_;      \
-  } while (0)
+  BwdLayout(const Plan& P, int b, int n, int c, int m, size_t elt)
+      : sw((c / 64) * (kQKV / 128), b * n), swo((kHD / 64) * (c / 64), b * n) {
+    const size_t tok = static_cast<size_t>(b) * n, blocks = P.blocks, rows = b;
+    Carve cv;
+    w_qkv = cv.take(kQKV * c * elt);
+    w_dxn = cv.take(kQKV * c * elt);
+    w_y = cv.take(kHD * c * elt);
+    w_da = cv.take(kHD * c * elt);
+    xn = cv.take(tok * c * elt);
+    ac = cv.take(tok * kHD * elt);
+    dyc = cv.take(tok * c * elt);
+    dpc = cv.take(tok * kQKV * elt);
+    part_kmax = cv.take(blocks * kHD * 4);
+    part_z = cv.take(blocks * kHD * 4);
+    part_ctx = cv.take(blocks * kCtx * 4);  // the context's partials, then dC's
+    ctx_a = cv.take(rows * kCtx * elt);
+    ctx_dq = cv.take(rows * kCtx * elt);
+    du_k = cv.take(rows * kCtx * elt);
+    du_v = cv.take(rows * kCtx * elt);
+    c32 = cv.take(rows * kCtx * 4);
+    z = cv.take(rows * kHD * 4);
+    kmax = cv.take(rows * kHD * 4);
+    dz = cv.take(rows * kHD * 4);
+    part_bg = cv.take(blocks * 2 * c * 4);
+    part_g0 = cv.take(blocks * c * 4);
+    part_mem = cv.take(rows * 2 * kHD * m * 4);
+    part_w = cv.take(static_cast<size_t>(sw.splits) * c * kQKV * 4);
+    part_wo = cv.take(static_cast<size_t>(swo.splits) * kHD * c * 4);
+    total = cv.at;
+  }
+};
 
 struct Grads {
   void* dx;
@@ -698,64 +640,52 @@ cudaError_t run(const T* x, const float* g0, const float* wqkv, const float* mem
                 const Grads& gr, char* ws, int b, int n, int m, bool residual,
                 cudaStream_t stream) {
   constexpr int C = NC * 32;
-  constexpr int kWCols = C > kHD ? C : kHD;
-  const Layout L(b, n, C, m, sizeof(T));
-  float* ke = reinterpret_cast<float*>(ws + L.ke);
-  T* v3 = reinterpret_cast<T*>(ws + L.v3);
-  T* xn = reinterpret_cast<T*>(ws + L.xn);
-  T* qs = reinterpret_cast<T*>(ws + L.qs);
-  T* ac = reinterpret_cast<T*>(ws + L.ac);
-  T* da3 = reinterpret_cast<T*>(ws + L.da3);
-  T* dyc = reinterpret_cast<T*>(ws + L.dyc);
-  T* dpc = reinterpret_cast<T*>(ws + L.dpc);
-  float* kmax = reinterpret_cast<float*>(ws + L.kmax);
-  float* z = reinterpret_cast<float*>(ws + L.z);
-  float* ctx = reinterpret_cast<float*>(ws + L.ctx);
-  float* part_bg = reinterpret_cast<float*>(ws + L.part_bg);
-  float* part_g0 = reinterpret_cast<float*>(ws + L.part_g0);
-  float* part_mem = reinterpret_cast<float*>(ws + L.part_mem);
-  float* part_w = reinterpret_cast<float*>(ws + L.part_w);
-  float* part_wo = reinterpret_cast<float*>(ws + L.part_wo);
-  const int tokens = b * n, tiles = tokens / kTile;
-  const dim3 head_grid(kHeads, b), tile_grid(n / kTile, b);
+  const Plan P(b, n);
+  const BwdLayout L(P, b, n, C, m, sizeof(T));
+  auto at = [ws](size_t off) { return reinterpret_cast<T*>(ws + off); };
+  auto atf = [ws](size_t off) { return reinterpret_cast<float*>(ws + off); };
+  const int tokens = b * n;
 
-  const int smem1 = sizeof(float) * (C * 64 + kTile * C + 3 * kTile * 32 + kWarps * 32 + 64);
-  LGM_TRY(set_smem(stats_kernel<T, NC>, smem1));
-  stats_kernel<T, NC><<<head_grid, kThreads, smem1, stream>>>(x, g0, wqkv, mem_kv, xn, ke, v3,
-                                                              kmax, z, ctx, n, m);
-  LGM_TRY(cudaGetLastError());
+  const CtxOut<T> merged{at(L.ctx_a), at(L.ctx_dq), atf(L.c32), atf(L.z), atf(L.kmax)};
+  const DctxOut<T> dctx{mem_kv, atf(L.c32), atf(L.z), atf(L.kmax), m, at(L.du_k), at(L.du_v),
+                        atf(L.dz), atf(L.part_mem)};
+  LGM_TRY((launch_context<LaBwd, T, NC>(
+      P, x, g0, wqkv, mem_kv, wo, at(L.w_qkv), at(L.w_y), at(L.w_dxn), at(L.w_da),
+      atf(L.part_kmax), atf(L.part_z), atf(L.part_ctx), at(L.xn), merged, b, n, m, stream)));
 
-  const int smem2 = sizeof(float) * (kHeads * kDimHead * kPad + 2 * kTile * C + 32 * kWCols +
-                                     kTile * kHD + 2 * kWarps * C);
-  LGM_TRY(set_smem(token_a_kernel<T, NC>, smem2));
-  token_a_kernel<T, NC><<<tile_grid, kThreads, smem2, stream>>>(
-      xn, wqkv, ctx, wo, bo, g1, dout, qs, ac, da3, dyc, dpc, part_bg, n);
-  LGM_TRY(cudaGetLastError());
+  LGM_TRY(launch(la_bwd_token_a_kernel<T, NC>, P.blocks, kWarps * 32, TokenASmem<T, NC>::bytes,
+                 stream, at(L.xn), at(L.w_qkv), at(L.ctx_a), at(L.ctx_dq), at(L.w_y), at(L.w_da),
+                 bo, g1, dout, at(L.ac), at(L.dyc), at(L.dpc), atf(L.part_ctx), atf(L.part_bg), n,
+                 P.S, P.chunk));
+  LGM_TRY(launch(la_bwd_dcontext_merge_kernel<T>, dim3(b, kHeads), 32, 0, stream,
+                 atf(L.part_ctx), P.S, dctx));
+  auto kern_b = residual ? la_bwd_token_b_kernel<T, NC, true> : la_bwd_token_b_kernel<T, NC, false>;
+  LGM_TRY(launch(kern_b, P.blocks, kWarps * 32, TokenBSmem<T, NC>::bytes, stream, x, g0,
+                 at(L.w_qkv), at(L.w_dxn), atf(L.kmax), atf(L.dz), at(L.du_k), at(L.du_v), dout,
+                 at(L.dpc), static_cast<T*>(gr.dx), atf(L.part_g0), n, P.S, P.chunk));
+  LGM_TRY(launch(la_bwd_atb_kernel<T, 128>, dim3(kQKV / 128, C / 64, L.sw.splits), 128,
+                 GemmSmem<T, 128>::bytes, stream, at(L.xn), C, at(L.dpc), kQKV, tokens, C, kQKV,
+                 L.sw.chunk, atf(L.part_w)));
+  LGM_TRY(launch(la_bwd_atb_kernel<T, 64>, dim3(C / 64, kHD / 64, L.swo.splits), 128,
+                 GemmSmem<T, 64>::bytes, stream, at(L.ac), kHD, at(L.dyc), C, tokens, kHD, C,
+                 L.swo.chunk, atf(L.part_wo)));
 
-  context_grad_kernel<T><<<head_grid, kThreads, 0, stream>>>(qs, da3, ctx, z, kmax, mem_kv, ke,
-                                                             v3, dpc, part_mem, n, m);
-  LGM_TRY(cudaGetLastError());
-
-  const int smem4 = sizeof(float) * (kTile * kQKV + 32 * C + kWarps * C);
-  auto kern4 = residual ? token_b_kernel<T, NC, true> : token_b_kernel<T, NC, false>;
-  LGM_TRY(set_smem(kern4, smem4));
-  kern4<<<tile_grid, kThreads, smem4, stream>>>(x, g0, wqkv, dpc, dout,
-                                                static_cast<T*>(gr.dx), part_g0, n);
-  LGM_TRY(cudaGetLastError());
-
-  atb_partial_kernel<T><<<dim3(C / 32, kQKV / 32, L.splits_w), kThreads, 0, stream>>>(
-      xn, dpc, tokens, C, kQKV, L.chunk_w, part_w);
-  LGM_TRY(cudaGetLastError());
-  atb_partial_kernel<T><<<dim3(kHD / 32, C / 32, L.splits_wo), kThreads, 0, stream>>>(
-      ac, dyc, tokens, kHD, C, L.chunk_wo, part_wo);
-  LGM_TRY(cudaGetLastError());
-
-  LGM_TRY(reduce_rows(part_w, L.splits_w, C * kQKV, 0, C * kQKV, gr.dw, stream));
-  LGM_TRY(reduce_rows(part_wo, L.splits_wo, kHD * C, 0, kHD * C, gr.dwo, stream));
-  LGM_TRY(reduce_rows(part_bg, tiles, 2 * C, 0, C, gr.dbo, stream));
-  LGM_TRY(reduce_rows(part_bg, tiles, 2 * C, C, C, gr.dg1, stream));
-  LGM_TRY(reduce_rows(part_g0, tiles, C, 0, C, gr.dg0, stream));
-  return reduce_rows(part_mem, b, 2 * kHD * m, 0, 2 * kHD * m, gr.dmem, stream);
+  RowSums sums;
+  const RowSum list[kSums] = {
+      {atf(L.part_w), gr.dw, static_cast<long long>(C) * kQKV, L.sw.splits, C * kQKV},
+      {atf(L.part_wo), gr.dwo, static_cast<long long>(kHD) * C, L.swo.splits, kHD * C},
+      {atf(L.part_bg), gr.dbo, 2LL * C, P.blocks, C},
+      {atf(L.part_bg) + C, gr.dg1, 2LL * C, P.blocks, C},
+      {atf(L.part_g0), gr.dg0, static_cast<long long>(C), P.blocks, C},
+      {atf(L.part_mem), gr.dmem, 2LL * kHD * m, b, 2 * kHD * m},
+  };
+  sums.start[0] = 0;
+  for (int k = 0; k < kSums; ++k) {
+    sums.s[k] = list[k];
+    sums.start[k + 1] = sums.start[k] + list[k].len;
+  }
+  return launch(la_bwd_sum_kernel, static_cast<int>((sums.start[kSums] + 31) / 32), 256, 0,
+                stream, sums);
 }
 
 template <typename T>
@@ -788,7 +718,7 @@ bool shape_ok(int b, int n, int c, int m) {
 // shapes it does not take).
 extern "C" size_t lgm_linear_attention_bwd_workspace(int b, int n, int c, int m, int bf16) {
   if (!shape_ok(b, n, c, m)) return 0;
-  return Layout(b, n, c, m, bf16 ? 2 : 4).total;
+  return BwdLayout(Plan(b, n), b, n, c, m, bf16 ? 2 : 4).total;
 }
 
 // x, dout, dx: [b, n, c] in f32 (bf16 == 0) or bf16 (bf16 == 1), also the compute type.

@@ -174,6 +174,15 @@ def _library(name: str, fn_name: str, argtypes: list) -> ctypes.CDLL:
     return lib
 
 
+def _workspace(lib, fn_name: str, b, n, c, m, bf16, device) -> torch.Tensor:
+    """The device scratch a kernel asks for at these shapes (rounded weights, per-block
+    partials, the rows' contexts and, for the backward, the intermediates)."""
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_size_t
+    return torch.empty(fn(b, n, c, m, bf16), dtype=torch.uint8, device=device)
+
+
 # Pointers and the stream as c_void_p: as plain ints ctypes would cut them to 32 bits.
 _FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -225,14 +234,15 @@ def linear_attention_cuda(
         "linear_attention_cuda")
     x = x.detach().contiguous()
     out = torch.empty_like(x)
-    ctx = torch.empty((b, heads, dim_head, dim_head), dtype=torch.float32, device=x.device)
+    bf16 = int(x.dtype == torch.bfloat16)
 
     lib = _library("linear_attention", "lgm_linear_attention_fwd", _FWD_ARGTYPES)
+    workspace = _workspace(lib, "lgm_linear_attention_fwd_workspace", b, n, c, m, bf16, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.lgm_linear_attention_fwd(
-            x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), ctx.data_ptr(),
-            b, n, c, m, int(residual), int(x.dtype == torch.bfloat16), stream,
+            x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(),
+            workspace.data_ptr(), b, n, c, m, int(residual), bf16, stream,
         )
     cuda_build.check(lib, err, "linear attention kernel")
     linear_attention.launches += 1
@@ -262,10 +272,7 @@ def linear_attention_bwd_cuda(
     bf16 = int(x.dtype == torch.bfloat16)
 
     lib = _library("linear_attention_bwd", "lgm_linear_attention_bwd", _BWD_ARGTYPES)
-    lib.lgm_linear_attention_bwd_workspace.argtypes = [ctypes.c_int] * 5
-    lib.lgm_linear_attention_bwd_workspace.restype = ctypes.c_size_t
-    workspace = torch.empty(lib.lgm_linear_attention_bwd_workspace(b, n, c, m, bf16),
-                            dtype=torch.uint8, device=x.device)
+    workspace = _workspace(lib, "lgm_linear_attention_bwd_workspace", b, n, c, m, bf16, x.device)
     grads = [torch.empty_like(x)] + [torch.empty_like(t) for t in params]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

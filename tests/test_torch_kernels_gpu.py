@@ -28,16 +28,25 @@ def _la_args(b, n, c, dtype, heads=4, dim_head=32, m=4, seed=0):
     return args
 
 
+# (b, n, c, m): the UNet's five shapes at b 8; n 32, 96 and 160 (not multiples of 64: a
+# row's 16-token subtiles do not fill a four-warp block evenly) at c 64 and 256; b 1; one
+# memory token, and eight (the backward's most).
+LA_CASES = [(8, 1024, 64, 4), (8, 256, 64, 4), (8, 256, 128, 4), (8, 64, 128, 4),
+            (8, 64, 256, 4), (8, 32, 64, 4), (8, 96, 64, 4), (8, 160, 64, 4), (8, 32, 256, 4),
+            (8, 96, 256, 4), (8, 160, 256, 4), (1, 96, 64, 4), (1, 160, 256, 4),
+            (4, 64, 64, 1), (4, 256, 128, 8)]
+
+
 # bf16: the kernel keeps q, k, v and y in f32 where the plain version rounds them to
 # bf16, a few bf16 ulps (2^-8) apart on outputs of magnitude up to ~10.
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 6e-2)])
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n,c", [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256)])
-def test_linear_attention_kernel_matches_plain(n, c, residual, dtype, tol):
+@pytest.mark.parametrize("b,n,c,m", LA_CASES)
+def test_linear_attention_kernel_matches_plain(b, n, c, m, residual, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = _la_args(8, n, c, dtype)
+    args = _la_args(b, n, c, dtype, m=m)
     before = TLA.linear_attention.launches
     with torch.inference_mode():
         out = TLA.linear_attention(*args, 4, 32, dtype, residual).float()
@@ -72,13 +81,13 @@ def _rel_err(out, ref):
 # and carry that through the later products.
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n,c", [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256)])
-def test_linear_attention_bwd_kernel_matches_plain(n, c, residual, dtype, tol):
+@pytest.mark.parametrize("b,n,c,m", LA_CASES)
+def test_linear_attention_bwd_kernel_matches_plain(b, n, c, m, residual, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = _la_args(8, n, c, dtype)
-    dout = torch.tensor(np.random.RandomState(1).randn(8, n, c), dtype=dtype, device="cuda")
+    args = _la_args(b, n, c, dtype, m=m)
+    dout = torch.tensor(np.random.RandomState(1).randn(b, n, c), dtype=dtype, device="cuda")
     before = TLA.linear_attention_bwd.launches
     out = TLA.linear_attention_bwd(*args, dout, 4, 32, dtype, residual)
     ref = TLA.linear_attention_bwd_plain(*args, dout, 4, 32, dtype, residual)
@@ -87,6 +96,19 @@ def test_linear_attention_bwd_kernel_matches_plain(n, c, residual, dtype, tol):
         assert k.shape == p.shape and k.dtype == p.dtype
         assert bool(torch.isfinite(k.float()).all())
         assert _rel_err(k, p) <= tol
+    # The k columns of dW on their own: dk flows through the k softmax over the tokens.
+    assert _rel_err(out[2][:, 128:256], ref[2][:, 128:256]) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_kernel_is_deterministic(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    args = _la_args(16, 256, 64, dtype)
+    with torch.inference_mode():
+        first = TLA.linear_attention_cuda(*args, 4, 32, dtype, True)
+        second = TLA.linear_attention_cuda(*args, 4, 32, dtype, True)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
