@@ -9,9 +9,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      all started together), with ptxas' registers and spills;
   2. each kernel against its plain PyTorch version on the card: the forward at the
      sampling path's shapes (batch 64, bf16) and at batch 128 in f32 and bf16, with
-     and without the residual, plus a head-scale-disparity input; the backward at the
-     training batch (128) in f32 and bf16, residual on and off, plus the disparity
-     input; for both, two calls compared bit for bit; the autograd path (forward
+     and without the residual, plus a head-scale-disparity input (f32 at (64, 64) and
+     every UNet shape); the backward at the training batch (128) in f32 and bf16,
+     residual on and off, plus the disparity input in f32 at the same shapes, held
+     against the exact f64 gradient as well; for both, two calls compared bit for bit; the autograd path (forward
      kernel + backward kernel) against torch autograd through the plain version; times
      by CUDA events, and each kernel's time split by launch at its main shape under
      torch.profiler;
@@ -341,6 +342,7 @@ def check_linear_attention(torch, la) -> dict:
     cases = [(128, n, c, dt, res, False) for (n, c) in LA_SHAPES[:5]
              for dt in ("float32", "bfloat16") for res in (True, False)]
     cases += [(128, 64, 64, dt, True, True) for dt in ("float32", "bfloat16")]
+    cases += [(128, n, c, "float32", True, True) for (n, c) in LA_SHAPES[:5]]
     cases += [(MAIN_BATCH, n, c, "bfloat16", True, False) for (n, c) in LA_SHAPES[:5]]
     main_err, shapes = 0.0, []
     for b, n, c, dt, res, disp in cases:
@@ -420,7 +422,12 @@ def check_linear_attention_bwd(torch, la) -> dict:
     names = ("dx", "dg0", "dqkv_kernel", "dmem_kv", "dout_kernel", "dout_bias", "dg1")
     cases = [(TRAIN_BATCH, n, c, dt, res, False) for (n, c) in LA_SHAPES[:5]
              for dt in ("float32", "bfloat16") for res in (True, False)]
-    cases.append((TRAIN_BATCH, 64, 64, "float32", True, True))
+    # The disparity input in f32 at (64, 64) and every UNet shape: each gradient is held
+    # against the exact f64 one (linear_attention_bwd_exact) and, at (64, 64), against the
+    # plain version as well. At the larger shapes the plain f32 version is itself ~1e-4
+    # from the exact gradient, so kernel against plain is printed there beside both
+    # distances from the exact one.
+    cases += [(TRAIN_BATCH, n, c, "float32", True, True) for (n, c) in [(64, 64)] + LA_SHAPES[:5]]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     main_err, shapes = 0.0, []
     for b, n, c, dt, res, disp in cases:
@@ -435,16 +442,26 @@ def check_linear_attention_bwd(torch, la) -> dict:
         abs_err = max((k.float() - p.float()).abs().max().item() for k, p in zip(out, ref))
         finite = all(bool(torch.isfinite(k.float()).all()) for k in out)
         same = all(torch.equal(k, k2) for k, k2 in zip(out, again))
-        ok = finite and same and max(errs) <= BWD_TOL[dt]
+        exact = ""
+        if disp:
+            truth = la.linear_attention_bwd_exact(*args, dout, 4, 32, res)
+            kernel_exact = [grad_err(k, t) for k, t in zip(out, truth)]
+            plain_exact = [grad_err(p, t) for p, t in zip(ref, truth)]
+            gated = kernel_exact + (errs if (n, c) == (64, 64) else [])
+            exact = (" | against f64: kernel " + " ".join(f"{e:.2e}" for e in kernel_exact)
+                     + ", plain " + " ".join(f"{e:.2e}" for e in plain_exact))
+        else:
+            gated = errs
+        ok = finite and same and max(gated) <= BWD_TOL[dt]
         print(f"  linear_attention_bwd b={b} n={n} c={c} {dt} residual={res} "
               f"disparity={disp}: max_abs_err={abs_err:.3e} rel_err "
               + " ".join(f"{nm}={e:.2e}" for nm, e in zip(names, errs))
-              + f" tol={BWD_TOL[dt]:.0e} bit-identical repeat={same} "
+              + f"{exact} tol={BWD_TOL[dt]:.0e} bit-identical repeat={same} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"linear_attention backward kernel disagrees with its plain version or "
                  f"repeats differently at b={b} n={n} c={c} {dt} residual={res}")
-        worst[dt] = max(worst[dt], max(errs))
+        worst[dt] = max(worst[dt], max(gated))
         if res and not disp and dt == "bfloat16":
             main_err = max(main_err, abs_err)
             ms = time_ms(lambda: la.linear_attention_bwd_cuda(*args, dout, 4, 32, dtype, True))

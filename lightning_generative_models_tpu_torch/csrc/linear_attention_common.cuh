@@ -38,6 +38,9 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "mma_sync.cuh"
 
@@ -169,37 +172,23 @@ using FB32 = Frag<float>::B;
 __device__ __forceinline__ void mma(float (&c)[4], const FA16& a, const FB16& b) {
   tc::mma_bf16(c, a.r, b.r[0], b.r[1]);
 }
-// f32: one k step's three TF32 products go into a fresh accumulator, added to c by f32
-// adds (round to nearest): the tensor cores' own accumulation rounds each step against the
-// running sum, which a sum of large cancelling terms (dxn = dp Wqkvᵀ through a head whose
-// q logits are ~1e3) turns into an error ~20x an f32 FMA chain's.
+// f32: the fresh-accumulator 3xTF32 product on round-to-nearest splits (mma_sync.cuh says
+// why this block needs it).
 __device__ __forceinline__ void mma(float (&c)[4], const FA32& a, const FB32& b) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  tc::mma3_split(t, a.hi, a.lo, b.hi[0], b.lo[0], b.hi[1], b.lo[1]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += t[i];
-}
-
-// x = hi + lo for the f32 path's 3xTF32 products, both rounded to nearest TF32 (the mma
-// would truncate lo): the error of a product is then ~2.5 2^-24 of |a b|, as an f32 FMA's,
-// where truncating lo leaves ~9 2^-24. The head-scale-disparity check (q logits ~1e3, and
-// the same weights again in dxn = dp Wqkvᵀ) needs it.
-__device__ __forceinline__ void split_tf32_rn(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+  tc::mma3_split_fresh(c, a.hi, a.lo, b.hi[0], b.lo[0], b.hi[1], b.lo[1]);
 }
 
 // f32 fragments from values: a0 (g, k 2t), a1 (g + 8, 2t), a2 (g, 2t + 1), a3 (g + 8,
 // 2t + 1); b0 (k 2t, n g), b1 (2t + 1, g), in the permuted k order.
 __device__ __forceinline__ void set_a(FA32& a, float a0, float a1, float a2, float a3) {
-  split_tf32_rn(a0, a.hi[0], a.lo[0]);
-  split_tf32_rn(a1, a.hi[1], a.lo[1]);
-  split_tf32_rn(a2, a.hi[2], a.lo[2]);
-  split_tf32_rn(a3, a.hi[3], a.lo[3]);
+  tc::split_tf32_rn(a0, a.hi[0], a.lo[0]);
+  tc::split_tf32_rn(a1, a.hi[1], a.lo[1]);
+  tc::split_tf32_rn(a2, a.hi[2], a.lo[2]);
+  tc::split_tf32_rn(a3, a.hi[3], a.lo[3]);
 }
 __device__ __forceinline__ void set_b(FB32& b, float b0, float b1) {
-  split_tf32_rn(b0, b.hi[0], b.lo[0]);
-  split_tf32_rn(b1, b.hi[1], b.lo[1]);
+  tc::split_tf32_rn(b0, b.hi[0], b.lo[0]);
+  tc::split_tf32_rn(b1, b.hi[1], b.lo[1]);
 }
 
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
@@ -841,14 +830,33 @@ struct Carve {
   }
 };
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current device. The
+// attribute is set once per kernel and device (and again only for more bytes), not at every
+// launch: a DDIM-50 batch makes 1,500 launches of the forward's kernels.
+template <typename... Params>
+cudaError_t allow_smem(void (*kernel)(Params...), size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;  // the default limit
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> allowed;
+  const std::lock_guard<std::mutex> lock(mu);
+  size_t& bytes = allowed[{reinterpret_cast<const void*>(kernel), device}];
+  if (smem <= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) bytes = smem;
+  return err;
+}
+
 // Launch on `stream` with Hopper's programmatic dependent launch: the kernel may be scheduled
 // while its predecessor on the stream finishes, and waits in pdl_enter until that one is
 // done and its writes are visible. Saves a launch's latency between the passes.
 template <typename... Params, typename... Args>
 cudaError_t launch(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
                    cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;

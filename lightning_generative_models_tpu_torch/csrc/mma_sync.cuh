@@ -6,9 +6,20 @@
 //  - mma_bf16 (m16n8k16, bf16 operands, f32 accumulator) for operands that are exact in
 //    bf16: a product of values rounded to bf16 is exact in the f32 accumulator.
 //  - mma (m16n8k8, TF32 operands) and the 3xTF32 scheme: an f32 x is split into a TF32
-//    hi and the remainder lo (split_tf32, by integer rounding), and a b is taken as
-//    a_hi b_hi + a_hi b_lo + a_lo b_hi (mma3_split; the dropped a_lo b_lo is ~2^-21
-//    relative), which keeps f32 products' accuracy on the tensor cores.
+//    hi and a remainder lo, and a b is taken as a_hi b_hi + a_hi b_lo + a_lo b_hi (the
+//    dropped a_lo b_lo is ~2^-21 relative), which keeps f32 products' accuracy on the
+//    tensor cores. Two variants:
+//      split_tf32 + mma3_split: lo exact, read truncated by the mma, and the three
+//        products added into the caller's accumulator, ~9 2^-24 of |a b| a product. For
+//        products whose sum is about as large as its terms: the softmax-attention kernels
+//        (scores, p v, their gradients) and the VQ distances.
+//      split_tf32_rn + mma3_split_fresh: lo rounded to nearest TF32 too (~2.5 2^-24 of
+//        |a b|, an f32 FMA's), and each k step's three products summed in a fresh
+//        accumulator, then added to the caller's by an f32 add that rounds to nearest:
+//        the mma's own accumulation rounds every step against the running sum. For sums
+//        of large terms that cancel: the linear-attention block, whose q logits reach ~1e3
+//        on the head-scale-disparity input and whose dxn = dp Wqkvᵀ runs through the same
+//        large weights. It costs two conversions and four adds more a k step.
 //  - ldmatrix, plain and transposed, for bf16 fragments of tiles in shared memory.
 //  - cp.async 16-byte copies into shared memory, so that a ring of tiles fills while the
 //    products of the previous tile run.
@@ -52,6 +63,24 @@ __device__ __forceinline__ void mma3_split(float (&c)[4], const uint32_t (&a_hi)
   mma(c, a_lo, b0_hi, b1_hi);
   mma(c, a_hi, b0_lo, b1_lo);
   mma(c, a_hi, b0_hi, b1_hi);
+}
+
+// x = hi + lo with both rounded to nearest TF32, the same integer rounding applied to the
+// remainder.
+__device__ __forceinline__ void split_tf32_rn(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// c += a b in the 3xTF32 scheme, the three products summed in a fresh accumulator first.
+__device__ __forceinline__ void mma3_split_fresh(float (&c)[4], const uint32_t (&a_hi)[4],
+                                                 const uint32_t (&a_lo)[4], uint32_t b0_hi,
+                                                 uint32_t b0_lo, uint32_t b1_hi,
+                                                 uint32_t b1_lo) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3_split(t, a_hi, a_lo, b0_hi, b0_lo, b1_hi, b1_lo);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
 }
 
 // c += a b for a 16 x 16 A (row-major fragment), a 16 x 8 B (column fragment), both bf16

@@ -166,6 +166,40 @@ def linear_attention_bwd_plain(
     return dx.to(x.dtype), dg0, dw, dmem, dwo, dbo, dg1
 
 
+def linear_attention_bwd_exact(
+    x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout,
+    heads: int, dim_head: int, residual: bool = False,
+) -> list:
+    """The block's gradients in f64, by autograd of its forward written out afresh in
+    f64, in the order and layouts of ``linear_attention_bwd_plain``'s. An exact yardstick
+    for the f32 kernel where the plain f32 version's own rounding is of the order of the
+    tolerance: inputs whose q logits reach ~1e3 through a near one-hot softmax. Takes
+    tensors made under ``torch.inference_mode`` too: it computes on f64 copies, with
+    autograd on."""
+
+    def rms(t, g):
+        return t * torch.rsqrt((t * t).sum(-1, keepdim=True) + _EPS) * g * c**0.5
+
+    b, n, c = x.shape
+    with torch.inference_mode(False), torch.enable_grad():
+        x, g0, wqkv, mem, wo, bo, g1, dout = (
+            t.detach().to(torch.float64, copy=True)
+            for t in (x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout)
+        )
+        inputs = [x, g0, wqkv, mem, wo, bo, g1]
+        for t in inputs:
+            t.requires_grad_()
+        q, k, v = (rms(x, g0) @ wqkv).reshape(b, n, 3, heads, dim_head).unbind(2)
+        memk, memv = (mem[i].permute(2, 0, 1).expand(b, -1, -1, -1) for i in (0, 1))
+        ke = torch.softmax(torch.cat([k, memk], 1), 1)  # over tokens and memory tokens
+        context = torch.einsum("bnhd,bnhe->bhde", ke, torch.cat([v, memv], 1))
+        a = torch.einsum("bnhd,bhde->bnhe", torch.softmax(q, -1) * dim_head**-0.5, context)
+        out = rms(a.reshape(b, n, heads * dim_head) @ wo + bo, g1)
+        if residual:
+            out = out + x
+        return list(torch.autograd.grad(out, inputs, dout))
+
+
 def _library(name: str, fn_name: str, argtypes: list) -> ctypes.CDLL:
     lib = cuda_build.load(name)
     fn = getattr(lib, fn_name)

@@ -100,6 +100,25 @@ def test_linear_attention_bwd_kernel_matches_plain(b, n, c, m, residual, dtype, 
     assert _rel_err(out[2][:, 128:256], ref[2][:, 128:256]) <= tol
 
 
+# The head-scale-disparity input (head 0's q logits ~300x the others', up to ~1e3) in f32
+# at the UNet's five shapes: the gradients against the exact f64 ones, since there the plain
+# f32 version's own rounding, through the near one-hot softmax of head 0, is of the order of
+# the tolerance.
+@pytest.mark.parametrize("n,c", [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256)])
+def test_linear_attention_bwd_kernel_disparity_matches_exact(n, c):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    args = _la_args(32, n, c, torch.float32)
+    args[2][:, :32] *= 300.0
+    dout = torch.tensor(np.random.RandomState(1).randn(32, n, c), dtype=torch.float32,
+                        device="cuda")
+    out = TLA.linear_attention_bwd_cuda(*args, dout, 4, 32, torch.float32, True)
+    exact = TLA.linear_attention_bwd_exact(*args, dout, 4, 32, True)
+    for k, t in zip(out, exact):
+        assert k.shape == t.shape
+        assert _rel_err(k, t) <= 1e-4
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_linear_attention_kernel_is_deterministic(dtype):
     if not torch.cuda.is_available():
