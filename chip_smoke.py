@@ -73,10 +73,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      strides) and the autograd path against autograd through the plain version; times of
      the kernel, the plain versions and scaled_dot_product_attention, beside the bounds,
      and of kernel #3's kernel on the same operands (checked against the f32 math);
- 18. the preprocess kernel (#7) against its plain version at 128 x 32 x 32 x 3 and
-     64 x 64 x 64 x 3, f32 (bit for bit) and bf16; times beside the bound and the
-     backend="xla" path; then prepare_batch(backend="pallas") over 8 train batches with
-     its launches counted from 0;
+ 18. the preprocess kernel (#7) against its plain version at 128 x 32 x 32 x 3,
+     64 x 64 x 64 x 3 and 1024 x 64 x 64 x 3 (62.9 MB in f32, beyond the L2), f32 (bit
+     for bit) and bf16; times beside the bound, the backend="xla" path and the launch
+     floor (an empty kernel timed the same way); then prepare_batch(backend="pallas")
+     over 8 train batches with its launches counted from 0;
  19. card against CPU, f32, bs2, the full-width FlowMatching DiT-S/2 of
      configs/diffusion/fm_dit_cifar10.json with "flash_attn": true (derived into
      chiprun_out/chip_smoke/fm_dit_flash_cifar10.json): the forward, an Euler-3 chain
@@ -87,7 +88,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      validation, then a --resume of FM_RESUME_STEPS, launch counts held as in 15;
  22. FM-DiT flash train images/s and Euler-50 samples/s with profiles
      (fm_dit_{train,sample}_profile.txt);
- 23. a JSON line of the kernels, the card's line, and the last line
+ 23. card against CPU, f32 (TF32 off), bs8, the full-width DCGAN of
+     configs/gan/dcgan_cifar10.json: three train steps, each from the CPU model's state,
+     on the same batch, flips and z (every loss, D's gradients, each weight's gradient
+     and update norms, every BatchNorm buffer), then eval_step and sample;
+ 24. DCGAN training path: train DCGAN_STEPS steps at bs128 bf16 with validation, then a
+     --resume of DCGAN_RESUME_STEPS, and generate 64 samples to a PNG grid
+     (chiprun_out/chip_smoke/dcgan/), every kernel counter set to 0 just before each run
+     and held to 0 just after: DCGAN runs no TPU kernel;
+ 25. DCGAN train images/s at bs128 bf16 (median of 3 timings of 20 steps) and five steps
+     under torch.profiler (dcgan_train_profile.txt): busy share, top kernels, launches a
+     step;
+ 26. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -116,6 +128,8 @@ DIT_RUN = "chip_smoke_dit"  # experiments/DDPM/<this>
 FM_BASE_CONFIG = ROOT / "configs" / "diffusion" / "fm_dit_cifar10.json"
 FM_CONFIG = ROOT / "chiprun_out" / "chip_smoke" / "fm_dit_flash_cifar10.json"  # derived
 FM_RUN = "chip_smoke_fm_dit"  # experiments/FlowMatching/<this>
+DCGAN_CONFIG = ROOT / "configs" / "gan" / "dcgan_cifar10.json"
+DCGAN_RUN = "chip_smoke_dcgan"  # experiments/DCGAN/<this>
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time for a kernel's work.
 PEAK_BYTES_PER_S = 3.35e12
@@ -188,6 +202,10 @@ DIT_RESUME_STEPS = 10
 DIT_DEPTH = 12
 FM_TRAIN_STEPS = 40
 FM_RESUME_STEPS = 10
+DCGAN_TOL = 1e-3  # f32 DCGAN steps, card against CPU: metrics, gradients, update norms
+DCGAN_BN_TOL = 1e-4  # its BatchNorm buffers, relative to 1 + |ref|
+DCGAN_STEPS = 36
+DCGAN_RESUME_STEPS = 12
 
 # Kernel #5, flash attention (b, heads, n_q, n_kv, d, operands, dtype): DiT-S/2 at bs128
 # as the flash DiT hands it over (views of the packed qkv in either layout), the UNet's
@@ -203,8 +221,9 @@ FLASH_CASES += [(64, 4, 256, 260, 32, "bnhd", dt) for dt in ("bfloat16", "float3
 FLASH_CASES += [(128, 6, 300, 300, 64, "s3hd", dt) for dt in ("bfloat16", "float32")]
 FLASH_CASES += [(16, 4, 1024, 1024, 32, "bhnd", dt) for dt in ("bfloat16", "float32")]
 FLASH_CASES += [(64, 2, 260, 260, 128, "s3hd", "bfloat16")]
-# Kernel #7, uint8 -> float with the flip: the train batch at 32 px and a 64 px batch.
-PRE_SHAPES = [(128, 32, 32, 3), (64, 64, 64, 3)]
+# Kernel #7, uint8 -> float with the flip: the train batch at 32 px, a 64 px batch, and
+# 1024 images at 64 px (62.9 MB in f32, beyond the 50 MB L2: where bandwidth shows).
+PRE_SHAPES = [(128, 32, 32, 3), (64, 64, 64, 3), (1024, 64, 64, 3)]
 PRE_MAIN = ((128, 32, 32, 3), "float32")
 PRE_PATH_BATCHES = 8  # prepare_batch(backend="pallas") over the FM config's train batches
 
@@ -1470,12 +1489,30 @@ def check_flash_attention(torch, ta) -> dict:
 def check_preprocess(torch, pp) -> dict:
     """Kernel #7 against fused_normalize_flip_plain on the card (PRE_SHAPES, f32 and
     bf16): bit for bit in f32, within one bf16 step in bf16, bit-identical repeats; times
-    beside the bound (bytes) and the default backend="xla" path of prepare_batch. Then
+    beside the bound (bytes), the default backend="xla" path of prepare_batch and the
+    launch floor: an empty kernel (csrc/preprocess.cu's lgm_empty_launch) of one block and
+    of as many blocks as the main shape has images, timed the same way. Then
     prepare_batch(backend="pallas") over PRE_PATH_BATCHES train batches of the FM config
     with the kernel's count from 0: one launch a batch, each batch equal bit for bit to
     backend="xla" (f32)."""
+    import ctypes
+
     from lightning_generative_models_tpu_torch.config import load_config
     from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("preprocess")
+    lib.lgm_empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.lgm_empty_launch.restype = ctypes.c_int
+
+    def empty(blocks):
+        cuda_build.check(lib, lib.lgm_empty_launch(
+            blocks, torch.cuda.current_stream().cuda_stream), "empty kernel")
+
+    floor = {blocks: time_ms(lambda: empty(blocks)) for blocks in (1, PRE_MAIN[0][0])}
+    print(f"  launch floor (an empty kernel, 256 threads a block, timed as the kernels are): "
+          f"{floor[1]:.4f} ms at 1 block, {floor[PRE_MAIN[0][0]]:.4f} ms at "
+          f"{PRE_MAIN[0][0]} blocks", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(18)
     shapes, main = [], {}
@@ -1527,7 +1564,8 @@ def check_preprocess(torch, pp) -> dict:
           f"bit for bit to backend='xla'", flush=True)
     if launches != PRE_PATH_BATCHES:
         fail(f"prepare_batch(backend='pallas') launched the kernel {launches} times")
-    return {**main, "launches": launches, "shapes": shapes}
+    return {**main, "launches": launches, "shapes": shapes,
+            "launch_floor_ms": {f"{b} blocks": ms for b, ms in floor.items()}}
 
 
 def check_fm_card_vs_cpu(torch) -> None:
@@ -1612,12 +1650,13 @@ FM_PATH = TransformerPath(
     "FM-DiT flash", FM_CONFIG, "FlowMatching", FM_RUN, "flash_attention",
     "flash_attention_bwd_cuda", f"Euler-{DDIM_STEPS}", DIT_BATCH, 1, FM_TRAIN_STEPS,
     FM_RESUME_STEPS, "fm_dit")
-#: The launch counters every DiT-backbone path holds, by name, with the ops module that
-#: owns each: the attention kernels' and the preprocess kernel's, which no trainer selects
-#: (prepare_batch keeps backend="xla"), so that a path must launch it 0 times.
+#: Every kernel's launch counter, by name, with the ops module that owns it. The DiT-backbone
+#: and DCGAN paths hold all of them; each launches its own kernels and none of the others,
+#: not the preprocess kernel, which no trainer selects (prepare_batch keeps backend="xla").
 PATH_COUNTERS = {"fused_attention_qkv": "attention", "fused_attention_qkv_bwd": "attention",
                  "flash_attention": "attention", "flash_attention_bwd_cuda": "attention",
-                 "fused_normalize_flip": "preprocess"}
+                 "fused_normalize_flip": "preprocess", "linear_attention": "linear_attention",
+                 "linear_attention_bwd": "linear_attention", "nearest_codes": "vq"}
 
 
 def _counter(name: str):
@@ -1818,6 +1857,231 @@ def transformer_breakdown(torch, card: str, path: TransformerPath, steps: int = 
     out.update({f"sample_{k}": v for k, v in summary.items()})
     return out
 
+def gan_snapshot(torch, model) -> dict:
+    """{"G/name" or "D/name": a CPU copy} of every weight and buffer, and of each weight's
+    Adam first moment under "m:" (zeros before its first step)."""
+    out = {}
+    for net in ("G", "D"):
+        module, opt = getattr(model, net), model.optimizers[net]
+        for name, t in list(module.named_parameters()) + list(module.named_buffers()):
+            out[f"{net}/{name}"] = t.detach().float().cpu().clone()
+        for name, p in module.named_parameters():
+            m = opt.state.get(p, {}).get("exp_avg")
+            out[f"m:{net}/{name}"] = (torch.zeros(p.shape) if m is None
+                                      else m.detach().float().cpu().clone())
+    return out
+
+
+def check_dcgan_card_vs_cpu(torch) -> None:
+    """The full-width DCGAN of DCGAN_CONFIG in f32 (TF32 off) at bs8, card against CPU:
+    three train steps, the card's model loaded with the CPU model's state before each
+    (weights, batch statistics, both Adams), on the same batch, flips and z. Within
+    DCGAN_TOL: every metric (of 1 + |ref|), each of D's gradients (of its norm: the D phase
+    runs before any update), and each weight's gradient norm and update norm; every
+    BatchNorm buffer within DCGAN_BN_TOL of 1 + |ref|. G's gradients are compared by their
+    norms: G's loss passes through D as the D phase left it, and Adam moves each D weight
+    by about +-lr whatever its gradient's size, so the few whose gradient is f32 noise move
+    by +-lr at random on each device, and G's gradient carries that (5e-4 of its norm at
+    step 0 here, 1e-2 in some states); an update's norm is the same for either sign. Then
+    eval_step and sample from one state. The state is deep-copied: a loaded optimizer
+    keeps the CPU's Adam step counts as they are, the same tensors."""
+    import copy
+
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    config = load_config(DCGAN_CONFIG)["model"]
+    config["args"]["use_bf16"] = False
+    models = {dev: load_model(config, device=dev) for dev in ("cpu", "cuda")}
+    b1 = models["cpu"].betas[0]
+    rs = np.random.RandomState(23)
+    batch = {"image": rs.randint(0, 256, (8, 32, 32, 3)).astype(np.uint8)}
+
+    def rel(out, ref):
+        return ((out - ref).abs() / (1 + ref.abs())).max().item()
+
+    def rel_norm(out, ref):
+        return ((out - ref).norm() / ref.norm()).item()
+
+    for step in range(3):
+        models["cuda"].load_state_dict(copy.deepcopy(models["cpu"].state_dict()))
+        flip = torch.tensor(rs.rand(8) < 0.5)
+        z = torch.tensor(rs.randn(8, config["args"]["latent_dim"]).astype(np.float32))
+        before = {dev: gan_snapshot(torch, m) for dev, m in models.items()}
+        metrics = {dev: m.train_step(batch, flip=flip, z=z) for dev, m in models.items()}
+        after = {dev: gan_snapshot(torch, m) for dev, m in models.items()}
+        metric_err = max(rel(metrics["cuda"][k].float().cpu(), metrics["cpu"][k].float())
+                         for k in metrics["cpu"])
+        bn_err, worst = 0.0, (0.0, "")
+        for key, ref in after["cpu"].items():
+            if key.startswith("m:"):
+                continue
+            if key.endswith((".mean", ".var")):
+                bn_err = max(bn_err, rel(after["cuda"][key], ref))
+                continue
+            g = {dev: (after[dev]["m:" + key] - b1 * before[dev]["m:" + key]) / (1 - b1)
+                 for dev in models}
+            d = {dev: after[dev][key] - before[dev][key] for dev in models}
+            errs = {"gradient norm": rel_norm(g["cuda"].norm(), g["cpu"].norm()),
+                    "update norm": rel_norm(d["cuda"].norm(), d["cpu"].norm())}
+            if key.startswith("D/"):
+                errs["gradient"] = rel_norm(g["cuda"], g["cpu"])
+            for what, err in errs.items():
+                if not err <= worst[0]:  # NaN (no gradient on the CPU) counts as the worst
+                    worst = (err, f"{key} {what}")
+        ok = metric_err <= DCGAN_TOL and bn_err <= DCGAN_BN_TOL and worst[0] <= DCGAN_TOL
+        print(f"  DCGAN f32 train step {step} bs8, card vs CPU: metrics {metric_err:.2e}, "
+              f"BatchNorm buffers {bn_err:.2e} (of 1 + |ref|); worst {worst[1]} {worst[0]:.2e} "
+              f"(tol {DCGAN_TOL:.0e} / {DCGAN_BN_TOL:.0e}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"DCGAN train step {step}: card and CPU disagree")
+
+    models["cuda"].load_state_dict(copy.deepcopy(models["cpu"].state_dict()))
+    z = torch.tensor(rs.randn(8, config["args"]["latent_dim"]).astype(np.float32))
+    evals = {dev: m.eval_step(batch, z=z) for dev, m in models.items()}
+    err = max(rel(evals["cuda"][k].float().cpu(), evals["cpu"][k].float()) for k in evals["cpu"])
+    images = {dev: m.sample(None, 8, z=z).float().cpu() for dev, m in models.items()}
+    img_err = (images["cuda"] - images["cpu"]).abs().max().item()
+    ok = err <= DCGAN_TOL and img_err <= DCGAN_BN_TOL
+    print(f"  DCGAN f32 eval_step: metrics {err:.2e} of 1 + |ref|; sample bs8: max_abs_err "
+          f"{img_err:.2e} (tol {DCGAN_BN_TOL:.0e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("DCGAN eval_step or sample: card and CPU disagree")
+
+
+def dcgan_train_path(torch, card: str) -> dict:
+    """The train entry point on DCGAN_CONFIG (bs128, bf16): DCGAN_STEPS steps with a
+    validation and a sample grid at the end, then a --resume of DCGAN_RESUME_STEPS; then
+    generate 64 samples to a PNG. Every count of PATH_COUNTERS is set to 0 just before each
+    run and must read 0 just after: DCGAN runs no TPU kernel. The losses and val_g_loss
+    finite, the checkpoints there, the samples finite in [0, 1]. Returns each run's
+    counts."""
+    import math
+
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch import generate, train
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    run_dir = EXPERIMENT_DIR / "DCGAN" / DCGAN_RUN
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--config_path", str(DCGAN_CONFIG), "--device", "cuda", "--experiment_name",
+            DCGAN_RUN, "--check_val_every_n_epoch", "1000", "--sample_every_n_steps", "0"]
+    total = DCGAN_STEPS + DCGAN_RESUME_STEPS
+    counts = {}
+    for name, steps, extra in (("train", DCGAN_STEPS, []), ("resume", total, ["--resume"])):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        model = train.main(argv + ["--max_steps", str(steps)] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = read_counts()
+        print(f"  {name}: to step {model.step} in {wall:.1f} s (model build, data, validation, "
+              f"the grid and checkpoints included) on {card}; launches {counts[name]} "
+              f"(expected all 0)", flush=True)
+        if any(counts[name].values()):
+            fail(f"the DCGAN {name} run launched a kernel: {counts[name]}")
+        if model.step != steps:
+            fail(f"the DCGAN {name} run ended at step {model.step}, not {steps}")
+
+    records = read_metrics(run_dir)
+    train_records = [r for r in records if "train_g_loss" in r]
+    losses = [r[k] for r in train_records for k in ("train_d_loss", "train_g_loss")]
+    val = [r["val_g_loss"] for r in records if "val_g_loss" in r]
+    print("  DCGAN train_d_loss / train_g_loss by logged step: " + ", ".join(
+        f"{r['step']}: {r['train_d_loss']:.4f} / {r['train_g_loss']:.4f}"
+        for r in train_records) + f"; val_g_loss {val}; images/s logged at the last step "
+        f"{train_records[-1]['images_per_sec']:.1f}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail("a DCGAN train loss is not finite")
+    if train_records[-1]["step"] != total - 1:
+        fail("the resumed DCGAN run did not log its last step")
+    if len(val) != 2 or not all(math.isfinite(v) for v in val):
+        fail(f"expected one finite DCGAN val_g_loss per run, got {val}")
+    grids = sorted((run_dir / "samples").glob("random_generation_*.png"))
+    if len(grids) != 2:
+        fail(f"expected a DCGAN sample grid per run, found {[p.name for p in grids]}")
+    meta = json.loads((run_dir / "checkpoints" / "checkpoint_meta_last.json").read_text())
+    if meta["step"] != total or meta["monitor"] != "val_g_loss" or \
+            not (run_dir / "checkpoints" / "checkpoint_meta_best.json").exists():
+        fail(f"the DCGAN checkpoints are not there as expected: last {meta}")
+
+    out_dir = OUT_DIR / "dcgan"
+    gen_argv = ["--config_path", str(DCGAN_CONFIG), "--num_samples", "64", "--device", "cuda",
+                "--seed", "0", "--out", str(out_dir)]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    images = generate.main(gen_argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["generate"] = read_counts()
+    print(f"  generate 64 samples: {wall:.3f} s (model build, init and PNG included); "
+          f"launches {counts['generate']} (expected all 0)", flush=True)
+    if any(counts["generate"].values()):
+        fail(f"DCGAN generate launched a kernel: {counts['generate']}")
+    if images.shape != (64, 32, 32, 3):
+        fail(f"DCGAN samples have shape {images.shape}")
+    if not (np.isfinite(images).all() and images.min() >= 0.0 and images.max() <= 1.0):
+        fail("DCGAN samples are not finite values in [0, 1]")
+    if not (out_dir / "grid.png").exists():
+        fail("generate wrote no DCGAN grid.png")
+    return counts
+
+
+def dcgan_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict:
+    """DCGAN train images/s at bs128, bf16, with the model built and warmed up (median of
+    ``repeats`` timings of ``steps`` steps), then five steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    config = load_config(DCGAN_CONFIG)
+    batch_size = config["dataset"]["batch_size"]
+    model = load_model(config["model"], device="cuda")
+    it = DataModule(**config["dataset"]).train_batches(0)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()} for _ in range(4)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run(n):
+        for i in range(n):
+            model.train_step(batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+
+    run(5)  # warm-up: cuDNN plans, the allocator
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run(steps)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    ips = steps * batch_size / wall
+    print(f"  DCGAN train bs{batch_size} bf16: {1e3 * wall / steps:.3f} ms per step, median of "
+          f"{[round(w, 4) for w in walls]} s per {steps} steps, {ips:.1f} images/s on {card}",
+          flush=True)
+    profiled = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(profiled)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    summary = profile_summary(torch, prof, wall_us, f"{profiled} DCGAN train steps "
+                              f"bs{batch_size}", "dcgan_train_profile.txt", card)
+    out = {"images_per_s": ips, "ms_per_step": 1e3 * wall / steps}
+    if summary:
+        out.update({"launches_per_step": summary["launches"] / profiled,
+                    "busy_ms_per_step": summary["busy_us"] / profiled / 1e3,
+                    "busy_share": summary["busy_us"] / summary["wall_us"]})
+        print(f"  per step: {out['launches_per_step']:.0f} kernel launches, "
+              f"{out['busy_ms_per_step']:.2f} ms device busy, "
+              f"{100 * out['busy_share']:.1f}% of the profiled wall", flush=True)
+    return out
+
 
 def main() -> None:
     import numpy as np
@@ -1956,6 +2220,17 @@ def main() -> None:
 
     print("[22] FM-DiT flash train and sampling throughput, where the time goes", flush=True)
     fm_stats = transformer_breakdown(torch, card, FM_PATH)
+    print(f"  phases 1-22 took {time.perf_counter() - started:.1f} s", flush=True)
+
+    print("[23] DCGAN (dcgan_cifar10.json), card against CPU, f32", flush=True)
+    check_dcgan_card_vs_cpu(torch)
+
+    print(f"[24] DCGAN training path: train {DCGAN_STEPS} steps bs{TRAIN_BATCH} bf16, then "
+          f"resume; generate", flush=True)
+    dcgan_counts = dcgan_train_path(torch, card)
+
+    print("[25] DCGAN train throughput and where the time goes", flush=True)
+    dcgan_stats = dcgan_breakdown(torch, card)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
 
     kernels = [{
@@ -2101,6 +2376,7 @@ def main() -> None:
         "launches_by_path": {"prepare_batch_pallas": pre_stats["launches"],
                              "fm_flash_train": fm_counts["train"]["fused_normalize_flip"],
                              "dit_train": dit_counts["train"]["fused_normalize_flip"],
+                             "dcgan_train": dcgan_counts["train"]["fused_normalize_flip"],
                              "train": train_counts["train"]["preprocess"]},
         "max_abs_err": pre_stats["max_abs_err"],
         "ms": pre_stats["ms"],
@@ -2111,11 +2387,12 @@ def main() -> None:
         "status": "ok",
         "ms_is": "one call at 128 x 32 x 32 x 3 uint8 -> f32 (a train batch)",
         "xla_path_ms": pre_stats["xla_ms"],
+        "launch_floor_ms": pre_stats["launch_floor_ms"],
         "opt_in": "prepare_batch(backend='pallas'); the trainers keep backend='xla'",
         "shapes": pre_stats["shapes"],
     }]
     print(json.dumps({"train": train_stats, "vq_train": vq_train_stats, "dit": dit_stats,
-                      "fm_dit_flash": fm_stats}))
+                      "fm_dit_flash": fm_stats, "dcgan": dcgan_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

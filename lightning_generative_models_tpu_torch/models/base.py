@@ -95,3 +95,10 @@ class GenerativeModel:
 
     def load_state_dict(self, state: dict) -> None:
         raise NotImplementedError
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy on logits, in its stable form
+    ``max(l, 0) - l t + log(1 + exp(-|l|))``, as the JAX package computes it."""
+    return torch.mean(torch.clamp(logits, min=0.0) - logits * targets
+                      + torch.log1p(torch.exp(-torch.abs(logits))))

@@ -1,0 +1,252 @@
+"""GAN (Goodfellow et al. 2014): an MLP generator and discriminator, and the base class of
+the conv GANs.
+
+Counterpart of ``lightning_generative_models_tpu/models/gan/gan.py``: G = latent -> 256 ->
+512 -> 1024 -> image, each hidden layer Dense + BatchNorm + LeakyReLU(0.2), a tanh head;
+D = image -> 512 -> 256 -> 1 with LeakyReLU(0.2); BCE-with-logits losses, the generator's
+"non-saturating" or "min-max"; two Adams with L2 weight decay, D stepped before G.
+
+The JAX step (``gan.py:201-249``) runs G on z in train mode for the fake batch, then:
+- the D phase: D in train mode on the real batch, then on the fake one with no gradient
+  into G; D's batch statistics move twice, then D's Adam steps;
+- the G phase: G runs again on the same z inside G's gradient, from the same weights and
+  the same old batch statistics, and D, already stepped, in train mode on its output from
+  the statistics the D phase left (a third move); the gradient into D's weights is
+  discarded; G's Adam steps.
+Both G passes compute the same fake batch and statistics, and only the second's are kept,
+so G's statistics move once a step. This port runs G once: the D phase takes the fake
+batch detached and the G phase backpropagates through the same tensor. That is the JAX
+step with one G forward fewer; running G twice in train mode here would move its
+statistics twice and the eval-mode generator would drift.
+
+The model owns its modules (``G``, ``D``), the two optimizers and the step counter. Every
+random draw takes an explicit ``torch.Generator``, or is handed in (``z``, ``flip``), so a
+test can give both frameworks the same draws.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lightning_generative_models_tpu_torch.models.base import GenerativeModel, bce_with_logits
+from lightning_generative_models_tpu_torch.models.modules.layers import (
+    BatchNorm,
+    Dense,
+    init_params,
+)
+from lightning_generative_models_tpu_torch.ops.common import resolve_device
+from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
+from lightning_generative_models_tpu_torch.train.state import (
+    apply_grads,
+    count_params,
+    make_adam,
+)
+from lightning_generative_models_tpu_torch.weights import load_flax_train_state
+
+
+class MLPGenerator(nn.Module):
+    """z [B, latent] -> images [B, H, W, C] in [-1, 1]; submodules carry flax's names."""
+
+    def __init__(self, latent_dim: int, img_shape: Tuple[int, int, int]):
+        super().__init__()
+        self.img_shape = img_shape
+        prev = latent_dim
+        for i, width in enumerate((256, 512, 1024)):
+            self.add_module(f"Dense_{i}", Dense(prev, width))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(width))
+            prev = width
+        self.Dense_3 = Dense(prev, int(np.prod(img_shape)))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = z
+        for i in range(3):
+            h = getattr(self, f"BatchNorm_{i}")(getattr(self, f"Dense_{i}")(h))
+            h = F.leaky_relu(h, 0.2)
+        return torch.tanh(self.Dense_3(h)).reshape(h.shape[0], *self.img_shape)
+
+
+class MLPDiscriminator(nn.Module):
+    """Images [B, H, W, C] -> logits [B]."""
+
+    def __init__(self, in_features: int):
+        super().__init__()
+        self.Dense_0 = Dense(in_features, 512)
+        self.Dense_1 = Dense(512, 256)
+        self.Dense_2 = Dense(256, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(self.Dense_0(x.reshape(x.shape[0], -1)), 0.2)
+        h = F.leaky_relu(self.Dense_1(h), 0.2)
+        return self.Dense_2(h)[:, 0]
+
+
+class GAN(GenerativeModel):
+    monitor = "val_g_loss"  # GANs log no val_loss
+    supports_grad_accum = False  # two optimizers stepped in turn
+
+    def __init__(
+        self,
+        img_channels: int = 1,
+        img_size: int = 28,
+        latent_dim: int = 100,
+        lr: float = 1e-4,
+        b1: float = 0.5,
+        b2: float = 0.999,
+        weight_decay: float = 1e-5,
+        loss_type: str = "non-saturating",
+        calculate_metrics: bool = False,
+        metrics: Optional[list] = None,
+        summary: bool = True,
+        device: str | torch.device = "cuda",
+    ):
+        """The JAX constructor's arguments, plus ``device``. ``summary`` (the per-layer
+        tables) is accepted and not printed; ``calculate_metrics`` (FID/KID/IS in
+        validation, of the ``metrics`` named) raises until the metrics are ported. The
+        weights start from ``init_params`` with seed 0."""
+        super().__init__(img_channels, img_size)
+        if loss_type not in ("min-max", "non-saturating"):
+            raise ValueError(f"loss_type is 'min-max' or 'non-saturating', got {loss_type!r}")
+        if calculate_metrics:
+            raise NotImplementedError(
+                "calculate_metrics (FID/KID/IS in validation) is not yet ported to the "
+                "PyTorch package; see ROADMAP.md, Queue 1 #7")
+        self.device = resolve_device(device)
+        self.latent_dim = latent_dim
+        self.loss_type = loss_type
+        self.lr, self.betas, self.weight_decay = lr, (b1, b2), weight_decay
+        self.G, self.D = self._build_networks()
+        self.init_params()
+
+    def _build_networks(self) -> Tuple[nn.Module, nn.Module]:
+        shape = self.image_shape()
+        return MLPGenerator(self.latent_dim, shape), MLPDiscriminator(int(np.prod(shape)))
+
+    # -- parameters ----------------------------------------------------------------
+    def init_params(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw G's weights, then D's, from the CPU ``generator`` (seed 0 when omitted),
+        reset the batch statistics, and start both optimizers fresh at step 0."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for net in (self.G, self.D):
+            init_params(net, generator)
+            net.to(self.device)
+        self.optimizers = {
+            name: make_adam(list(net.parameters()), self.lr, *self.betas,
+                            weight_decay=self.weight_decay)
+            for name, net in (("D", self.D), ("G", self.G))
+        }
+        self.step = 0
+
+    def param_counts(self) -> Dict[str, int]:
+        return {"G": count_params(self.G), "D": count_params(self.D)}
+
+    def flax_layout(self) -> dict:
+        nets = {"G": self.G, "D": self.D}
+        return {
+            "params": {f"params/{k}": net for k, net in nets.items()},
+            "buffers": {f"mutable/{k}/batch_stats": net for k, net in nets.items()
+                        if any(True for _ in net.buffers())},
+            "adam": {f"opt_state/{k}": (self.optimizers[k], {"": net})
+                     for k, net in nets.items()},
+        }
+
+    def load_flax_weights(self, tree) -> None:
+        """``generate --weights``: a flattened JAX ``TrainState`` (its ``params`` and the
+        batch statistics in ``mutable``; the optimizers' states are not read)."""
+        load_flax_train_state(self, tree, optimizers=False)
+
+    # -- forward -------------------------------------------------------------------
+    def _x(self, batch: Dict, generator: Optional[torch.Generator], train: bool,
+           flip: Optional[torch.Tensor]) -> torch.Tensor:
+        """A uint8 batch on the model's device in model space, [-1, 1]."""
+        batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                 for k, v in batch.items()}
+        return self.to_model_space(
+            prepare_batch(batch, generator, train=train, flip=flip)["image"])
+
+    def sample_z(self, generator: Optional[torch.Generator], n: int) -> torch.Tensor:
+        return torch.randn(n, self.latent_dim, generator=generator, device=self.device)
+
+    def _d_loss(self, x: torch.Tensor, x_hat: torch.Tensor):
+        logits_real = self.D(x)
+        logits_fake = self.D(x_hat)
+        d_loss_real = bce_with_logits(logits_real, torch.ones_like(logits_real))
+        d_loss_fake = bce_with_logits(logits_fake, torch.zeros_like(logits_fake))
+        d_loss = (d_loss_real + d_loss_fake) / 2
+        return d_loss, {"d_loss": d_loss, "d_loss_real": d_loss_real,
+                        "d_loss_fake": d_loss_fake, "logits_real": logits_real.mean(),
+                        "logits_fake": logits_fake.mean()}
+
+    def _g_loss(self, x_hat: torch.Tensor):
+        logits_fake = self.D(x_hat)
+        if self.loss_type == "non-saturating":
+            g_loss = bce_with_logits(logits_fake, torch.ones_like(logits_fake))
+        else:  # min-max: maximize D's error on the fakes
+            g_loss = -bce_with_logits(logits_fake, torch.zeros_like(logits_fake))
+        return g_loss, {"g_loss": g_loss}
+
+    # -- steps ---------------------------------------------------------------------
+    def train_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                   flip: Optional[torch.Tensor] = None,
+                   z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One D step, then one G step through the stepped D (module doc), on a uint8
+        batch flipped by ``flip`` [B] bool and a latent batch ``z``, each drawn from
+        ``generator`` when not given."""
+        x = self._x(batch, generator, True, flip)
+        z = self.sample_z(generator, x.shape[0]) if z is None else z.to(self.device)
+        self.G.train()
+        self.D.train()
+        x_hat = self.G(z)
+
+        d_params = list(self.D.parameters())
+        d_loss, d_metrics = self._d_loss(x, x_hat.detach())
+        apply_grads(self.optimizers["D"], d_params, torch.autograd.grad(d_loss, d_params))
+
+        g_params = list(self.G.parameters())
+        g_loss, g_metrics = self._g_loss(x_hat)
+        apply_grads(self.optimizers["G"], g_params, torch.autograd.grad(g_loss, g_params))
+        self.step += 1
+        metrics = {k: v.detach() for k, v in {**d_metrics, **g_metrics}.items()}
+        return self.prefix_metrics(metrics, "train")
+
+    @torch.inference_mode()
+    def eval_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                  z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Both losses with G and D in eval mode (the running statistics), on the unflipped
+        batch and ``z`` (drawn from ``generator`` when not given)."""
+        x = self._x(batch, None, False, None)
+        z = self.sample_z(generator, x.shape[0]) if z is None else z.to(self.device)
+        self.G.eval()
+        self.D.eval()
+        x_hat = self.G(z)
+        _, d_metrics = self._d_loss(x, x_hat)
+        _, g_metrics = self._g_loss(x_hat)
+        return self.prefix_metrics({**d_metrics, **g_metrics}, "val")
+
+    @torch.inference_mode()
+    def sample(self, generator: Optional[torch.Generator], num_samples: int,
+               z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """G in eval mode on ``z`` (drawn from ``generator`` when not given): images in
+        [0, 1]."""
+        z = self.sample_z(generator, num_samples) if z is None else z.to(self.device)
+        self.G.eval()
+        return self.to_image_space(self.G(z))
+
+    # -- checkpoint state ------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """G's and D's weights and batch statistics, both Adams, the step."""
+        return {"G": self.G.state_dict(), "D": self.D.state_dict(),
+                "optimizer_G": self.optimizers["G"].state_dict(),
+                "optimizer_D": self.optimizers["D"].state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.G.load_state_dict(state["G"])
+        self.D.load_state_dict(state["D"])
+        self.optimizers["G"].load_state_dict(state["optimizer_G"])
+        self.optimizers["D"].load_state_dict(state["optimizer_D"])
+        self.step = int(state["step"])

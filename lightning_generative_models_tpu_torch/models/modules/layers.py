@@ -1,8 +1,8 @@
 """The flax.linen layers the JAX package builds on, as PyTorch modules on NHWC tensors.
 
-``Conv``, ``ConvTranspose``, ``Dense``, ``GroupNorm``, ``LayerNorm`` and ``Embed`` follow
-flax's numerics (lax's "SAME" padding, the norms' E[x^2] - E[x]^2 variance, convs and
-Dense in the layer's dtype). Each declares
+``Conv``, ``ConvTranspose``, ``Dense``, ``GroupNorm``, ``LayerNorm``, ``BatchNorm`` and
+``Embed`` follow flax's numerics (lax's "SAME" and "VALID" padding, the norms' E[x^2] - E[x]^2
+variance, convs and Dense in the layer's dtype). Each declares
 ``FLAX_LEAVES``: how its parameters map to the flax leaves of the same layer, which
 ``weights.load_flax_params`` reads. Every module of the package also has
 ``reset_parameters(generator)``, so that ``init_params`` draws all weights from one
@@ -33,30 +33,40 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with "SAME" padding on NHWC input, at any stride: lax pads
+    """flax ``nn.Conv`` on NHWC input, at any stride. With "SAME" padding lax pads
     (low, high) per axis by ``same_padding``, asymmetric for an even kernel at stride 1
-    (4x4: (1, 2)). The kernel is stored OIHW; input, kernel and bias are cast to
+    (4x4: (1, 2)); "VALID" pads nothing. The kernel is stored OIHW and drawn from
+    N(0, std^2) (``std`` None: fan-in^-1/2); input, kernel and bias are cast to
     ``dtype`` as flax's ``dtype=``."""
 
     FLAX_LEAVES = {"weight": ("kernel", "conv"), "bias": ("bias", None)}
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 dtype: torch.dtype = torch.float32, bias: bool = True, stride: int = 1):
+                 dtype: torch.dtype = torch.float32, bias: bool = True, stride: int = 1,
+                 padding: str = "SAME", std: Optional[float] = None):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"Conv padding is SAME or VALID, got {padding!r}")
         self.dtype = dtype
         self.kernel_size = kernel_size
         self.stride = stride
+        self.padding = padding
+        self.std = std
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        normal_(self.weight, self.weight[0].numel() ** -0.5, generator)
+        std = self.weight[0].numel() ** -0.5 if self.std is None else self.std
+        normal_(self.weight, std, generator)
         if self.bias is not None:
             self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
+        if self.padding == "VALID":
+            y = F.conv2d(x, self.weight.to(self.dtype), bias, stride=self.stride)
+            return y.permute(0, 2, 3, 1)
         ph = same_padding(x.shape[2], self.kernel_size, self.stride)
         pw = same_padding(x.shape[3], self.kernel_size, self.stride)
         if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -78,14 +88,16 @@ class ConvTranspose(nn.Module):
     [in, out, kh, kw] with weight[i, o, a, b] = kernel[k-1-a, k-1-b, i, o]
     (``weights.py``'s "conv_transpose" transform); its padding p stands for k - 1 - p
     on each side of the dilated input, and an uneven (a, b) is cut from the full
-    output."""
+    output. ``std``: the kernel's init N(0, std^2) (None: fan-in^-1/2)."""
 
     FLAX_LEAVES = {"weight": ("kernel", "conv_transpose"), "bias": ("bias", None)}
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, bias: bool = True):
+                 dtype: torch.dtype = torch.float32, bias: bool = True,
+                 std: Optional[float] = None):
         super().__init__()
         self.dtype = dtype
+        self.std = std
         self.kernel_size = kernel_size
         self.stride = stride
         self.weight = nn.Parameter(torch.empty(in_ch, out_ch, kernel_size, kernel_size))
@@ -99,7 +111,7 @@ class ConvTranspose(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         fan_in = self.weight.shape[0] * self.kernel_size**2
-        normal_(self.weight, fan_in**-0.5, generator)
+        normal_(self.weight, fan_in**-0.5 if self.std is None else self.std, generator)
         if self.bias is not None:
             self.bias.data.zero_()
 
@@ -121,15 +133,18 @@ class Dense(nn.Module):
     """flax ``nn.Dense``: the weight is stored [out, in] (flax: [in, out]). In f32 by
     default; with a lower ``dtype`` the input, weight and bias are cast to it as flax's
     ``dtype=`` does, and the product is rounded to it before the bias is added.
-    ``zero_init`` starts the weight at 0 (flax's ``kernel_init=zeros``)."""
+    ``zero_init`` starts the weight at 0 (flax's ``kernel_init=zeros``), ``std`` draws it
+    from N(0, std^2) (None: fan-in^-1/2)."""
 
     FLAX_LEAVES = {"weight": ("kernel", "dense"), "bias": ("bias", None)}
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False,
+                 std: Optional[float] = None):
         super().__init__()
         self.dtype = dtype
         self.zero_init = zero_init
+        self.std = std
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
 
@@ -137,7 +152,8 @@ class Dense(nn.Module):
         if self.zero_init:
             self.weight.data.zero_()
         else:
-            normal_(self.weight, self.weight.shape[1] ** -0.5, generator)
+            std = self.weight.shape[1] ** -0.5 if self.std is None else self.std
+            normal_(self.weight, std, generator)
         self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +205,53 @@ class LayerNorm(nn.Module):
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
         return (x - mean) * torch.rsqrt(var + self.eps)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` (momentum 0.99, epsilon 1e-5, ``use_fast_variance``) over
+    every axis but the last (NHWC maps, [B, F] features), statistics and output in f32.
+
+    In train mode (``module.train()``) it normalizes by the batch's mean and its biased
+    variance E[x^2] - E[x]^2 clipped at 0, and moves the running buffers ``mean`` and
+    ``var`` (flax's ``batch_stats``) as ``ra = 0.99 ra + 0.01 batch``. torch's
+    ``BatchNorm2d`` keeps the unbiased variance with momentum 0.1, so the buffers move by
+    hand here. In eval mode it normalizes by the buffers. The scale starts at
+    1 + N(0, scale_std^2) (0: ones), the bias at 0."""
+
+    FLAX_LEAVES = {"weight": ("scale", None), "bias": ("bias", None)}
+    MOMENTUM = 0.99
+    EPS = 1e-5
+
+    def __init__(self, features: int, scale_std: float = 0.0):
+        super().__init__()
+        self.scale_std = scale_std
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.scale_std:
+            normal_(self.weight, self.scale_std, generator)
+            self.weight.data.add_(1.0)
+        else:
+            self.weight.data.fill_(1.0)
+        self.bias.data.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(self.MOMENTUM * self.mean + (1.0 - self.MOMENTUM) * mean)
+                self.var.copy_(self.MOMENTUM * self.var + (1.0 - self.MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.EPS) * self.weight) + self.bias
 
 
 class Embed(nn.Module):

@@ -36,7 +36,11 @@ from lightning_generative_models_tpu_torch.models.modules.layers import (
     init_params,
 )
 from lightning_generative_models_tpu_torch.models.vae.vqvae import VQVAE
-from lightning_generative_models_tpu_torch.train.state import count_params, make_adam
+from lightning_generative_models_tpu_torch.train.state import (
+    apply_grads,
+    count_params,
+    make_adam,
+)
 
 
 class NLayerDiscriminator(nn.Module):
@@ -144,14 +148,14 @@ class VQGAN(VQVAE):
                 + self.loss_weights["vq_loss"] * vq_loss
                 + disc_on * adaptive_w * g_adv)
         params = self._trainable()
-        self._apply(self.optimizer, params,
+        apply_grads(self.optimizer, params,
                     torch.autograd.grad(loss, params, allow_unused=True))
 
         # The discriminator, with its weights as they were in the generator's loss.
         x_hat = x_hat.detach()
         d_params = list(self.disc.parameters())
         d_loss = disc_on * hinge_d_loss(self.disc(x), self.disc(x_hat))
-        self._apply(self.disc_optimizer, d_params, torch.autograd.grad(d_loss, d_params))
+        apply_grads(self.disc_optimizer, d_params, torch.autograd.grad(d_loss, d_params))
         self.step += 1
         metrics = {"loss": loss, "recon_loss": recon_loss, "vq_loss": vq_loss,
                    "perplexity": perplexity, "g_adv_loss": g_adv,

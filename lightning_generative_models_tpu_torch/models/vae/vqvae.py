@@ -36,7 +36,11 @@ from lightning_generative_models_tpu_torch.models.modules.vector_quantizer impor
 )
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
-from lightning_generative_models_tpu_torch.train.state import count_params, make_adam
+from lightning_generative_models_tpu_torch.train.state import (
+    apply_grads,
+    count_params,
+    make_adam,
+)
 from lightning_generative_models_tpu_torch.weights import load_flax_train_state
 
 
@@ -199,15 +203,6 @@ class VQVAE(GenerativeModel):
         return loss, {"loss": loss, "recon_loss": recon_loss, "vq_loss": vq_loss,
                       "perplexity": perplexity}
 
-    def _apply(self, optimizer: torch.optim.Optimizer, params: list, grads) -> None:
-        # Contiguous, as the moments are: cuDNN hands back conv grads channels-last,
-        # and a stride that differs sends Adam's foreach ops down their per-tensor path.
-        for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g.contiguous()
-        optimizer.step()
-        for p in params:
-            p.grad = None
-
     # -- steps ---------------------------------------------------------------------
     def train_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
                    flip: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -216,7 +211,7 @@ class VQVAE(GenerativeModel):
         x01 = self._x01(batch, generator, True, flip)
         params = self._trainable()
         loss, metrics = self._loss(x01, True)
-        self._apply(self.optimizer, params,
+        apply_grads(self.optimizer, params,
                     torch.autograd.grad(loss, params, allow_unused=True))
         self.step += 1
         return self.prefix_metrics({k: v.detach() for k, v in metrics.items()}, "train")

@@ -80,7 +80,9 @@ def fused_normalize_flip_cuda(images_u8: torch.Tensor, flip: torch.Tensor,
         raise ValueError(f"the CUDA kernel takes B*H and W*C below 2^31, got "
                          f"{tuple(images_u8.shape)}")
     images_u8 = images_u8.contiguous()
-    flip = flip.to(device=images_u8.device, dtype=torch.uint8).contiguous()
+    # The kernel reads one byte a flag, non-zero to flip: a bool mask as it is, with no
+    # conversion launched.
+    flip = flip.to(device=images_u8.device, dtype=torch.bool).contiguous()
     out = torch.empty((b, h, w, c), dtype=dtype, device=images_u8.device)
 
     lib = cuda_build.load("preprocess")

@@ -23,6 +23,8 @@ _NAMES = (
 
 # name -> (module path, class name) for the names ported so far.
 _PORTED = {
+    "GAN": ("lightning_generative_models_tpu_torch.models.gan.gan", "GAN"),
+    "DCGAN": ("lightning_generative_models_tpu_torch.models.gan.dcgan", "DCGAN"),
     "DDPM": ("lightning_generative_models_tpu_torch.models.diffusion.ddpm", "DDPM"),
     "FlowMatching": ("lightning_generative_models_tpu_torch.models.diffusion.flow_matching",
                      "FlowMatching"),

@@ -46,6 +46,17 @@ def make_adam(
                             weight_decay=weight_decay)
 
 
+def apply_grads(optimizer: torch.optim.Optimizer, params: list, grads) -> None:
+    """One ``optimizer`` step on ``params`` with ``grads`` (None: a zero gradient).
+    Contiguous, as the moments are: cuDNN hands back conv grads channels-last, and a
+    stride that differs sends Adam's foreach ops down their per-tensor path."""
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g.contiguous()
+    optimizer.step()
+    for p in params:
+        p.grad = None
+
+
 @torch.no_grad()
 def ema_update(ema: nn.Module, model: nn.Module, decay: float) -> None:
     """In place: ema <- decay * ema + (1 - decay) * model, parameter by parameter,

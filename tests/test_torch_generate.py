@@ -73,9 +73,11 @@ def test_generate_cuda_without_gpu_raises(tiny_run):
 
 def test_registry_resolves_ported_and_rejects_the_rest():
     assert registry.resolve_model_class("ddpm").__name__ == "DDPM"
+    assert registry.resolve_model_class("gan").__name__ == "GAN"
+    assert registry.resolve_model_class("DCGAN").__name__ == "DCGAN"
     assert len(registry.available_models()) == 26
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.resolve_model_class("DCGAN")
+        registry.resolve_model_class("WGAN")
     with pytest.raises(ValueError, match="Unknown model"):
         registry.resolve_model_class("NoSuchModel")
 

@@ -615,16 +615,22 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(128, 32, 32, 3), (64, 64, 64, 3), (3, 5, 7, 1)])
-def test_fused_normalize_flip_kernel_matches_plain(shape, dtype):
+@pytest.mark.parametrize("shape", [(128, 32, 32, 3), (64, 64, 64, 3), (3, 5, 7, 1),
+                                   (3, 5, 7, 2), (2, 3, 6000, 3), (4, 33, 130, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_normalize_flip_kernel_matches_plain(shape, dtype, offset):
     """Bit for bit in f32 (the same f32 product); in bf16 within one bf16 step (both
-    round the same f32 value once). prepare_batch(backend="pallas") launches it."""
+    round the same f32 value once). prepare_batch(backend="pallas") launches it. The
+    shapes take the kernel's paths: C = 1, 3 and one read at run time (2), a row wider
+    than its shared tile (6000 x 3), bands of rows (33 x 130 x 3); ``offset`` 1 passes a
+    batch that starts one image into its storage, so that its bytes start unaligned."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from lightning_generative_models_tpu_torch.ops import preprocess as TP
 
     rs = np.random.RandomState(3)
-    images = torch.tensor(rs.randint(0, 256, shape).astype(np.uint8), device="cuda")
+    images = torch.tensor(rs.randint(0, 256, (offset + shape[0], *shape[1:])).astype(np.uint8),
+                          device="cuda")[offset:]
     flip = torch.tensor(rs.rand(shape[0]) < 0.5, device="cuda")
     before = TP.fused_normalize_flip.launches
     out = TP.fused_normalize_flip(images, flip, dtype)

@@ -30,7 +30,10 @@ def flax_tree(module, flax_shapes, buffers: bool = False) -> dict:
     exactly those of ``flax_shapes`` (a tree of ``jax.ShapeDtypeStruct``)."""
     tree, shapes = {}, {}
     for path, (tensor, transform) in flax_paths(module, buffers).items():
-        value = np.ascontiguousarray(_INVERSE[transform](tensor.detach().float().numpy()))
+        # A copy: a view would alias the tensor, and a JAX array made from it would see
+        # the port's in-place updates (BatchNorm buffers, optimizer steps) whenever JAX's
+        # asynchronous dispatch reads it late.
+        value = np.array(_INVERSE[transform](tensor.detach().float().numpy()), order="C")
         node = tree
         *parents, leaf = path.split("/")
         for key in parents:
