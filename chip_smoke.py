@@ -99,7 +99,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
  25. DCGAN train images/s at bs128 bf16 (median of 3 timings of 20 steps) and five steps
      under torch.profiler (dcgan_train_profile.txt): busy share, top kernels, launches a
      step;
- 26. a JSON line of the kernels, the card's line, and the last line
+ 26. card against CPU, f32 (TF32 off), every other GAN-family config at its own widths
+     (GAN_FAMILY: WGAN-GP on CIFAR-10 and MNIST, WGAN-clip, LSGAN, R1GAN, InfoGAN, BEGAN,
+     CycleGAN, CGAN, ACGAN, SGAN), batch 8 (CycleGAN 2): three train steps each (WGAN
+     n_critic + 1) from the CPU model's state on the same batch and draws (every metric,
+     the penalties and k_t among them; each weight's gradient and update norms; every
+     BatchNorm buffer), then eval_step and sample (CycleGAN: translate);
+ 27. their entry points: train GAN_STEPS steps with a validation, a --resume of
+     GAN_RESUME_STEPS, then generate 64 samples (CGAN and ACGAN also --label 3; CycleGAN's
+     generate raises, as JAX's does, and the model translates a validation batch), every
+     kernel counter set to 0 before each config and held to 0 after: no TPU kernel runs on
+     these paths; the per-class grids of CGAN and ACGAN written;
+ 28. WGAN-GP CIFAR-10 train images/s at bs64 f32 over whole critic cycles, the D and G
+     steps timed apart, one cycle under torch.profiler (wgan_gp_train_profile.txt), a D and
+     a G step's launches and device time, and the penalty's share of a D step;
+ 29. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -206,6 +220,17 @@ DCGAN_TOL = 1e-3  # f32 DCGAN steps, card against CPU: metrics, gradients, updat
 DCGAN_BN_TOL = 1e-4  # its BatchNorm buffers, relative to 1 + |ref|
 DCGAN_STEPS = 36
 DCGAN_RESUME_STEPS = 12
+# The GAN family: every config the port trains besides DCGAN's, each at its own widths.
+GAN_FAMILY = [ROOT / "configs" / "gan" / f"{name}.json" for name in (
+    "wgan_gp_cifar10", "wgan_gp", "wgan_cp", "lsgan", "r1gan", "infogan", "began", "cyclegan",
+    "cgan", "acgan", "sgan")]
+WGAN_CONFIG = GAN_FAMILY[0]  # [28]: WGAN-GP on CIFAR-10, bs64, f32
+GAN_TOL = 1e-3  # f32 GAN-family steps, card against CPU: metrics, gradient and update norms
+GAN_BN_TOL = 1e-4  # their BatchNorm buffers (of 1 + |ref|) and samples (abs)
+GAN_NOISE_SHARE = 5e-2  # most of the stepped elements left out of the update norms as noise
+GAN_STEPS = 24  # [27]: WGAN's n_critic 5 makes 4 critic cycles
+GAN_RESUME_STEPS = 6
+GAN_SYNTHETIC = 1024  # [27]: synthetic images a config stages
 
 # Kernel #5, flash attention (b, heads, n_q, n_kv, d, operands, dtype): DiT-S/2 at bs128
 # as the flash DiT hands it over (views of the packed qkv in either layout), the UNet's
@@ -1872,19 +1897,24 @@ def gan_snapshot(torch, model) -> dict:
     return out
 
 
-def check_dcgan_card_vs_cpu(torch) -> None:
+def check_dcgan_card_vs_cpu(torch, seed: int = 23) -> None:
     """The full-width DCGAN of DCGAN_CONFIG in f32 (TF32 off) at bs8, card against CPU:
     three train steps, the card's model loaded with the CPU model's state before each
-    (weights, batch statistics, both Adams), on the same batch, flips and z. Within
-    DCGAN_TOL: every metric (of 1 + |ref|), each of D's gradients (of its norm: the D phase
-    runs before any update), and each weight's gradient norm and update norm; every
-    BatchNorm buffer within DCGAN_BN_TOL of 1 + |ref|. G's gradients are compared by their
-    norms: G's loss passes through D as the D phase left it, and Adam moves each D weight
-    by about +-lr whatever its gradient's size, so the few whose gradient is f32 noise move
-    by +-lr at random on each device, and G's gradient carries that (5e-4 of its norm at
-    step 0 here, 1e-2 in some states); an update's norm is the same for either sign. Then
-    eval_step and sample from one state. The state is deep-copied: a loaded optimizer
-    keeps the CPU's Adam step counts as they are, the same tensors."""
+    (weights, batch statistics, both Adams), on the same batch, flips and z, the card's step
+    on the CPU step's fake batch and ReLU/LeakyReLU branches (``taped_step``: an activation
+    within f32 noise of 0 that falls the other way on the card sends a gradient down the
+    other slope, where the check is of the arithmetic). Within DCGAN_TOL: every metric (of
+    1 + |ref|), each of D's gradients (of its norm: the D phase runs before any update), and
+    each weight's gradient norm and update norm; every BatchNorm buffer, and the card's fake
+    batch against the CPU's that it replays, within DCGAN_BN_TOL of 1 + |ref|. G's gradients
+    are compared by their norms: G's loss passes through D as the D phase left it, and Adam
+    moves each D weight by about +-lr whatever its gradient's size, so the few whose
+    gradient is f32 noise move by +-lr at random on each device, and G's gradient carries
+    that (5e-4 of its norm at step 0 here, 1e-2 in some states); an update's norm is the
+    same for either sign. Then eval_step and sample from one state. The state is
+    deep-copied: a loaded optimizer keeps the CPU's Adam step counts as they are, the same
+    tensors. ``seed`` draws the batch, flips and z (``scripts/gan_parity_seeds.py`` runs
+    the check over many)."""
     import copy
 
     import numpy as np
@@ -1896,7 +1926,7 @@ def check_dcgan_card_vs_cpu(torch) -> None:
     config["args"]["use_bf16"] = False
     models = {dev: load_model(config, device=dev) for dev in ("cpu", "cuda")}
     b1 = models["cpu"].betas[0]
-    rs = np.random.RandomState(23)
+    rs = np.random.RandomState(seed)
     batch = {"image": rs.randint(0, 256, (8, 32, 32, 3)).astype(np.uint8)}
 
     def rel(out, ref):
@@ -1910,7 +1940,9 @@ def check_dcgan_card_vs_cpu(torch) -> None:
         flip = torch.tensor(rs.rand(8) < 0.5)
         z = torch.tensor(rs.randn(8, config["args"]["latent_dim"]).astype(np.float32))
         before = {dev: gan_snapshot(torch, m) for dev, m in models.items()}
-        metrics = {dev: m.train_step(batch, flip=flip, z=z) for dev, m in models.items()}
+        tape = {}
+        metrics = {dev: taped_step(torch, m, batch, {"flip": flip, "z": z}, tape,
+                                   replay=dev != "cpu") for dev, m in models.items()}
         after = {dev: gan_snapshot(torch, m) for dev, m in models.items()}
         metric_err = max(rel(metrics["cuda"][k].float().cpu(), metrics["cpu"][k].float())
                          for k in metrics["cpu"])
@@ -1931,9 +1963,11 @@ def check_dcgan_card_vs_cpu(torch) -> None:
             for what, err in errs.items():
                 if not err <= worst[0]:  # NaN (no gradient on the CPU) counts as the worst
                     worst = (err, f"{key} {what}")
-        ok = metric_err <= DCGAN_TOL and bn_err <= DCGAN_BN_TOL and worst[0] <= DCGAN_TOL
+        ok = (metric_err <= DCGAN_TOL and max(bn_err, tape["fake_err"]) <= DCGAN_BN_TOL
+              and worst[0] <= DCGAN_TOL)
         print(f"  DCGAN f32 train step {step} bs8, card vs CPU: metrics {metric_err:.2e}, "
-              f"BatchNorm buffers {bn_err:.2e} (of 1 + |ref|); worst {worst[1]} {worst[0]:.2e} "
+              f"BatchNorm buffers {bn_err:.2e}, replayed fakes {tape['fake_err']:.2e} (of "
+              f"1 + |ref|); worst {worst[1]} {worst[0]:.2e} "
               f"(tol {DCGAN_TOL:.0e} / {DCGAN_BN_TOL:.0e}) {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
@@ -2080,6 +2114,503 @@ def dcgan_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict
         print(f"  per step: {out['launches_per_step']:.0f} kernel launches, "
               f"{out['busy_ms_per_step']:.2f} ms device busy, "
               f"{100 * out['busy_share']:.1f}% of the profiled wall", flush=True)
+    return out
+
+
+# -- The GAN family: [26]-[28] ---------------------------------------------------------
+
+def gan_draws(torch, model, n: int, gen) -> dict:
+    """One train step's explicit draws for ``model`` (the CPU one), from the CPU
+    generator ``gen``: the flips, z (InfoGAN: its codes), WGAN's alpha, ACGAN's gen_labels
+    and CGAN's three dropout keep-masks."""
+    name = type(model).__name__
+    if name == "CycleGAN":
+        return {"flip_a": torch.rand(n, generator=gen) < 0.5,
+                "flip_b": torch.rand(n, generator=gen) < 0.5}
+    draws = {"flip": torch.rand(n, generator=gen) < 0.5}
+    if name == "InfoGAN":
+        draws["codes"] = model.generate_codes(gen, n)
+        return draws
+    draws["z"] = model.sample_z(gen, n)
+    if name == "WGAN":
+        draws["alpha"] = torch.rand(n, 1, 1, 1, generator=gen)
+    if name == "ACGAN":
+        draws["gen_labels"] = model.sample_labels(gen, n)
+    if name == "CGAN":
+        draws["keep"] = model.dropout_masks(gen, n)
+    return draws
+
+
+def gan_batch(model, n: int, rs) -> dict:
+    """A uint8 batch at the model's size with labels (CycleGAN: image_A and image_B)."""
+    shape = (n, model.img_size, model.img_size, model.img_channels)
+    if type(model).__name__ == "CycleGAN":
+        return {k: rs.randint(0, 256, shape).astype("uint8") for k in ("image_A", "image_B")}
+    return {"image": rs.randint(0, 256, shape).astype("uint8"), "label": rs.randint(0, 10, n)}
+
+
+def no_bf16(cfg: dict) -> dict:
+    """``cfg`` (a model section) with use_bf16 off where the model takes it."""
+    import inspect
+
+    from lightning_generative_models_tpu_torch.registry import resolve_model_class
+
+    if "use_bf16" in inspect.signature(resolve_model_class(cfg["name"]).__init__).parameters:
+        cfg["args"]["use_bf16"] = False
+    return cfg
+
+
+def f32_generator(torch, model) -> None:
+    """Run the generator that ACGAN, SGAN and InfoGAN build with DCGAN's bf16
+    ConvGenerator in f32 (every layer reads its ``dtype`` at call time)."""
+    for m in model.G.modules() if hasattr(model, "G") else ():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float32
+
+
+def capture_grads(model) -> dict:
+    """{optimizer name: its gradients at its last step, on the CPU}, filled as the model's
+    optimizers step (each ``step`` wrapped on the instance)."""
+    grads = {}
+    for name, opt in model.optimizers.items():
+        def step(*args, _name=name, _opt=opt, _step=opt.step, **kwargs):
+            grads[_name] = [p.grad.detach().float().cpu().clone()
+                            for p in _opt.param_groups[0]["params"]]
+            return _step(*args, **kwargs)
+        opt.step = step
+    return grads
+
+
+def taped_step(torch, model, batch: dict, draws: dict, tape: dict, replay: bool) -> dict:
+    """One train step that records (``replay`` False) or replays (True) into ``tape``
+    the value of every generator call, the branch every ReLU and LeakyReLU input takes
+    (> 0 or not) and the sign of every ``torch.abs`` input (BEGAN's and CycleGAN's L1
+    losses), in call order. The card's step replays the CPU's: a fake batch that the two
+    compute apart by f32 noise, or an activation or L1 residual within that noise of 0,
+    would otherwise send D's or G's gradient down another slope (a G gradient moved by
+    1.9e-3 in R1GAN's step, a BEGAN decoder bias's by 3.7e-3) where the check is of the
+    arithmetic. The values are the CPU's, the gradients the card's own; ``tape["fake_err"]``
+    keeps the largest max |CPU's - card's| / (1 + |card's|) over the replayed generator
+    calls made before the step's first optimizer update. A call after it (InfoGAN's Q phase) runs on weights that Adam moved
+    apart on the two devices where f32 noise dominates a gradient element, so its output is
+    held instead to the CPU's forward of a copy of the card's generator on the same inputs
+    and branches: ``tape["updated_fake_err"]`` keeps the largest such distance."""
+    import copy
+
+    F = torch.nn.functional
+    relu, leaky_relu, abs_ = F.relu, F.leaky_relu, torch.abs
+    outs, masks = tape.setdefault("outputs", []), tape.setdefault("masks", [])
+    used = {"outputs": 0, "masks": 0}
+    updated, starts = [], []
+    steps = {name: opt.step for name, opt in model.optimizers.items()}
+
+    def noted(step):
+        def wrapped(*args, **kwargs):
+            updated.append(True)
+            return step(*args, **kwargs)
+        return wrapped
+
+    def branch(x, low):
+        if replay:
+            mask = masks[used["masks"]].to(x.device)
+            used["masks"] += 1
+            return torch.where(mask, x, low)
+        masks.append((x > 0).detach().cpu())
+        return None
+
+    def taped_relu(x, inplace=False):
+        out = branch(x, torch.zeros_like(x))
+        return relu(x) if out is None else out
+
+    def taped_leaky_relu(x, negative_slope=0.01, inplace=False):
+        out = branch(x, x * negative_slope)
+        return leaky_relu(x, negative_slope) if out is None else out
+
+    def taped_abs(x):
+        if replay:
+            sign = masks[used["masks"]].to(x.device, x.dtype)
+            used["masks"] += 1
+            return x * sign
+        masks.append(torch.sign(x).detach().cpu())
+        return abs_(x)
+
+    def pre_hook(module, args):
+        starts.append(used["masks"])
+
+    def cpu_forward(module, args):
+        """The CPU's forward of a copy of the card's ``module``, on the branches and signs
+        that the card's call took."""
+        end, used["masks"] = used["masks"], starts[-1]
+        clone = copy.deepcopy(module).cpu()
+        clone._forward_hooks.clear()
+        clone._forward_pre_hooks.clear()
+        with torch.no_grad():
+            same = clone(*[a.detach().cpu() if torch.is_tensor(a) else a for a in args])
+        if used["masks"] != end:
+            fail(f"the CPU's copy of a generator took {used['masks'] - starts[-1]} masks, "
+                 f"the card's call {end - starts[-1]}")
+        return same
+
+    def hook(module, args, out):
+        if not replay:
+            outs.append(out.detach().cpu())
+            return None
+        ref = outs[used["outputs"]].to(out.device, out.dtype)
+        used["outputs"] += 1
+        same = cpu_forward(module, args).to(out.device, out.dtype) if updated else ref
+        err = ((same - out).abs() / (1 + out.abs())).max().item()
+        key = "updated_fake_err" if updated else "fake_err"
+        tape[key] = max(tape.get(key, 0.0), err)
+        return out + (ref - out).detach()
+
+    gens = [model.G] if hasattr(model, "G") else [model.G_AB, model.G_BA]
+    handles = [g.register_forward_hook(hook) for g in gens]
+    if replay:
+        handles += [g.register_forward_pre_hook(pre_hook) for g in gens]
+    F.relu, F.leaky_relu, torch.abs = taped_relu, taped_leaky_relu, taped_abs
+    for name, opt in model.optimizers.items():
+        opt.step = noted(steps[name])
+    try:
+        metrics = model.train_step(batch, **draws)
+    finally:
+        F.relu, F.leaky_relu, torch.abs = relu, leaky_relu, abs_
+        for name, opt in model.optimizers.items():
+            opt.step = steps[name]
+        for h in handles:
+            h.remove()
+    if replay and (used["outputs"], used["masks"]) != (len(outs), len(masks)):
+        fail(f"the card's step replayed {used} of {len(outs)} outputs and {len(masks)} masks")
+    return metrics
+
+
+def gan_state(torch, model) -> dict:
+    """{"net/name": a CPU copy} of every weight and buffer of the model's nets."""
+    return {f"{k}/{n}": t.detach().float().cpu().clone() for k, net in model.nets().items()
+            for n, t in list(net.named_parameters()) + list(net.named_buffers())}
+
+
+def check_gan_family_card_vs_cpu(torch, seed: int = 26) -> None:
+    """Every GAN-family config of GAN_FAMILY at its own widths, f32 (TF32 off), batch 8
+    (CycleGAN 2), card against CPU: three train steps (WGAN n_critic + 1, a G step among
+    them), the card's model loaded with the CPU model's state before each, on the same
+    batch and draws, the card's step on the CPU step's fakes and branches
+    (``taped_step``). Within GAN_TOL: every metric (of 1 + |ref|; the penalties and k_t among
+    them), each weight's gradient norm (from what each optimizer stepped with, "Q" too) and
+    update norm, leaving out the weights whose CPU gradient is f32 noise (a norm below 1e-5
+    of the optimizer's largest: a bias that a norm cancels) and, from the update norms, the
+    elements whose two gradients differ by more than GAN_TOL of the CPU's: f32 noise
+    dominates them (WGAN's last BatchNorm bias, whose gradient is exactly 0 where the real
+    and fake batches take the same LeakyReLU branches; CGAN's one-element output bias,
+    whose gradient sums 8 x 28 x 28 terms), and Adam moves them by as much as a weight with
+    a real gradient; at most GAN_NOISE_SHARE of the stepped elements, and their share is
+    printed); within GAN_BN_TOL of 1 + |ref|: every BatchNorm buffer, and the card's
+    generator outputs against the CPU's that its step replays (those on weights the step
+    has updated against the CPU's forward of the card's weights: ``taped_step``). Then
+    eval_step on the same draws and sample (CycleGAN: translate both ways) within GAN_TOL
+    and GAN_BN_TOL. ``seed`` draws the batches and draws (``scripts/gan_parity_seeds.py``
+    runs the check over many)."""
+    import copy
+
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    def rel(out, ref):
+        return ((out - ref).abs() / (1 + ref.abs())).max().item()
+
+    def rel_norm(out, ref):
+        return abs(out - ref) / ref if ref > 0 else float(out != ref)
+
+    for path in GAN_FAMILY:
+        cfg = no_bf16(load_config(path)["model"])
+        models = {d: load_model(cfg, device=d) for d in ("cpu", "cuda")}
+        for m in models.values():
+            f32_generator(torch, m)
+        cpu = models["cpu"]
+        name = type(cpu).__name__
+        n = 2 if name == "CycleGAN" else 8
+        steps = cpu.n_critic + 1 if name == "WGAN" else 3
+        rs = np.random.RandomState(seed)
+        gen = torch.Generator().manual_seed(seed)
+        batch = gan_batch(cpu, n, rs)
+        names = {id(p): f"{k}/{pn}" for k, net in cpu.nets().items()
+                 for pn, p in net.named_parameters()}
+        worst = {"metrics": 0.0, "buffers": 0.0, "fakes": 0.0, "updated_fakes": 0.0,
+                 "norms": (0.0, "")}
+        left_out = [0, 0]  # elements left out of the update norms as noise, of all stepped
+        t0 = time.perf_counter()
+        grads = {d: capture_grads(m) for d, m in models.items()}
+        for _ in range(steps):
+            models["cuda"].load_state_dict(copy.deepcopy(cpu.state_dict()))
+            draws = gan_draws(torch, cpu, n, gen)
+            for g in grads.values():
+                g.clear()
+            before = {d: gan_state(torch, m) for d, m in models.items()}
+            tape = {}
+            metrics = {d: taped_step(torch, m, batch, draws, tape, replay=d != "cpu")
+                       for d, m in models.items()}
+            after = {d: gan_state(torch, m) for d, m in models.items()}
+            worst["fakes"] = max(worst["fakes"], tape["fake_err"])
+            worst["updated_fakes"] = max(worst["updated_fakes"],
+                                         tape.get("updated_fake_err", 0.0))
+            worst["metrics"] = max(worst["metrics"], max(
+                rel(metrics["cuda"][k].float().cpu(), metrics["cpu"][k].float())
+                for k in metrics["cpu"]))
+            noise, signal = set(), {}
+            for opt_name, ref in grads["cpu"].items():
+                params = cpu.optimizers[opt_name].param_groups[0]["params"]
+                top = max(float(g.norm()) for g in ref)
+                for p, g_ref, g_out in zip(params, ref, grads["cuda"][opt_name]):
+                    kept = (g_out - g_ref).abs() <= GAN_TOL * g_ref.abs()
+                    key = names[id(p)]
+                    signal[key] = signal[key] & kept if key in signal else kept
+                    if float(g_ref.norm()) < 1e-5 * top:
+                        noise.add(key)
+                        continue
+                    err = rel_norm(float(g_out.norm()), float(g_ref.norm()))
+                    if not err <= worst["norms"][0]:
+                        worst["norms"] = (err, f"{key} gradient ({opt_name})")
+            for key, ref in after["cpu"].items():
+                if key.endswith((".mean", ".var")):
+                    worst["buffers"] = max(worst["buffers"], rel(after["cuda"][key], ref))
+                elif key not in noise and key in names.values():
+                    kept = signal.get(key, torch.ones(ref.shape, dtype=torch.bool))
+                    if key in signal:
+                        left_out[0] += int((~kept).sum())
+                        left_out[1] += kept.numel()
+                    d_ref = float((ref - before["cpu"][key])[kept].norm())
+                    err = rel_norm(float((after["cuda"][key]
+                                          - before["cuda"][key])[kept].norm()), d_ref)
+                    if not err <= worst["norms"][0]:
+                        worst["norms"] = (err, f"{key} update")
+        models["cuda"].load_state_dict(copy.deepcopy(cpu.state_dict()))
+        draws = gan_draws(torch, cpu, n, gen)
+        if name == "CycleGAN":
+            evals = {d: m.eval_step(batch) for d, m in models.items()}
+            images = torch.rand(n, cpu.img_size, cpu.img_size, cpu.img_channels, generator=gen)
+            outs = {d: torch.cat([m.translate(images, "AB"), m.translate(images, "BA")])
+                    for d, m in models.items()}
+        else:
+            code = {"codes": draws["codes"]} if name == "InfoGAN" else {"z": draws["z"]}
+            evals = {d: m.eval_step(batch, **code) for d, m in models.items()}
+            outs = {d: m.sample(None, n, **code) for d, m in models.items()}
+        eval_err = max(rel(evals["cuda"][k].float().cpu(), evals["cpu"][k].float())
+                       for k in evals["cpu"])
+        img_err = (outs["cuda"].float().cpu() - outs["cpu"].float()).abs().max().item()
+        ok = (max(worst["metrics"], worst["norms"][0], eval_err) <= GAN_TOL
+              and max(worst["buffers"], worst["fakes"], worst["updated_fakes"], img_err)
+              <= GAN_BN_TOL and left_out[0] <= GAN_NOISE_SHARE * left_out[1])
+        print(f"  {path.name} ({name}) f32 {steps} steps bs{n}, card vs CPU: metrics "
+              f"{worst['metrics']:.2e}, BatchNorm buffers {worst['buffers']:.2e}, replayed "
+              f"fakes {worst['fakes']:.2e} (on updated weights, against the CPU on the "
+              f"card's weights {worst['updated_fakes']:.2e}); worst "
+              f"{worst['norms'][1]} norm {worst['norms'][0]:.2e} ({left_out[0]} of "
+              f"{left_out[1]} stepped elements left out as noise); eval {eval_err:.2e}, "
+              f"{'translate' if name == 'CycleGAN' else 'sample'} max_abs_err {img_err:.2e} "
+              f"(tol {GAN_TOL:.0e} / {GAN_BN_TOL:.0e}) in {time.perf_counter() - t0:.1f} s "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{path.name}: card and CPU disagree")
+
+
+def derive_gan_configs() -> list:
+    """Each GAN_FAMILY config as chiprun_out/chip_smoke/gan/<name>.json, its model section
+    as it is and its synthetic data cut to GAN_SYNTHETIC images (CelebA's 5,120 synthetic
+    178-px images take 12 s to stage)."""
+    out = []
+    (OUT_DIR / "gan").mkdir(parents=True, exist_ok=True)
+    for path in GAN_FAMILY:
+        config = json.loads(path.read_text())
+        config["dataset"]["synthetic_size"] = GAN_SYNTHETIC
+        derived = OUT_DIR / "gan" / path.name
+        derived.write_text(json.dumps(config, indent=2))
+        out.append(derived)
+    return out
+
+
+def gan_family_entry_points(torch, card: str) -> tuple:
+    """For every derived GAN-family config: the train entry point for GAN_STEPS steps with
+    a validation at the end, a --resume of GAN_RESUME_STEPS, then generate 64 samples (CGAN
+    and ACGAN: also --label 3; CycleGAN: generate raises NotImplementedError, as JAX's
+    generate.py does, and the model translates a validation batch both ways from the last
+    checkpoint). Every count of PATH_COUNTERS is set to 0 before each config's runs and
+    must read 0 after them; the losses and val_g_loss finite; CGAN's and ACGAN's per-class
+    grids written at each validation; the images finite in [0, 1]. Returns the walls and
+    each counter's reads summed over the configs."""
+    import math
+
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch import generate, train
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import PairedDataModule
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
+    from lightning_generative_models_tpu_torch.utils.grid import make_grid
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+    from lightning_generative_models_tpu_torch.experiment.logger import _write_png
+
+    walls, launches = {}, dict.fromkeys(PATH_COUNTERS, 0)
+    for path in derive_gan_configs():
+        config = load_config(path)
+        name = config["model"]["name"]
+        run = f"chip_smoke_{path.stem}"
+        run_dir = EXPERIMENT_DIR / name / run
+        shutil.rmtree(run_dir, ignore_errors=True)
+        argv = ["--config_path", str(path), "--device", "cuda", "--experiment_name", run,
+                "--check_val_every_n_epoch", "1000", "--sample_every_n_steps", "0"]
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        total = GAN_STEPS + GAN_RESUME_STEPS
+        for n, extra in ((GAN_STEPS, []), (total, ["--resume"])):
+            model = train.main(argv + ["--max_steps", str(n)] + extra)
+            if model.step != n:
+                fail(f"{path.name}: the run ended at step {model.step}, not {n}")
+        records = read_metrics(run_dir)
+        losses = [v for r in records for k, v in r.items()
+                  if k.startswith(("train_", "val_")) and k.endswith("loss")]
+        val = [r["val_g_loss"] for r in records if "val_g_loss" in r]
+        if not losses or not all(math.isfinite(v) for v in losses):
+            fail(f"{path.name}: a logged loss is not finite")
+        if len(val) != 2 or not all(math.isfinite(v) for v in val):
+            fail(f"{path.name}: expected one finite val_g_loss per run, got {val}")
+        grids = sorted(p.name for p in (run_dir / "samples").glob("*.png")) \
+            if (run_dir / "samples").exists() else []
+        if name in ("CGAN", "ACGAN") and \
+                sum(g.startswith("per_class_generation") for g in grids) != 2:
+            fail(f"{path.name}: expected a per-class grid per validation, found {grids}")
+        out_dir = OUT_DIR / "gan" / path.stem
+        gen_argv = ["--config_path", str(path), "--num_samples", "64", "--device", "cuda",
+                    "--seed", "0", "--out", str(out_dir)]
+        if name == "CycleGAN":
+            try:
+                generate.main(gen_argv)
+            except NotImplementedError:
+                pass
+            else:
+                fail("CycleGAN generate did not raise NotImplementedError")
+            model = load_model(config["model"], device="cuda")
+            CheckpointManager(run_dir / "checkpoints").restore(model)
+            data = PairedDataModule(**config["dataset"])
+            val_batch = next(data.val_batches())
+            images01 = {k: torch.as_tensor(v).float() / 255.0 for k, v in val_batch.items()}
+            images = torch.cat([model.translate(images01["image_A"], "AB"),
+                                model.translate(images01["image_B"], "BA")]).float().cpu().numpy()
+            out_dir.mkdir(parents=True, exist_ok=True)
+            _write_png(out_dir / "translate.png", make_grid(images))
+        else:
+            images = generate.main(gen_argv)
+            if name in ("CGAN", "ACGAN"):
+                labelled = generate.main(gen_argv + ["--label", "3"])
+                images = np.concatenate([images, labelled])
+        torch.cuda.synchronize()
+        walls[path.stem] = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"  {path.name} ({name}): train {GAN_STEPS} + resume to {total} steps, "
+              f"{'translate' if name == 'CycleGAN' else 'generate'} {len(images)} images in "
+              f"{walls[path.stem]:.1f} s on {card}; val_g_loss {[round(v, 4) for v in val]}; "
+              f"grids {len(grids)}; kernel launches {sum(counts.values())} (expected 0)",
+              flush=True)
+        if any(counts.values()):
+            fail(f"{path.name}: the GAN-family path launched a kernel: {counts}")
+        if not (np.isfinite(images).all() and images.min() >= 0.0 and images.max() <= 1.0):
+            fail(f"{path.name}: images are not finite values in [0, 1]")
+    return walls, launches
+
+
+def wgan_breakdown(torch, card: str, cycles: int = 4, repeats: int = 3) -> dict:
+    """WGAN-GP on CIFAR-10 (WGAN_CONFIG: bs64, f32, n_critic 5, the DCGAN nets at 32 px):
+    images/s over whole critic cycles (n_critic D steps and one G step; median of
+    ``repeats`` timings of ``cycles`` cycles after one cycle of warm-up), the D and G steps
+    timed apart (host clock to a synchronize, median over the steps of one timing), then
+    one cycle under torch.profiler (busy share, top kernels), a D step and a G step under
+    it alone (launches and device time each), and a D step with the penalty taken out
+    (its share of the D step's device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    config = load_config(WGAN_CONFIG)
+    bs = config["dataset"]["batch_size"]
+    model = load_model(config["model"], device="cuda")
+    period = model.n_critic + 1
+    it = DataModule(**config["dataset"]).train_batches(0)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()} for _ in range(4)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step_walls = {"D": [], "G": []}
+
+    def run(n_steps, per_step=False):
+        for i in range(n_steps):
+            kind = "D" if model.is_d_step() else "G"
+            t0 = time.perf_counter()
+            model.train_step(batches[i % len(batches)], gen)
+            if per_step:
+                torch.cuda.synchronize()
+                step_walls[kind].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+
+    run(period)  # warm-up: cuDNN plans, the allocator; the counter is at a cycle's start
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run(cycles * period)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    ips = cycles * period * bs / wall
+    run(cycles * period, per_step=True)
+    d_ms, g_ms = (1e3 * statistics.median(step_walls[k]) for k in ("D", "G"))
+    print(f"  WGAN-GP CIFAR-10 train bs{bs} f32: {1e3 * wall / cycles:.3f} ms per critic cycle "
+          f"({model.n_critic} D + 1 G), median of {[round(w, 4) for w in walls]} s per "
+          f"{cycles} cycles, {ips:.1f} images/s; a D step {d_ms:.3f} ms, a G step {g_ms:.3f} "
+          f"ms (each synchronized, median of {len(step_walls['D'])} and "
+          f"{len(step_walls['G'])}) on {card}", flush=True)
+    out = {"images_per_s": ips, "ms_per_cycle": 1e3 * wall / cycles, "d_step_ms": d_ms,
+           "g_step_ms": g_ms}
+
+    def profiled(n_steps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(n_steps)
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        return prof, wall_us
+
+    prof, wall_us = profiled(period)
+    summary = profile_summary(torch, prof, wall_us, f"one WGAN-GP critic cycle bs{bs}",
+                              "wgan_gp_train_profile.txt", card)
+    if summary:
+        out["busy_share"] = summary["busy_us"] / summary["wall_us"]
+        out["busy_ms_per_cycle"] = summary["busy_us"] / 1e3
+    for kind in ("D", "G"):
+        while model.is_d_step() != (kind == "D"):
+            run(1)
+        prof, wall_us = profiled(1)
+        events = exclusive_kernel_us(torch, prof)
+        out[f"{kind.lower()}_step_launches"] = sum(c for _, c in events.values())
+        out[f"{kind.lower()}_step_busy_ms"] = sum(us for us, _ in events.values()) / 1e3
+    while not model.is_d_step():
+        run(1)
+    model.gradient_penalty = lambda x, x_hat, alpha: torch.zeros((), device=x.device)
+    try:
+        prof, _ = profiled(1)
+    finally:
+        del model.gradient_penalty  # the class's method again
+    events = exclusive_kernel_us(torch, prof)
+    no_gp_ms = sum(us for us, _ in events.values()) / 1e3
+    if not out["d_step_busy_ms"]:
+        print("  profiler: no device time recorded; launches and shares not measured")
+        return out
+    out["penalty_share_of_d_step"] = 1 - no_gp_ms / out["d_step_busy_ms"]
+    print(f"  a D step: {out['d_step_launches']} kernel launches, {out['d_step_busy_ms']:.3f} "
+          f"ms device busy ({no_gp_ms:.3f} ms with the penalty taken out: the penalty's "
+          f"forward and double backward are {100 * out['penalty_share_of_d_step']:.1f}% of "
+          f"it); a G step: {out['g_step_launches']} launches, {out['g_step_busy_ms']:.3f} ms "
+          f"device busy", flush=True)
     return out
 
 
@@ -2231,6 +2762,17 @@ def main() -> None:
 
     print("[25] DCGAN train throughput and where the time goes", flush=True)
     dcgan_stats = dcgan_breakdown(torch, card)
+    print(f"  phases 1-25 took {time.perf_counter() - started:.1f} s", flush=True)
+
+    print("[26] the GAN family at its configs' widths, card against CPU, f32", flush=True)
+    check_gan_family_card_vs_cpu(torch)
+
+    print(f"[27] GAN-family entry points: train {GAN_STEPS} steps, resume to "
+          f"{GAN_STEPS + GAN_RESUME_STEPS}, generate (CycleGAN: translate)", flush=True)
+    gan_walls, gan_counts = gan_family_entry_points(torch, card)
+
+    print("[28] WGAN-GP CIFAR-10 train throughput and where the time goes", flush=True)
+    wgan_stats = wgan_breakdown(torch, card)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
 
     kernels = [{
@@ -2377,6 +2919,7 @@ def main() -> None:
                              "fm_flash_train": fm_counts["train"]["fused_normalize_flip"],
                              "dit_train": dit_counts["train"]["fused_normalize_flip"],
                              "dcgan_train": dcgan_counts["train"]["fused_normalize_flip"],
+                             "gan_family": gan_counts["fused_normalize_flip"],
                              "train": train_counts["train"]["preprocess"]},
         "max_abs_err": pre_stats["max_abs_err"],
         "ms": pre_stats["ms"],
@@ -2392,7 +2935,9 @@ def main() -> None:
         "shapes": pre_stats["shapes"],
     }]
     print(json.dumps({"train": train_stats, "vq_train": vq_train_stats, "dit": dit_stats,
-                      "fm_dit_flash": fm_stats, "dcgan": dcgan_stats}))
+                      "fm_dit_flash": fm_stats, "dcgan": dcgan_stats, "wgan_gp": wgan_stats,
+                      "gan_family_entry_point_walls_s": gan_walls,
+                      "gan_family_launches": gan_counts}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,14 @@
 Counterpart of ``lightning_generative_models_tpu/data/datamodule.py``, with the same
 seeded train/val split, the same seeded per-epoch order and the same batches: uint8
 numpy arrays, scaled and flipped on the device by ``ops/preprocess.py``. The one-time
-crop and resize take the numpy path only (the JAX package's native C++ loader comes
-with the preprocess kernel's slice), and the paired two-domain module waits for
-CycleGAN.
+crop and resize take the numpy path only (the JAX package's native C++ loader is not
+ported). ``PairedDataModule`` gives CycleGAN its two-domain batches.
 """
 
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -166,3 +166,67 @@ class DataModule:
     def test_batches(self) -> Iterator[Batch]:
         self.setup()
         return self._batches(self.test_images, self.test_labels, False, 0)
+
+
+class PairedDataModule(DataModule):
+    """Two-domain batches for unpaired translation (CycleGAN), as the JAX package's
+    ``PairedDataModule``: the ``<data_dir>/<name>/trainA`` and ``trainB`` image folders
+    when both are there, otherwise two synthetic domains, the synthetic CIFAR-10's images
+    of the lower and the upper half of its labels. Nothing is downloaded. Batches carry
+    ``image_A`` and ``image_B``; the first ``train_val_split`` of the shorter domain's
+    length trains, the rest validates, each domain in its own seeded order per epoch."""
+
+    def sanity_check(self) -> None:  # any channel count is valid for a domain
+        pass
+
+    def setup(self) -> None:
+        if self._is_setup:
+            return
+        root = Path(self.data_dir) / self.name
+        size3 = (self.img_size, self.img_size, self.img_channels)
+        domain_a = domain_b = None
+        if root.exists():
+            domain_a = ds._load_image_folder(root / "trainA", True, size3)
+            domain_b = ds._load_image_folder(root / "trainB", True, size3)
+        self.is_synthetic = domain_a is None or domain_b is None
+        if self.is_synthetic:
+            images, labels = ds.synthetic_dataset(
+                "CIFAR10", True, num_samples=self.synthetic_size or 1024)
+            half = max(labels.max() // 2, 1)
+            domain_a = (images[labels < half], labels[labels < half])
+            domain_b = (images[labels >= half], labels[labels >= half])
+        self.images_a = _prep_images(domain_a[0], self.img_size)
+        self.images_b = _prep_images(domain_b[0], self.img_size)
+        n = min(len(self.images_a), len(self.images_b))
+        self._n_train, self._n_total = int(n * self.train_val_split), n
+        self._is_setup = True
+        logger.info("PairedDataModule %s: A=%d B=%d train=%d val=%d img=%dx%dx%d "
+                    "synthetic=%s", self.name, len(self.images_a), len(self.images_b),
+                    self._n_train, n - self._n_train, self.img_size, self.img_size,
+                    self.img_channels, self.is_synthetic)
+
+    def steps_per_epoch(self, split: str = "train") -> int:
+        self.setup()
+        n = self._n_train if split == "train" else self._n_total - self._n_train
+        return max(n // self.batch_size, 1)
+
+    def _paired(self, lo: int, hi: int, shuffle: bool, epoch: int) -> Iterator[Batch]:
+        n = hi - lo
+        bs = min(self.batch_size, n)
+        rs = np.random.RandomState(self.seed + 2000 + epoch)
+        order_a = rs.permutation(n) + lo if shuffle else np.arange(lo, hi)
+        order_b = rs.permutation(n) + lo if shuffle else np.arange(lo, hi)
+        for start in range(0, n - bs + 1, bs):
+            yield {"image_A": self.images_a[order_a[start:start + bs]],
+                   "image_B": self.images_b[order_b[start:start + bs]]}
+
+    def train_batches(self, epoch: int = 0) -> Iterator[Batch]:
+        self.setup()
+        return self._paired(0, self._n_train, True, epoch)
+
+    def val_batches(self) -> Iterator[Batch]:
+        self.setup()
+        return self._paired(self._n_train, self._n_total, False, 0)
+
+    def test_batches(self) -> Iterator[Batch]:
+        return self.val_batches()

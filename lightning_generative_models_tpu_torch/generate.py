@@ -7,8 +7,10 @@ read by the model's ``load_flax_weights`` (a DDPM or FlowMatching: the flax tree
 ``state.ema_params`` alone; a VQ-VAE or VQGAN: the whole flattened ``TrainState``), or,
 without it, are drawn from ``--seed``. A JAX run's orbax checkpoint reaches the port as
 an ``.npz`` written where JAX runs (README, "Continuing a JAX run in the port").
-``--sampler``, ``--sampling_steps`` and ``--label`` are refused for models whose
-sampling does not take them, as the JAX ``generate.py`` refuses them; a diffusion model
+``--sampler``, ``--sampling_steps``, ``--label`` and ``--guidance_scale`` are refused for
+models whose sampling does not take them, as the JAX ``generate.py`` refuses them (a CGAN
+or ACGAN takes ``--label``; CycleGAN, which translates, raises ``NotImplementedError`` as
+its ``sample`` does); a diffusion model
 refuses the flow solvers' names and a flow model the diffusion samplers', with the JAX
 package's messages.
 
@@ -45,7 +47,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "weights from --seed)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--label", type=int, default=None,
-                        help="class label for a conditional DDPM")
+                        help="class label for a conditional model (CGAN, ACGAN, a "
+                        "conditional DDPM)")
     parser.add_argument("--guidance_scale", type=float, default=None,
                         help="classifier-free guidance scale for --label (default: the "
                         "model config's guidance_scale)")
@@ -96,8 +99,11 @@ def main(argv=None) -> np.ndarray:
                   "steps": args.sampling_steps or None}
     if args.label is not None:
         labels = torch.full((args.num_samples,), args.label, dtype=torch.long)
-        images = model.sample_classes(generator, labels, guidance_scale=args.guidance_scale,
-                                      **kwargs)
+        if args.guidance_scale is not None:
+            if "guidance_scale" not in inspect.signature(model.sample_classes).parameters:
+                raise SystemExit(f"{name} does not support --guidance_scale")
+            kwargs["guidance_scale"] = args.guidance_scale
+        images = model.sample_classes(generator, labels, **kwargs)
     else:
         images = model.sample(generator, args.num_samples, **kwargs)
     images = images.float().cpu().numpy()

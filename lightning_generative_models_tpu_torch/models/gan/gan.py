@@ -85,10 +85,67 @@ class MLPDiscriminator(nn.Module):
         return self.Dense_2(h)[:, 0]
 
 
-class GAN(GenerativeModel):
-    monitor = "val_g_loss"  # GANs log no val_loss
-    supports_grad_accum = False  # two optimizers stepped in turn
+class AdversarialModel(GenerativeModel):
+    """What the adversarial models share: named nets (``nets()``) drawn in turn by
+    ``init_params``, an optimizer per phase (``_build_optimizers``), one optimizer step
+    per phase, and a checkpoint of every net and optimizer. Subclasses set ``device``,
+    ``lr``, ``betas`` and ``weight_decay`` and build their nets before ``init_params``."""
 
+    monitor = "val_g_loss"  # GANs log no val_loss
+    supports_grad_accum = False  # optimizers stepped in turn
+
+    def nets(self) -> Dict[str, nn.Module]:
+        """{name: module}: the checkpoint's names of the nets, in drawing order."""
+        raise NotImplementedError
+
+    def _build_optimizers(self) -> Dict[str, torch.optim.Optimizer]:
+        """One Adam a net, with the model's settings."""
+        return {name: make_adam(list(net.parameters()), self.lr, *self.betas,
+                                weight_decay=self.weight_decay)
+                for name, net in self.nets().items()}
+
+    def init_params(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw each net's weights in turn from the CPU ``generator`` (seed 0 when
+        omitted), reset the batch statistics, and start the optimizers fresh at step 0."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for net in self.nets().values():
+            init_params(net, generator)
+            net.to(self.device)
+        self.optimizers = self._build_optimizers()
+        self.step = 0
+
+    def param_counts(self) -> Dict[str, int]:
+        return {name: count_params(net) for name, net in self.nets().items()}
+
+    def load_flax_weights(self, tree) -> None:
+        """``generate --weights``: a flattened JAX ``TrainState`` (its ``params`` and the
+        batch statistics in ``mutable``; the optimizers' states are not read)."""
+        load_flax_train_state(self, tree, optimizers=False)
+
+    def _optimize(self, name: str, loss: torch.Tensor, *nets: nn.Module) -> None:
+        """One step of optimizer ``name`` on the weights of ``nets`` down ``loss``'s
+        gradient (a weight that ``loss`` does not reach gets a zero gradient, as under
+        jax.grad)."""
+        params = [p for net in nets for p in net.parameters()]
+        apply_grads(self.optimizers[name], params,
+                    torch.autograd.grad(loss, params, allow_unused=True))
+
+    def state_dict(self) -> dict:
+        """Each net's weights and batch statistics, each optimizer's state, the step."""
+        return {**{name: net.state_dict() for name, net in self.nets().items()},
+                **{f"optimizer_{name}": opt.state_dict()
+                   for name, opt in self.optimizers.items()}, "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        for name, net in self.nets().items():
+            net.load_state_dict(state[name])
+        for name, opt in self.optimizers.items():
+            opt.load_state_dict(state[f"optimizer_{name}"])
+        self.step = int(state["step"])
+
+
+class GAN(AdversarialModel):
     def __init__(
         self,
         img_channels: int = 1,
@@ -122,31 +179,15 @@ class GAN(GenerativeModel):
         self.G, self.D = self._build_networks()
         self.init_params()
 
+    def nets(self) -> Dict[str, nn.Module]:
+        return {"G": self.G, "D": self.D}
+
     def _build_networks(self) -> Tuple[nn.Module, nn.Module]:
         shape = self.image_shape()
         return MLPGenerator(self.latent_dim, shape), MLPDiscriminator(int(np.prod(shape)))
 
-    # -- parameters ----------------------------------------------------------------
-    def init_params(self, generator: Optional[torch.Generator] = None) -> None:
-        """Draw G's weights, then D's, from the CPU ``generator`` (seed 0 when omitted),
-        reset the batch statistics, and start both optimizers fresh at step 0."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for net in (self.G, self.D):
-            init_params(net, generator)
-            net.to(self.device)
-        self.optimizers = {
-            name: make_adam(list(net.parameters()), self.lr, *self.betas,
-                            weight_decay=self.weight_decay)
-            for name, net in (("D", self.D), ("G", self.G))
-        }
-        self.step = 0
-
-    def param_counts(self) -> Dict[str, int]:
-        return {"G": count_params(self.G), "D": count_params(self.D)}
-
     def flax_layout(self) -> dict:
-        nets = {"G": self.G, "D": self.D}
+        nets = self.nets()
         return {
             "params": {f"params/{k}": net for k, net in nets.items()},
             "buffers": {f"mutable/{k}/batch_stats": net for k, net in nets.items()
@@ -154,11 +195,6 @@ class GAN(GenerativeModel):
             "adam": {f"opt_state/{k}": (self.optimizers[k], {"": net})
                      for k, net in nets.items()},
         }
-
-    def load_flax_weights(self, tree) -> None:
-        """``generate --weights``: a flattened JAX ``TrainState`` (its ``params`` and the
-        batch statistics in ``mutable``; the optimizers' states are not read)."""
-        load_flax_train_state(self, tree, optimizers=False)
 
     # -- forward -------------------------------------------------------------------
     def _x(self, batch: Dict, generator: Optional[torch.Generator], train: bool,
@@ -172,9 +208,13 @@ class GAN(GenerativeModel):
     def sample_z(self, generator: Optional[torch.Generator], n: int) -> torch.Tensor:
         return torch.randn(n, self.latent_dim, generator=generator, device=self.device)
 
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """D's real/fake logits [B]."""
+        return self.D(x)
+
     def _d_loss(self, x: torch.Tensor, x_hat: torch.Tensor):
-        logits_real = self.D(x)
-        logits_fake = self.D(x_hat)
+        logits_real = self._logits(x)
+        logits_fake = self._logits(x_hat)
         d_loss_real = bce_with_logits(logits_real, torch.ones_like(logits_real))
         d_loss_fake = bce_with_logits(logits_fake, torch.zeros_like(logits_fake))
         d_loss = (d_loss_real + d_loss_fake) / 2
@@ -183,7 +223,7 @@ class GAN(GenerativeModel):
                         "logits_fake": logits_fake.mean()}
 
     def _g_loss(self, x_hat: torch.Tensor):
-        logits_fake = self.D(x_hat)
+        logits_fake = self._logits(x_hat)
         if self.loss_type == "non-saturating":
             g_loss = bce_with_logits(logits_fake, torch.ones_like(logits_fake))
         else:  # min-max: maximize D's error on the fakes
@@ -203,13 +243,10 @@ class GAN(GenerativeModel):
         self.D.train()
         x_hat = self.G(z)
 
-        d_params = list(self.D.parameters())
         d_loss, d_metrics = self._d_loss(x, x_hat.detach())
-        apply_grads(self.optimizers["D"], d_params, torch.autograd.grad(d_loss, d_params))
-
-        g_params = list(self.G.parameters())
+        self._optimize("D", d_loss, self.D)
         g_loss, g_metrics = self._g_loss(x_hat)
-        apply_grads(self.optimizers["G"], g_params, torch.autograd.grad(g_loss, g_params))
+        self._optimize("G", g_loss, self.G)
         self.step += 1
         metrics = {k: v.detach() for k, v in {**d_metrics, **g_metrics}.items()}
         return self.prefix_metrics(metrics, "train")
@@ -237,16 +274,27 @@ class GAN(GenerativeModel):
         self.G.eval()
         return self.to_image_space(self.G(z))
 
-    # -- checkpoint state ------------------------------------------------------------
-    def state_dict(self) -> dict:
-        """G's and D's weights and batch statistics, both Adams, the step."""
-        return {"G": self.G.state_dict(), "D": self.D.state_dict(),
-                "optimizer_G": self.optimizers["G"].state_dict(),
-                "optimizer_D": self.optimizers["D"].state_dict(), "step": self.step}
 
-    def load_state_dict(self, state: dict) -> None:
-        self.G.load_state_dict(state["G"])
-        self.D.load_state_dict(state["D"])
-        self.optimizers["G"].load_state_dict(state["optimizer_G"])
-        self.optimizers["D"].load_state_dict(state["optimizer_D"])
-        self.step = int(state["step"])
+class ClassConditional:
+    """Sampling of a GAN whose generator takes class labels through ``_generate(z,
+    labels)`` (CGAN, ACGAN): ``sample_classes`` on given labels, ``sample`` with the labels
+    cycling 0, 1, ..., num_classes - 1, and a validation grid with a row of 8 per class."""
+
+    @torch.inference_mode()
+    def sample_classes(self, generator: Optional[torch.Generator], labels: torch.Tensor,
+                       z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """G in eval mode on class ``labels`` [N] and ``z`` (drawn when not given):
+        images in [0, 1]."""
+        labels = labels.to(self.device).long()
+        z = self.sample_z(generator, labels.shape[0]) if z is None else z.to(self.device)
+        self.G.eval()
+        return self.to_image_space(self._generate(z, labels))
+
+    def sample(self, generator: Optional[torch.Generator], num_samples: int,
+               z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        labels = torch.arange(num_samples, device=self.device) % self.num_classes
+        return self.sample_classes(generator, labels, z=z)
+
+    def validation_grids(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        labels = torch.arange(self.num_classes, device=self.device).repeat_interleave(8)
+        return {"per_class_generation": self.sample_classes(generator, labels)}

@@ -11,6 +11,7 @@ explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -216,7 +217,14 @@ class BatchNorm(nn.Module):
     ``var`` (flax's ``batch_stats``) as ``ra = 0.99 ra + 0.01 batch``. torch's
     ``BatchNorm2d`` keeps the unbiased variance with momentum 0.1, so the buffers move by
     hand here. In eval mode it normalizes by the buffers. The scale starts at
-    1 + N(0, scale_std^2) (0: ones), the bias at 0."""
+    1 + N(0, scale_std^2) (0: ones), the bias at 0.
+
+    Two contexts change what a pass does with the running statistics:
+    ``frozen_batch_stats`` keeps a train-mode pass from moving them (flax's train apply
+    whose updated ``batch_stats`` the caller drops), and ``batch_stats_in_graph`` keeps
+    the moved statistics in the autograd graph for an eval-mode pass to read, as a flax
+    eval apply on the ``batch_stats`` that train applies returned inside the same
+    differentiated function does: its gradient reaches the weights through them too."""
 
     FLAX_LEAVES = {"weight": ("scale", None), "bias": ("bias", None)}
     MOMENTUM = 0.99
@@ -229,6 +237,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.move_stats = True  # False inside frozen_batch_stats
+        self.graph_stats = None  # (mean, var) in the graph inside batch_stats_in_graph
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         if self.scale_std:
@@ -246,12 +256,59 @@ class BatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dim=dims)
             var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.mean.copy_(self.MOMENTUM * self.mean + (1.0 - self.MOMENTUM) * mean)
-                self.var.copy_(self.MOMENTUM * self.var + (1.0 - self.MOMENTUM) * var)
+            if self.move_stats:
+                self._move(mean, var)
         else:
-            mean, var = self.mean, self.var
+            mean, var = self.graph_stats or (self.mean, self.var)
         return (x - mean) * (torch.rsqrt(var + self.EPS) * self.weight) + self.bias
+
+    def _move(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """ra = 0.99 ra + 0.01 batch into the buffers (and, in the graph, graph_stats)."""
+        m = self.MOMENTUM
+        if self.graph_stats is None:
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+            return
+        ra_mean, ra_var = self.graph_stats
+        self.graph_stats = (m * ra_mean + (1.0 - m) * mean, m * ra_var + (1.0 - m) * var)
+        with torch.no_grad():
+            self.mean.copy_(self.graph_stats[0])
+            self.var.copy_(self.graph_stats[1])
+
+
+def _batch_norms(*nets: nn.Module) -> list:
+    return [m for net in nets for m in net.modules() if isinstance(m, BatchNorm)]
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(*nets: nn.Module):
+    """Inside, the train-mode BatchNorm passes of ``nets`` normalize by the batch's
+    statistics and leave the running buffers as they are."""
+    norms = _batch_norms(*nets)
+    for bn in norms:
+        bn.move_stats = False
+    try:
+        yield
+    finally:
+        for bn in norms:
+            bn.move_stats = True
+
+
+@contextlib.contextmanager
+def batch_stats_in_graph(net: nn.Module):
+    """Inside, each train-mode BatchNorm pass of ``net`` keeps the running statistics it
+    moves as tensors of the autograd graph (the buffers get their values too), and
+    eval-mode passes normalize by those tensors: a gradient through an eval pass then
+    reaches the weights of the train passes before it through the statistics."""
+    norms = _batch_norms(net)
+    for bn in norms:
+        bn.graph_stats = (bn.mean.clone(), bn.var.clone())
+    try:
+        yield
+    finally:
+        for bn in norms:
+            bn.graph_stats = None
 
 
 class Embed(nn.Module):

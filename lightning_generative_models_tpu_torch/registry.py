@@ -25,6 +25,9 @@ _NAMES = (
 _PORTED = {
     "GAN": ("lightning_generative_models_tpu_torch.models.gan.gan", "GAN"),
     "DCGAN": ("lightning_generative_models_tpu_torch.models.gan.dcgan", "DCGAN"),
+    **{name: (f"lightning_generative_models_tpu_torch.models.gan.{name.lower()}", name)
+       for name in ("LSGAN", "WGAN", "R1GAN", "CGAN", "InfoGAN", "ACGAN", "SGAN", "BEGAN",
+                    "CycleGAN")},
     "DDPM": ("lightning_generative_models_tpu_torch.models.diffusion.ddpm", "DDPM"),
     "FlowMatching": ("lightning_generative_models_tpu_torch.models.diffusion.flow_matching",
                      "FlowMatching"),

@@ -25,7 +25,10 @@ from pathlib import Path
 import torch
 
 from lightning_generative_models_tpu_torch.config import load_config
-from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+from lightning_generative_models_tpu_torch.data.datamodule import (
+    DataModule,
+    PairedDataModule,
+)
 from lightning_generative_models_tpu_torch.experiment.logger import ExperimentLogger
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.registry import load_model, resolve_model_class
@@ -125,8 +128,11 @@ def main(argv=None):
         wants_bf16 = args.precision.lower() in ("bf16", "bfloat16", "16")
         args.config["model"]["args"].setdefault("use_bf16", wants_bf16)
     model = load_model(args.config["model"], device=device)
-    args.config["dataset"].pop("paired", None)
-    datamodule = DataModule(**args.config["dataset"], num_workers=args.num_workers)
+    paired = args.config["dataset"].pop("paired", None)
+    if paired is None:
+        paired = args.config["model"]["name"].lower() == "cyclegan"
+    data_cls = PairedDataModule if paired else DataModule
+    datamodule = data_cls(**args.config["dataset"], num_workers=args.num_workers)
     exp_logger = ExperimentLogger(
         args.experiment_dir, project=args.project, name=args.experiment_name,
         config={**args.config["model"], "dataset": args.config["dataset"]},

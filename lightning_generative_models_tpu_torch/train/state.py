@@ -46,6 +46,44 @@ def make_adam(
                             weight_decay=weight_decay)
 
 
+class RMSprop(torch.optim.Optimizer):
+    """optax's ``rmsprop(lr, decay, eps)`` as the JAX package builds it (optax 0.2.6: eps
+    inside the square root, initial scale 0, no momentum, not centred):
+    nu <- decay nu + (1 - decay) g^2, p <- p - lr g / sqrt(nu + eps). torch's RMSprop
+    adds eps outside the square root, so the update is written out here, with foreach
+    ops over the parameters that have a gradient. The state is ``{"nu": tensor}``."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float, decay: float = 0.99,
+                 eps: float = 1e-8):
+        super().__init__(params, {"lr": lr, "decay": decay, "eps": eps})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            nus = []
+            for p in params:
+                if "nu" not in self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
+                nus.append(self.state[p]["nu"])
+            decay = group["decay"]
+            torch._foreach_mul_(nus, decay)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - decay)
+            scale = torch._foreach_add(nus, group["eps"])
+            torch._foreach_rsqrt_(scale)
+            torch._foreach_mul_(scale, grads)
+            torch._foreach_add_(params, scale, alpha=-group["lr"])
+
+
+def make_rmsprop(params: Iterable[torch.Tensor], lr: float) -> RMSprop:
+    """``make_rmsprop`` of the JAX package: decay 0.99, eps 1e-8 inside the square root
+    (its docstring says "matching torch defaults"; torch puts eps outside)."""
+    return RMSprop(params, lr, decay=0.99, eps=1e-8)
+
+
 def apply_grads(optimizer: torch.optim.Optimizer, params: list, grads) -> None:
     """One ``optimizer`` step on ``params`` with ``grads`` (None: a zero gradient).
     Contiguous, as the moments are: cuDNN hands back conv grads channels-last, and a

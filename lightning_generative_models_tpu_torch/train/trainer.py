@@ -273,7 +273,10 @@ class Trainer:
         self.logger.log_table("codebook", cols, codebook.tolist(), self.global_step)
 
     def _log_samples(self) -> None:
-        images = self.model.sample(self._generator(_SAMPLE), self.num_sample_images)
+        try:
+            images = self.model.sample(self._generator(_SAMPLE), self.num_sample_images)
+        except NotImplementedError:  # a model with no random generation (CycleGAN)
+            return
         grid = make_grid(images.float().cpu().numpy())
         self.logger.log_image("random_generation", grid, self.global_step)
 

@@ -149,14 +149,32 @@ def load_flax_adam(optimizer: torch.optim.Optimizer, flat: Dict[str, np.ndarray]
 
 
 @torch.no_grad()
+def load_flax_rmsprop(optimizer: torch.optim.Optimizer, flat: Dict[str, np.ndarray],
+                      opt_prefix: str, modules: Dict[str, nn.Module]) -> None:
+    """Fill ``train/state.py``'s RMSprop from optax's ``ScaleByRmsState`` (its ``nu``) at
+    ``opt_prefix``, with ``modules`` as in ``load_flax_adam``."""
+    found = {k[:k.index("/nu/")] for k in flat
+             if k.startswith(opt_prefix + "/") and "/nu/" in k}
+    if len(found) != 1:
+        raise KeyError(f"expected one RMSprop state (a 'nu') under '{opt_prefix}', "
+                       f"found {sorted(found)}")
+    nu = _subtree(flat, f"{found.pop()}/nu")
+    for sub, module in modules.items():
+        for path, (param, transform) in flax_paths(module).items():
+            key = f"{sub}/{path}" if sub else path
+            optimizer.state[param] = {"nu": _converted(key, nu[key], transform, param).to(param)}
+
+
+@torch.no_grad()
 def load_flax_train_state(model, tree, optimizers: bool = True) -> None:
     """Fill a port model from a JAX ``TrainState`` (see the module doc), as its
     ``flax_layout()`` maps it: ``{"params": {tree prefix: module}, "buffers": {tree
-    prefix: module}, "adam": {optimizer-state prefix: (optimizer, {moments subtree:
-    module})}}``; then ``step`` to ``model.step``. A DDPM maps ``params/model`` and
-    ``ema_params``; a VQ-VAE ``params/{encoder,decoder,vq}``, ``mutable/vq/codebook``
-    and ``opt_state/model``; a VQGAN also ``params/disc`` and ``opt_state/disc``.
-    ``optimizers=False`` loads the weights alone."""
+    prefix: module}, "tensors": {tree path: tensor}, "adam" / "rmsprop":
+    {optimizer-state prefix: (optimizer, {moments subtree: module})}}``; then ``step`` to
+    ``model.step``. A DDPM maps ``params/model`` and ``ema_params``; a VQ-VAE
+    ``params/{encoder,decoder,vq}``, ``mutable/vq/codebook`` and ``opt_state/model``; a
+    VQGAN also ``params/disc`` and ``opt_state/disc``; BEGAN its ``mutable/k_t`` as a
+    tensor. ``optimizers=False`` loads the weights (and the tensors) alone."""
     flat = read_tree(tree)
     layout = model.flax_layout()
     for kind, buffers in (("params", False), ("buffers", True)):
@@ -165,7 +183,10 @@ def load_flax_train_state(model, tree, optimizers: bool = True) -> None:
             if not sub and flax_paths(module, buffers):
                 raise KeyError(f"the train state has no '{prefix}' entries")
             load_flax_params(module, sub, buffers=buffers)
+    for path, tensor in layout.get("tensors", {}).items():
+        tensor.copy_(torch.tensor(np.asarray(flat[path], np.float32)).reshape(tensor.shape))
     if optimizers:
-        for prefix, (optimizer, modules) in layout.get("adam", {}).items():
-            load_flax_adam(optimizer, flat, prefix, modules)
+        for kind, load in (("adam", load_flax_adam), ("rmsprop", load_flax_rmsprop)):
+            for prefix, (optimizer, modules) in layout.get(kind, {}).items():
+                load(optimizer, flat, prefix, modules)
         model.step = int(np.asarray(flat["step"]))

@@ -75,9 +75,12 @@ def test_registry_resolves_ported_and_rejects_the_rest():
     assert registry.resolve_model_class("ddpm").__name__ == "DDPM"
     assert registry.resolve_model_class("gan").__name__ == "GAN"
     assert registry.resolve_model_class("DCGAN").__name__ == "DCGAN"
+    for name in ("LSGAN", "WGAN", "R1GAN", "CGAN", "InfoGAN", "ACGAN", "SGAN", "BEGAN",
+                 "CycleGAN"):
+        assert registry.resolve_model_class(name.lower()).__name__ == name
     assert len(registry.available_models()) == 26
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.resolve_model_class("WGAN")
+        registry.resolve_model_class("NICE")
     with pytest.raises(ValueError, match="Unknown model"):
         registry.resolve_model_class("NoSuchModel")
 

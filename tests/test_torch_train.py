@@ -361,7 +361,7 @@ def test_sigterm_saves_first_and_skips_validation(tmp_path, monkeypatch):
     ["--strategy", "fsdp"], ["--strategy", "tp"], ["--strategy", "pp"],
     ["--unroll_steps", "2"], ["--profile_steps", "1:2"], ["--eval", "test"],
     ["--mu_dtype", "bfloat16"], ["--nu_dtype", "bfloat16"],
-    ["--config_path", str(ROOT / "configs" / "gan" / "wgan_gp.json")],
+    ["--config_path", str(ROOT / "configs" / "flow" / "nice.json")],
 ])
 def test_refused_flags_raise_not_implemented(tmp_path, monkeypatch, flags):
     monkeypatch.setattr(cli, "EXPERIMENT_DIR", tmp_path / "experiments")

@@ -65,10 +65,10 @@ def _subtree(tree, prefix: str):
 
 def state_from_port(jax_model, port_model):
     """The JAX model's ``init_state`` as it would be with the port model's weights: the
-    tree of ``jax.eval_shape(init_state)`` (nothing compiles), its weights and mutable
-    variables filled from the port modules that ``port_model.flax_layout()`` names, the
-    optimizers' states fresh (optax's Adam starts at count 0 with zero moments) and the
-    step 0."""
+    tree of ``jax.eval_shape(init_state)`` (nothing compiles), its weights, mutable
+    variables and carried tensors filled from the port modules and tensors that
+    ``port_model.flax_layout()`` names, the optimizers' states fresh (optax's Adam starts at
+    count 0 with zero moments, its RMSprop with a zero nu) and the step 0."""
     shapes = jax.eval_shape(jax_model.init_state, jax.random.PRNGKey(0))
     layout = port_model.flax_layout()
     values = {}
@@ -76,14 +76,18 @@ def state_from_port(jax_model, port_model):
         for prefix, module in layout.get(kind, {}).items():
             tree = flax_tree(module, _subtree(shapes, prefix), buffers=buffers)
             values.update({f"{prefix}/{path}": v for path, v in flatten_tree(tree).items()})
-    fresh = tuple(prefix + "/" for prefix in layout.get("adam", {})) + ("step",)
+    for path, tensor in layout.get("tensors", {}).items():
+        values[path] = tensor.detach().float().cpu().numpy().reshape(
+            _subtree(shapes, path).shape)
+    fresh = tuple(prefix + "/" for kind in ("adam", "rmsprop")
+                  for prefix in layout.get(kind, {})) + ("step",)
 
     def fill(keys, leaf):
         path = "/".join(_key_name(k) for k in keys)
         if path in values:
             return jnp.asarray(values.pop(path))
         assert path.startswith(fresh), f"no port value for {path}"
-        return jnp.zeros(leaf.shape, leaf.dtype)
+        return jnp.asarray(np.zeros(leaf.shape, leaf.dtype))  # no compile per shape
 
     state = jax.tree_util.tree_map_with_path(fill, shapes)
     assert not values, f"port values left over: {sorted(values)}"
