@@ -113,7 +113,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
  28. WGAN-GP CIFAR-10 train images/s at bs64 f32 over whole critic cycles, the D and G
      steps timed apart, one cycle under torch.profiler (wgan_gp_train_profile.txt), a D and
      a G step's launches and device time, and the penalty's share of a D step;
- 29. a JSON line of the kernels, the card's line, and the last line
+ 29. kernels #1 and #2 at the slice's new shapes against their plain versions with [2]'s
+     tolerances: the latent UNet's outer stage (b, 16, 64) at b 64 and 128 in f32 and bf16,
+     residual on and off, the disparity input (#2's f32 gradients against the exact f64
+     ones too), and the consistency model's doubled batch (256, 1024, 64) in bf16; every
+     call repeated bit for bit; times beside the bounds and the plain versions; #6 at a
+     latent decode's N = 2,048;
+ 30. card against CPU, f32 (TF32 off), each model of the slice at its config's widths:
+     EDM, ConsistencyModel (edm_cifar10, ct_cifar10), LatentDiffusion, LatentEDM,
+     LatentFlowMatching (ldm/ledm/lfm_cifar10 on a random vqvae_cifar10 autoencoder) and
+     the VAE: one train step on the same batch and draws (metrics, gradients, update
+     norms) and a short sampler chain on the same draws; VQGAN with LPIPS
+     (vqgan_lpips.json, disc_start 0): a step with the card's ReLU masks replayed, eval,
+     a decode of fixed codes;
+ 31. EDM path (edm_cifar10.json, bs128 bf16): train EDM_STEPS steps, resume, generate
+     Heun-18 at bs64 (35 evaluations), launch counts worked out from the UNet (6 #1 an
+     evaluation, 6 #2 a step);
+ 32. ConsistencyModel path (ct_cifar10.json; 256 rows a forward): train, resume, generate
+     multistep (2 evaluations) and onestep (1);
+ 33. the latent paths (LDM, LEDM, LFM) on configs derived into chiprun_out/chip_smoke/
+     whose autoencoder is [10]'s VQ-VAE run: train, resume from a random-autoencoder
+     config (its checkpoint restores the AE, checked), generate; 2 #1 an evaluation, one
+     #6 a decode; then the VAE (vae.json) and VQGAN with LPIPS (vqgan_lpips.json): train,
+     resume, generate, every counter at its worked-out count;
+ 34. throughput with a profile: EDM train bs128 bf16, Heun-18 samples/s at bs64, CT train
+     bs128, LDM train bs128 (busy share, top kernels);
+ 35. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -130,6 +155,7 @@ import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "diffusion" / "ddim_cifar10.json"
@@ -380,14 +406,19 @@ def launch_split(torch, fn, what: str, calls: int = 5) -> None:
         print(f"    {us / calls / 1e3:8.4f} ms  {count // calls:2d}x  {name[:100]}", flush=True)
 
 
-def check_linear_attention(torch, la) -> dict:
+def check_linear_attention(torch, la, cases=None, timed=("bfloat16",)) -> dict:
+    """Kernel #1 against its plain version at ``cases`` ((b, n, c, dtype, residual,
+    disparity); None: the UNet's shapes of [2]), timing the residual cases of the
+    ``timed`` dtypes. With the default cases the summary is one UNet evaluation's."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    cases = [(128, n, c, dt, res, False) for (n, c) in LA_SHAPES[:5]
-             for dt in ("float32", "bfloat16") for res in (True, False)]
-    cases += [(128, 64, 64, dt, True, True) for dt in ("float32", "bfloat16")]
-    cases += [(128, n, c, "float32", True, True) for (n, c) in LA_SHAPES[:5]]
-    cases += [(MAIN_BATCH, n, c, "bfloat16", True, False) for (n, c) in LA_SHAPES[:5]]
+    main_path = cases is None
+    if main_path:
+        cases = [(128, n, c, dt, res, False) for (n, c) in LA_SHAPES[:5]
+                 for dt in ("float32", "bfloat16") for res in (True, False)]
+        cases += [(128, 64, 64, dt, True, True) for dt in ("float32", "bfloat16")]
+        cases += [(128, n, c, "float32", True, True) for (n, c) in LA_SHAPES[:5]]
+        cases += [(MAIN_BATCH, n, c, "bfloat16", True, False) for (n, c) in LA_SHAPES[:5]]
     main_err, shapes = 0.0, []
     for b, n, c, dt, res, disp in cases:
         dtype = getattr(torch, dt)
@@ -415,7 +446,7 @@ def check_linear_attention(torch, la) -> dict:
             worst[dt] = max(worst[dt], rel_err)
         if b == MAIN_BATCH:
             main_err = max(main_err, abs_err)
-        if res and not disp and dt == "bfloat16":
+        if res and not disp and dt in timed:
             ms = time_ms(lambda: la.linear_attention_cuda(*args, 4, 32, dtype, True))
             plain_ms = time_ms(lambda: la.linear_attention_plain(*args, 4, 32, dtype, True))
             bytes_ms, ops_ms = la_bound_ms(b, n, c, dt)
@@ -425,9 +456,11 @@ def check_linear_attention(torch, la) -> dict:
             print(f"  time b={b} n={n} c={c} {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
                   f" bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
                   f"operations {ops_ms:.4f})", flush=True)
-            if (b, n, c) == (MAIN_BATCH, *LA_SHAPES[0]):
+            if main_path and (b, n, c) == (MAIN_BATCH, *LA_SHAPES[0]):
                 launch_split(torch, lambda: la.linear_attention_cuda(*args, 4, 32, dtype, True),
                              f"linear_attention b={b} n={n} c={c} {dt}")
+    if not main_path:
+        return {"max_abs_err": main_err, "worst_rel_err": worst, "shapes": shapes}
     # One UNet evaluation of the main path runs the (1024, 64) shape twice.
     per_eval = [s for s in shapes if s["b"] == MAIN_BATCH]
     per_eval = per_eval + [per_eval[0]]
@@ -461,17 +494,23 @@ def grad_err(k, p) -> float:
     return ((k - p).abs().max() / (1.0 + p.abs().max())).item()
 
 
-def check_linear_attention_bwd(torch, la) -> dict:
+def check_linear_attention_bwd(torch, la, cases=None, timed=("bfloat16",)) -> dict:
+    """Kernel #2 against its plain version at ``cases`` (as check_linear_attention's;
+    None: the training shapes of [2]), timing the residual cases of the ``timed`` dtypes.
+    With the default cases the summary is one train step's."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     names = ("dx", "dg0", "dqkv_kernel", "dmem_kv", "dout_kernel", "dout_bias", "dg1")
-    cases = [(TRAIN_BATCH, n, c, dt, res, False) for (n, c) in LA_SHAPES[:5]
-             for dt in ("float32", "bfloat16") for res in (True, False)]
-    # The disparity input in f32 at (64, 64) and every UNet shape: each gradient is held
-    # against the exact f64 one (linear_attention_bwd_exact) and, at (64, 64), against the
-    # plain version as well. At the larger shapes the plain f32 version is itself ~1e-4
-    # from the exact gradient, so kernel against plain is printed there beside both
-    # distances from the exact one.
-    cases += [(TRAIN_BATCH, n, c, "float32", True, True) for (n, c) in [(64, 64)] + LA_SHAPES[:5]]
+    main_path = cases is None
+    if main_path:
+        cases = [(TRAIN_BATCH, n, c, dt, res, False) for (n, c) in LA_SHAPES[:5]
+                 for dt in ("float32", "bfloat16") for res in (True, False)]
+        # The disparity input in f32 at (64, 64) and every UNet shape: each gradient is
+        # held against the exact f64 one (linear_attention_bwd_exact) and, at (64, 64),
+        # against the plain version as well. At the larger shapes the plain f32 version is
+        # itself ~1e-4 from the exact gradient, so kernel against plain is printed there
+        # beside both distances from the exact one.
+        cases += [(TRAIN_BATCH, n, c, "float32", True, True)
+                  for (n, c) in [(64, 64)] + LA_SHAPES[:5]]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     main_err, shapes = 0.0, []
     for b, n, c, dt, res, disp in cases:
@@ -491,7 +530,7 @@ def check_linear_attention_bwd(torch, la) -> dict:
             truth = la.linear_attention_bwd_exact(*args, dout, 4, 32, res)
             kernel_exact = [grad_err(k, t) for k, t in zip(out, truth)]
             plain_exact = [grad_err(p, t) for p, t in zip(ref, truth)]
-            gated = kernel_exact + (errs if (n, c) == (64, 64) else [])
+            gated = kernel_exact + (errs if (n, c) in ((64, 64), (16, 64)) else [])
             exact = (" | against f64: kernel " + " ".join(f"{e:.2e}" for e in kernel_exact)
                      + ", plain " + " ".join(f"{e:.2e}" for e in plain_exact))
         else:
@@ -506,7 +545,7 @@ def check_linear_attention_bwd(torch, la) -> dict:
             fail(f"linear_attention backward kernel disagrees with its plain version or "
                  f"repeats differently at b={b} n={n} c={c} {dt} residual={res}")
         worst[dt] = max(worst[dt], max(gated))
-        if res and not disp and dt == "bfloat16":
+        if res and not disp and dt in timed:
             main_err = max(main_err, abs_err)
             ms = time_ms(lambda: la.linear_attention_bwd_cuda(*args, dout, 4, 32, dtype, True))
             plain_ms = time_ms(
@@ -518,10 +557,12 @@ def check_linear_attention_bwd(torch, la) -> dict:
             print(f"  time bwd b={b} n={n} c={c} {dt}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
                   f"{bytes_ms:.4f}, operations {ops_ms:.4f})", flush=True)
-            if (n, c) == LA_SHAPES[0]:
+            if main_path and (n, c) == LA_SHAPES[0]:
                 launch_split(
                     torch, lambda: la.linear_attention_bwd_cuda(*args, dout, 4, 32, dtype, True),
                     f"linear_attention_bwd b={b} n={n} c={c} {dt}")
+    if not main_path:
+        return {"max_abs_err": main_err, "worst_rel_err": worst, "shapes": shapes}
     # One train step runs the (1024, 64) shape twice.
     per_step = shapes + [shapes[0]]
     return {
@@ -766,17 +807,18 @@ def train_main_path(torch, la, card: str) -> dict:
     return counts
 
 
-def train_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict:
-    """Train images/s at batch 128, bf16, with the model built and warmed up (host
-    clock around ``steps`` steps that end in a synchronize, median of ``repeats``),
-    then one step under torch.profiler."""
+def train_breakdown(torch, card: str, steps: int = 20, repeats: int = 3, config_path=CONFIG,
+                    out_name: str = "train_profile.txt") -> dict:
+    """Train images/s at batch 128, bf16, of ``config_path``'s model built and warmed up
+    (host clock around ``steps`` steps that end in a synchronize, median of ``repeats``),
+    then one step under torch.profiler (its table to chiprun_out/chip_smoke/<out_name>)."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightning_generative_models_tpu_torch.config import load_config
     from lightning_generative_models_tpu_torch.data.datamodule import DataModule
     from lightning_generative_models_tpu_torch.registry import load_model
 
-    config = load_config(CONFIG)
+    config = load_config(config_path)
     model = load_model(config["model"], device="cuda")
     it = DataModule(**config["dataset"]).train_batches(0)
     batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()} for _ in range(4)]
@@ -797,15 +839,15 @@ def train_breakdown(torch, card: str, steps: int = 20, repeats: int = 3) -> dict
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
     ips = steps * TRAIN_BATCH / wall
-    print(f"  train bs{TRAIN_BATCH} bf16: {1e3 * wall / steps:.2f} ms per step, median of "
-          f"{[round(w, 4) for w in walls]} s per {steps} steps, {ips:.1f} images/s on "
-          f"{card}", flush=True)
+    print(f"  {config['model']['name']} train bs{TRAIN_BATCH} bf16: "
+          f"{1e3 * wall / steps:.2f} ms per step, median of {[round(w, 4) for w in walls]} s "
+          f"per {steps} steps, {ips:.1f} images/s on {card}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(1)
         wall_us = 1e6 * (time.perf_counter() - t0)
     summary = profile_summary(torch, prof, wall_us, f"one train step bs{TRAIN_BATCH}",
-                              "train_profile.txt", card)
+                              out_name, card)
     return {"images_per_s": ips, "ms_per_step": 1e3 * wall / steps, **summary}
 
 
@@ -825,12 +867,12 @@ def vq_bound_ms(n, k, d):
             1e3 * flops / PEAK_FLOPS["float32"])
 
 
-def check_vq(torch, vq) -> dict:
-    """Kernel #6 against its plain version at the VQ models' shapes, on duplicated
-    codebooks, and repeated; times by CUDA events."""
+def check_vq(torch, vq, vq_shapes=VQ_SHAPES, duplicates: bool = True) -> dict:
+    """Kernel #6 against its plain version at ``vq_shapes`` (the VQ models' by default),
+    on duplicated codebooks, and repeated; times by CUDA events."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     main, shapes = {}, []
-    for n, k, d in VQ_SHAPES:
+    for n, k, d in vq_shapes:
         flat = torch.randn(n, d, device="cuda", generator=gen)
         codebook = torch.randn(k, d, device="cuda", generator=gen)
         out = vq.nearest_codes_cuda(flat, codebook)
@@ -867,6 +909,8 @@ def check_vq(torch, vq) -> dict:
               f"(3xTF32); at 67 TFLOP/s of f32 FMA {fma_ms:.5f})", flush=True)
         if (n, k, d) == VQ_MAIN:
             main = shape
+    if not duplicates:
+        return {"shapes": shapes}
     flat = torch.randn(4096, 64, device="cuda", generator=gen)
     base = torch.randn(256, 64, device="cuda", generator=gen)
     for what, codebook, first in (
@@ -2614,6 +2658,462 @@ def wgan_breakdown(torch, card: str, cycles: int = 4, repeats: int = 3) -> dict:
     return out
 
 
+# -- the continuous-time and latent diffusion slice, the VAE family ([29]-[34]) -----------
+
+#: (b, n, c, dtype, residual, disparity) of kernels #1 and #2 on the slice's new paths: the
+#: latent UNet's outer stage (n 16 = 4 x 4 latents, c 64) at the latent paths' bs64 and
+#: bs128 in both types, the disparity input there, and the consistency model's doubled
+#: batch at the full UNet's outer stage (b 256, n 1024, c 64).
+LATENT_LA_CASES = (
+    [(b, 16, 64, dt, res, False) for b in (64, 128) for dt in ("float32", "bfloat16")
+     for res in (True, False)]
+    + [(128, 16, 64, dt, True, True) for dt in ("float32", "bfloat16")]
+    + [(256, 1024, 64, "bfloat16", True, False)])
+LATENT_LA_BWD_CASES = (
+    [(b, 16, 64, dt, res, False) for b in (64, 128) for dt in ("float32", "bfloat16")
+     for res in (True, False)]
+    + [(128, 16, 64, "float32", True, True), (256, 1024, 64, "bfloat16", True, False)])
+LATENT_VQ_SHAPES = [(2048, 512, 64)]  # a latent model's decode of 128 images: 128 x 4 x 4
+EDM_CONFIG = ROOT / "configs" / "diffusion" / "edm_cifar10.json"
+CT_CONFIG = ROOT / "configs" / "diffusion" / "ct_cifar10.json"
+LDM_CONFIGS = {name: ROOT / "configs" / "diffusion" / f"{name}_cifar10.json"
+               for name in ("ldm", "ledm", "lfm")}
+VAE_CONFIG = ROOT / "configs" / "vae" / "vae.json"
+VQGAN_LPIPS_CONFIG = ROOT / "configs" / "vae" / "vqgan_lpips.json"
+SLICE_TOL = 1e-3  # f32 card against CPU: metrics, gradients, update norms, chains
+ADAM_EPS = 1e-8  # train/state.py's make_adam
+EDM_STEPS, EDM_RESUME_STEPS = 24, 6
+CT_STEPS, CT_RESUME_STEPS = 24, 6
+LATENT_STEPS, LATENT_RESUME_STEPS = 12, 4
+VAE_STEPS, VAE_RESUME_STEPS = 20, 5
+LPIPS_STEPS, LPIPS_RESUME_STEPS = 8, 2
+AE_RUN = "chip_smoke_vqvae"  # [10]'s VQ-VAE run: the latent models' frozen autoencoder
+
+
+def check_latent_kernel_shapes(torch, la, vq) -> dict:
+    """[29]: kernels #1 and #2 at the slice's new shapes against their plain versions with
+    [2]'s tolerances (the disparity input's f32 gradients against the exact f64 ones),
+    every call repeated bit for bit, times beside the bounds; #6 at a latent decode's
+    rows."""
+    with torch.inference_mode():
+        fwd = check_linear_attention(torch, la, LATENT_LA_CASES, ("float32", "bfloat16"))
+        bwd = check_linear_attention_bwd(torch, la, LATENT_LA_BWD_CASES,
+                                         ("float32", "bfloat16"))
+        vq_shapes = check_vq(torch, vq, LATENT_VQ_SHAPES, duplicates=False)["shapes"]
+    return {"linear_attention": fwd, "linear_attention_bwd": bwd, "vq": vq_shapes}
+
+
+def _rel(out, ref) -> float:
+    out, ref = out.float().cpu(), ref.float().cpu()
+    return ((out - ref).abs() / (1 + ref.abs())).max().item()
+
+
+def _rel_norm(out: float, ref: float) -> float:
+    return abs(out - ref) / ref if ref > 0 else float(out != ref)
+
+
+def slice_step_card_vs_cpu(torch, name: str, models: dict, batch: dict, draws: dict,
+                           elementwise: bool = True) -> None:
+    """One grad_step + apply_grad_step on the CPU and on the card from the same weights,
+    batch and draws: every metric within SLICE_TOL of 1 + |ref|; each gradient within
+    SLICE_TOL of its largest magnitude (``elementwise``), or by its norm (LeakyReLU nets,
+    whose inputs within f32 noise of 0 can take the other slope); each weight's update by
+    its norm (Adam's first step moves a weight by about lr whatever its gradient's size)."""
+    results = {}
+    for dev, m in models.items():
+        params = m.optimizer.param_groups[0]["params"]
+        before = [p.detach().float().cpu().clone() for p in params]
+        grads, metrics = m.grad_step(batch, **draws)
+        grads = [g.float().cpu() for g in grads]
+        metrics = m.apply_grad_step([g.to(m.device) for g in grads], metrics)
+        updates = [p.detach().float().cpu() - b for p, b in zip(params, before)]
+        results[dev] = (metrics, grads, updates)
+    (m_ref, g_ref, u_ref), (m_out, g_out, u_out) = results["cpu"], results["cuda"]
+    metric_err = max(_rel(m_out[k], m_ref[k]) for k in m_ref)
+    if elementwise:
+        grad_err = max(((k - p).abs().max() / p.abs().max().clamp_min(1e-30)).item()
+                       for k, p in zip(g_out, g_ref))
+    else:
+        grad_err = max(_rel_norm(float(k.norm()), float(p.norm())) for k, p in zip(g_out, g_ref))
+    upd_err = max(_rel_norm(float(k.norm()), float(p.norm())) for k, p in zip(u_out, u_ref))
+    ok = max(metric_err, grad_err, upd_err) <= SLICE_TOL
+    print(f"  {name} train step, card vs CPU: metrics {metric_err:.2e} ("
+          + ", ".join(f"{k} {float(m_out[k]):.5f}" for k in sorted(m_ref))
+          + f"), gradients {grad_err:.2e} ({'elementwise' if elementwise else 'norms'}, "
+          f"{len(g_ref)} tensors), update norms {upd_err:.2e}; tol {SLICE_TOL:.0e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name}: the card's train step disagrees with the CPU's")
+
+
+def slice_chain_card_vs_cpu(torch, name: str, models: dict, run) -> None:
+    """``run(model)`` (a short sampler chain on fixed draws) on the CPU and on the card:
+    within SLICE_TOL x max(1, max |ref|)."""
+    with torch.inference_mode():
+        out = {dev: run(m).float().cpu() for dev, m in models.items()}
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    scale = max(1.0, out["cpu"].abs().max().item())
+    ok = bool(torch.isfinite(out["cuda"]).all()) and err <= SLICE_TOL * scale
+    print(f"  {name}: {tuple(out['cpu'].shape)} max_abs_err={err:.3e} (tol {SLICE_TOL:.0e} x "
+          f"max(1, max|ref|) = {SLICE_TOL * scale:.1e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name}: card and CPU disagree")
+
+
+def check_slice_card_vs_cpu(torch) -> None:
+    """[30]: every model of the slice at its config's widths in f32 (TF32 off), the card
+    against the CPU from the same weights: one train step on the same batch and draws and
+    a short sampler chain on the same draws (EDM Heun-3, consistency multistep-2 with its
+    re-noising, LDM DDIM-3, LEDM Heun-2, LFM Euler-3, decoded through the frozen
+    autoencoder; the VAE's decoder on fixed latents); the VQGAN with LPIPS: a step past
+    disc_start (metrics and update norms), eval_step and a decode of fixed codes."""
+    import copy
+
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    rs = np.random.RandomState(30)
+    n = 4
+    img_batch = {"image": rs.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8),
+                 "label": np.zeros(n, np.int32)}
+    flip = torch.tensor([True, False, False, True])
+
+    def build(path, **overrides):
+        cfg = load_config(path)["model"]
+        cfg["args"] = {**cfg["args"], **overrides}
+        if "autoencoder" in cfg["args"]:
+            cfg["args"]["autoencoder"] = {**cfg["args"]["autoencoder"],
+                                          "config_path": str(VQVAE_CONFIG)}
+        return {dev: load_model(cfg, device=dev) for dev in ("cpu", "cuda")}
+
+    def randn(*shape):
+        return torch.tensor(rs.randn(*shape).astype(np.float32))
+
+    t0 = time.perf_counter()
+    edm = build(EDM_CONFIG, use_bf16=False)
+    slice_step_card_vs_cpu(torch, "EDM edm_cifar10 bs4", edm, img_batch, {
+        "flip": flip, "sigma_normal": randn(n), "noise": randn(n, 32, 32, 3)})
+    x_T = randn(2, 32, 32, 3)
+    slice_chain_card_vs_cpu(torch, "EDM Heun-3 bs2 from one x_T", edm, lambda m: m.sample(
+        None, 2, method="heun", steps=3, x_T=x_T))
+
+    ct = build(CT_CONFIG, use_bf16=False)
+    slice_step_card_vs_cpu(torch, "ConsistencyModel ct_cifar10 bs4 (8 rows a forward)", ct,
+                           img_batch, {"flip": flip, "index": torch.tensor([0, 3, 6, 9]),
+                                       "noise": randn(n, 32, 32, 3)})
+    walk = [randn(2, 32, 32, 3)]
+    slice_chain_card_vs_cpu(
+        torch, "ConsistencyModel multistep-2 bs2 on one x_T and re-noising draw", ct,
+        lambda m: m.diffusion.sample(m._apply_fn(m.ema_unet), 2, method="multistep", steps=2,
+                                     x_T=x_T, noise_fn=lambda j, shape: walk[j]))
+
+    z_T = randn(2, 4, 4, 64)
+    for name, draws, method in (
+            ("ldm", {"t": torch.tensor([0, 300, 700, 999])}, "DDIM-3"),
+            ("ledm", {"sigma_normal": randn(n)}, "Heun-2"),
+            ("lfm", {"t": torch.tensor([0.1, 0.4, 0.6, 0.9])}, "Euler-3")):
+        models = build(LDM_CONFIGS[name], use_bf16=False)
+        label = f"{type(models['cpu']).__name__} {LDM_CONFIGS[name].name}"
+        slice_step_card_vs_cpu(torch, f"{label} bs4 (4 x 4 x 64 latents)", models, img_batch,
+                               {"flip": flip, **draws, "noise": randn(n, 4, 4, 64)})
+        steps = int(method.split("-")[1])
+        slice_chain_card_vs_cpu(torch, f"{label} {method} bs2 from one latent x_T, decoded",
+                                models, lambda m: m.sample(None, 2, steps=steps, x_T=z_T))
+
+    vae = build(VAE_CONFIG)
+    mnist = {"image": rs.randint(0, 256, (n, 28, 28, 1)).astype(np.uint8),
+             "label": np.zeros(n, np.int32)}
+    slice_step_card_vs_cpu(torch, "VAE vae.json bs4", vae, mnist,
+                           {"flip": flip, "eps": randn(n, 20)}, elementwise=False)
+    z = randn(2, 20)
+    slice_chain_card_vs_cpu(torch, "VAE decode of fixed latents", vae,
+                            lambda m: m.sample(None, 2, z=z))
+
+    # VQGAN with LPIPS as [9] runs the VQGAN: the CPU's pass replays the card's ReLU and
+    # LeakyReLU masks (ReluMasks; VGG16's ReLUs among them). Each gradient is read back
+    # from Adam's first moment after its first step (g = m / (1 - b1)) and held by its
+    # norm. Adam's first step moves an element by lr |g| / (|g| + eps): within 1% of
+    # lr sign(g) where |g| >= 100 eps, so there the update does not see f32 noise in g.
+    # Below that its size follows |g|, and the update norms leave out the elements there
+    # whose two gradients differ by more than SLICE_TOL of the CPU's, at most
+    # GAN_NOISE_SHARE of all (on an H100 a 64-element decoder bias's update norm moved
+    # 7.3e-3 so while its gradient norm agreed within 1.7e-4). eval_step runs on the CPU
+    # step's weights on both devices.
+    gan = build(VQGAN_LPIPS_CONFIG, disc_start=0)
+    params = {d: {f"net.{k}": v for k, v in m.net.named_parameters()}
+              | {f"disc.{k}": v for k, v in m.disc.named_parameters()} for d, m in gan.items()}
+    before = {d: {k: v.detach().float().cpu().clone() for k, v in ps.items()}
+              for d, ps in params.items()}
+    metrics, relu = {}, ReluMasks(torch)
+    for dev in ("cuda", "cpu"):
+        with relu:
+            metrics[dev] = gan[dev].train_step(img_batch, flip=flip)
+    metric_err = max(_rel(metrics["cuda"][k], metrics["cpu"][k]) for k in metrics["cpu"])
+
+    def grads(m, ps):
+        out = {}
+        for opt in (m.optimizer, m.disc_optimizer):
+            b1 = opt.param_groups[0]["betas"][0]
+            for k, p in ps.items():
+                if p in opt.state:
+                    out[k] = opt.state[p]["exp_avg"].float().cpu() / (1.0 - b1)
+        return out
+
+    g = {d: grads(gan[d], params[d]) for d in gan}
+    top = max(float(v.norm()) for v in g["cpu"].values())
+    worst, left_out, stepped = (0.0, ""), 0, 0
+    for k in before["cpu"]:
+        g_out, g_ref = g["cuda"][k], g["cpu"][k]
+        if float(g_ref.norm()) >= 1e-5 * top:
+            err = _rel_norm(float(g_out.norm()), float(g_ref.norm()))
+            worst = max(worst, (err, f"{k} gradient"))
+        eps_regime = torch.minimum(g_out.abs(), g_ref.abs()) < 100 * ADAM_EPS
+        kept = ~(eps_regime & ((g_out - g_ref).abs() > SLICE_TOL * g_ref.abs()))
+        left_out += int((~kept).sum())
+        stepped += kept.numel()
+        d_out = (params["cuda"][k].detach().float().cpu() - before["cuda"][k])[kept]
+        d_ref = (params["cpu"][k].detach().float().cpu() - before["cpu"][k])[kept]
+        worst = max(worst, (_rel_norm(float(d_out.norm()), float(d_ref.norm())), f"{k} update"))
+    gan["cuda"].load_state_dict(copy.deepcopy(gan["cpu"].state_dict()))
+    evals, eval_relu = {}, ReluMasks(torch)
+    for dev in ("cuda", "cpu"):
+        with eval_relu:
+            evals[dev] = gan[dev].eval_step(img_batch)
+    eval_err = max(_rel(evals["cuda"][k], evals["cpu"][k]) for k in evals["cpu"])
+    ok = (max(metric_err, worst[0], eval_err) <= SLICE_TOL
+          and left_out <= GAN_NOISE_SHARE * stepped
+          and "train_perceptual_loss" in metrics["cpu"] and "val_perceptual_loss" in evals["cpu"])
+    print(f"  VQGAN vqgan_lpips.json (perceptual_weight 1.0, disc_start 0) bs4 train step, "
+          f"card vs CPU with the card's (leaky) ReLU masks ({relu.flips} of {relu.inputs} "
+          f"inputs on the other side of 0 on the CPU): metrics {metric_err:.2e} "
+          f"(perceptual_loss {float(metrics['cuda']['train_perceptual_loss']):.5f} vs "
+          f"{float(metrics['cpu']['train_perceptual_loss']):.5f}, adaptive weight "
+          f"{float(metrics['cuda']['train_adaptive_weight']):.3e}); worst gradient and update "
+          f"norm {worst[0]:.2e} ({worst[1]}; {left_out} of {stepped} stepped elements left "
+          f"out as noise); eval on the same weights {eval_err:.2e}; tol {SLICE_TOL:.0e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("VQGAN with LPIPS: the card's step disagrees with the CPU's")
+    codes = torch.tensor(rs.randint(0, 512, (2, 4, 4)))
+    slice_chain_card_vs_cpu(torch, "VQGAN decode of fixed codes", gan,
+                            lambda m: m.decode_codes(codes))
+    print(f"  [30] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+@dataclass
+class SlicePath:
+    """One model of the slice through its entry points: the config it trains (a derived
+    one for the latent models), the experiment, the steps, and the launches worked out from
+    its UNet: ``la`` linear-attention blocks an evaluation (6 at dim_mults (1, 2, 4, 8), 2
+    at (1, 2)), ``grid_evals`` network evaluations of a validation grid of 64 and
+    ``generate`` [(extra argv, evaluations)] of each generate call; ``vq`` searches a
+    decode (1 for the latent models), ``vq_step`` a train step (VQGAN: 1)."""
+    name: str
+    config: Path
+    model: str
+    run: str
+    steps: int
+    resume_steps: int
+    la: int
+    grid_evals: int
+    generate: list
+    vq: int = 0
+    vq_step: int = 0
+    resume_config: Optional[Path] = None  # the latent models resume with a random-AE config
+
+
+def slice_train_path(torch, card: str, path: SlicePath) -> dict:
+    """train path.steps steps (validation, a grid of 64, checkpoints), a --resume of
+    path.resume_steps more, then each generate call; every count of PATH_COUNTERS set to 0
+    before each run and held after it to the count worked out: linear_attention la x
+    (steps + validation batches + grid evaluations), its backward la x steps,
+    nearest_codes vq_step x steps + vq per decode (the grid's; VQGAN: one per validation
+    batch), every other 0. Returns the counts and the walls."""
+    import math
+
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch import generate, train
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    run_dir = EXPERIMENT_DIR / path.model / path.run
+    shutil.rmtree(run_dir, ignore_errors=True)
+    config = load_config(path.config)
+    val_batches = len(list(DataModule(**config["dataset"]).val_batches()))
+    argv = ["--experiment_name", path.run, "--device", "cuda", "--check_val_every_n_epoch",
+            "1000", "--sample_every_n_steps", "0"]
+    counts, walls, model = {}, {}, None
+    runs = (("train", path.config, path.steps, []),
+            ("resume", path.resume_config or path.config, path.steps + path.resume_steps,
+             ["--resume"]))
+    for name, cfg, steps, extra in runs:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        model = train.main(argv + ["--config_path", str(cfg), "--max_steps", str(steps)] + extra)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        got = read_counts()
+        new = steps - (0 if name == "train" else path.steps)
+        vq_val = val_batches if path.vq_step else 0
+        want = dict.fromkeys(PATH_COUNTERS, 0) | {
+            "linear_attention": path.la * (new + val_batches + path.grid_evals),
+            "linear_attention_bwd": path.la * new,
+            "nearest_codes": path.vq_step * new + vq_val + path.vq}
+        counts[name] = got
+        print(f"  {path.name} {name}: {new} steps to step {model.step} in {walls[name]:.1f} s "
+              f"(model build, data, validation, the grid and checkpoints included) on {card}")
+        print(f"  {path.name} {name}: launches {got} (expected linear_attention {path.la} x "
+              f"({new} steps + {val_batches} validation batches + {path.grid_evals} grid "
+              f"evaluations) = {want['linear_attention']}, backward {path.la} x {new} = "
+              f"{want['linear_attention_bwd']}, nearest_codes {path.vq_step} x {new} + "
+              f"{vq_val} + {path.vq} = {want['nearest_codes']}, every other 0)", flush=True)
+        if got != want:
+            fail(f"the {path.name} {name} run launched the kernels {got}, not {want}")
+        if model.step != steps:
+            fail(f"the {path.name} {name} run ended at step {model.step}, not {steps}")
+    records = read_metrics(run_dir)
+    train_records = [r for r in records if "train_loss" in r]
+    losses = [r["train_loss"] for r in train_records]
+    val = [r for r in records if any(k.startswith("val_") for k in r)]
+    print(f"  {path.name} train_loss by logged step: " + ", ".join(
+        f"{r['step']}: {r['train_loss']:.4f}" for r in train_records)
+        + f"; validation {[{k: round(v, 4) for k, v in r.items() if k.startswith('val_')} for r in val]}",
+        flush=True)
+    if not all(math.isfinite(v) for v in losses) or len(val) != 2:
+        fail(f"{path.name}: a train loss is not finite, or not one validation per run")
+    if train_records[-1]["step"] != path.steps + path.resume_steps - 1:
+        fail(f"the resumed {path.name} run did not log its last step")
+    if len(sorted((run_dir / "samples").glob("random_generation_*.png"))) != 2:
+        fail(f"{path.name}: expected a sample grid per run")
+    for which in ("last", "best"):
+        if not (run_dir / "checkpoints" / f"checkpoint_meta_{which}.json").exists():
+            fail(f"{path.name}: no {which} checkpoint meta")
+
+    out_dir = OUT_DIR / path.run
+    for extra, evals in path.generate:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        images = generate.main(["--config_path", str(path.config), "--num_samples", "64",
+                                "--device", "cuda", "--seed", "0", "--out", str(out_dir)]
+                               + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        want = dict.fromkeys(PATH_COUNTERS, 0) | {"linear_attention": path.la * evals,
+                                                  "nearest_codes": path.vq}
+        label = f"generate {' '.join(extra) or 'default'}"
+        counts[label] = got
+        walls[label] = wall
+        print(f"  {path.name} {label} bs64: {images.shape} in {wall:.2f} s ({64 / wall:.1f} "
+              f"samples/s, model build, init and PNG included); launches {got} (expected "
+              f"linear_attention {path.la} x {evals} evaluations = {want['linear_attention']},"
+              f" nearest_codes {path.vq}, every other 0)", flush=True)
+        if got != want:
+            fail(f"{path.name} {label} launched the kernels {got}, not {want}")
+        if not (np.isfinite(images).all() and images.min() >= 0.0 and images.max() <= 1.0):
+            fail(f"{path.name} samples are not finite values in [0, 1]")
+        if not (out_dir / "grid.png").exists():
+            fail(f"{path.name}: generate wrote no grid.png")
+    return {"counts": counts, "walls_s": walls, "model": model}
+
+
+def derive_latent_configs() -> dict:
+    """Each latent config with its autoencoder restored from [10]'s VQ-VAE run
+    (``<name>_cifar10_ae.json``), and the same with a random autoencoder
+    (``<name>_cifar10_random_ae.json``, the resume's: its checkpoint holds the AE), both in
+    chiprun_out/chip_smoke/ (no file is added under configs/)."""
+    out = {}
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    for name, path in LDM_CONFIGS.items():
+        config = json.loads(path.read_text())
+        pair = []
+        for suffix, run in (("ae", AE_RUN), ("random_ae", None)):
+            config["model"]["args"]["autoencoder"] = {
+                "config_path": str(VQVAE_CONFIG), "experiment_name": run, "which": "last"}
+            derived = OUT_DIR / f"{name}_cifar10_{suffix}.json"
+            derived.write_text(json.dumps(config, indent=4) + "\n")
+            pair.append(derived)
+        out[name] = tuple(pair)
+    return out
+
+
+SLICE_PATHS = {
+    "edm": SlicePath("EDM", EDM_CONFIG, "EDM", "chip_smoke_edm", EDM_STEPS, EDM_RESUME_STEPS,
+                     6, 35, [([], 35)]),
+    "ct": SlicePath("ConsistencyModel", CT_CONFIG, "ConsistencyModel", "chip_smoke_ct",
+                    CT_STEPS, CT_RESUME_STEPS, 6, 2,
+                    [(["--sampler", "multistep"], 2), (["--sampler", "onestep"], 1)]),
+}
+
+
+def latent_paths(configs: dict) -> list:
+    evals = {"ldm": 50, "ledm": 35, "lfm": 50}
+    return [SlicePath(name.upper(), configs[name][0],
+                      {"ldm": "LatentDiffusion", "ledm": "LatentEDM",
+                       "lfm": "LatentFlowMatching"}[name], f"chip_smoke_{name}", LATENT_STEPS,
+                      LATENT_RESUME_STEPS, 2, evals[name], [([], evals[name])], vq=1,
+                      resume_config=configs[name][1]) for name in ("ldm", "ledm", "lfm")]
+
+
+def check_resume_restores_autoencoder(torch, model) -> None:
+    """The resumed latent model was built with a random autoencoder (its config names no
+    run); its checkpoint put back the one it trained with, [10]'s VQ-VAE."""
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    ae = load_model(load_config(VQVAE_CONFIG)["model"], device="cuda")
+    random_ae = {k: v.clone() for k, v in ae.net.state_dict().items()}
+    CheckpointManager(EXPERIMENT_DIR / "VQVAE" / AE_RUN / "checkpoints").restore(ae)
+    same = all(torch.equal(v, ae.net.state_dict()[k]) for k, v in model.ae.net.state_dict().items())
+    was_random = any(not torch.equal(v, random_ae[k]) for k, v in model.ae.net.state_dict().items())
+    print(f"  {type(model).__name__} resumed from a random-autoencoder config: its autoencoder "
+          f"equals {AE_RUN}'s last checkpoint {same}, differs from the random one "
+          f"{was_random}", flush=True)
+    if not (same and was_random):
+        fail("the resumed latent model's autoencoder is not the one of its checkpoint")
+
+
+def sample_breakdown(torch, card: str, config_path: Path, label: str, out_name: str,
+                     repeats: int = 3, **sample_kwargs) -> dict:
+    """Samples/s at bs64 of the config's model built (EMA weights from a seed), median of
+    ``repeats`` after a warm-up, then one batch under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    model = load_model(load_config(config_path)["model"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run():
+        model.sample(gen, MAIN_BATCH, **sample_kwargs)
+        torch.cuda.synchronize()
+
+    run()
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print(f"  {label} bs{MAIN_BATCH} bf16: {wall:.4f} s median of {[round(w, 4) for w in walls]}"
+          f", {MAIN_BATCH / wall:.2f} samples/s on {card}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    summary = profile_summary(torch, prof, wall_us, f"{label} bs{MAIN_BATCH}", out_name, card)
+    return {"samples_per_s": MAIN_BATCH / wall, "s_per_batch": wall, **summary}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2773,7 +3273,60 @@ def main() -> None:
 
     print("[28] WGAN-GP CIFAR-10 train throughput and where the time goes", flush=True)
     wgan_stats = wgan_breakdown(torch, card)
+    print(f"  phases 1-28 took {time.perf_counter() - started:.1f} s", flush=True)
+
+    print("[29] kernels #1, #2 and #6 at the slice's new shapes against their plain versions",
+          flush=True)
+    t_slice = time.perf_counter()
+    t0 = time.perf_counter()
+    latent_stats = check_latent_kernel_shapes(torch, la, vq)
+    print(f"  [29] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("[30] the slice at its configs' widths, card against CPU, f32", flush=True)
+    check_slice_card_vs_cpu(torch)
+
+    slice_runs = {}
+    for key, phase, what in (("edm", 31, "Heun-18"), ("ct", 32, "multistep and onestep")):
+        path = SLICE_PATHS[key]
+        print(f"[{phase}] {path.name} path ({path.config.name}): train {path.steps} steps "
+              f"bs{TRAIN_BATCH} bf16, resume to {path.steps + path.resume_steps}, generate "
+              f"{what} bs64", flush=True)
+        t0 = time.perf_counter()
+        slice_runs[key] = slice_train_path(torch, card, path)
+        print(f"  [{phase}] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print(f"[33] the latent paths on {AE_RUN}'s autoencoder (LDM, LEDM, LFM), then VAE and "
+          f"VQGAN with LPIPS: train, resume, generate", flush=True)
+    t0 = time.perf_counter()
+    latent_configs = derive_latent_configs()
+    for path in latent_paths(latent_configs):
+        slice_runs[path.model] = slice_train_path(torch, card, path)
+        check_resume_restores_autoencoder(torch, slice_runs[path.model]["model"])
+    for path in (SlicePath("VAE", VAE_CONFIG, "VAE", "chip_smoke_vae", VAE_STEPS,
+                           VAE_RESUME_STEPS, 0, 0, [([], 0)]),
+                 SlicePath("VQGAN-LPIPS", VQGAN_LPIPS_CONFIG, "VQGAN", "chip_smoke_vqgan_lpips",
+                           LPIPS_STEPS, LPIPS_RESUME_STEPS, 0, 0, [([], 0)], vq_step=1)):
+        slice_runs[path.name] = slice_train_path(torch, card, path)
+    print(f"  [33] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("[34] the slice's throughput and where the time goes", flush=True)
+    t0 = time.perf_counter()
+    slice_stats = {
+        "edm_train": train_breakdown(torch, card, steps=10, repeats=2, config_path=EDM_CONFIG,
+                                     out_name="edm_train_profile.txt"),
+        "edm_heun18": sample_breakdown(torch, card, EDM_CONFIG, "EDM Heun-18",
+                                       "edm_sample_profile.txt", repeats=2),
+        "ct_train": train_breakdown(torch, card, steps=10, repeats=2, config_path=CT_CONFIG,
+                                    out_name="ct_train_profile.txt"),
+        "ldm_train": train_breakdown(torch, card, steps=10, repeats=2,
+                                     config_path=latent_configs["ldm"][1],
+                                     out_name="ldm_train_profile.txt"),
+    }
+    print(f"  [34] took {time.perf_counter() - t0:.1f} s; phases 29-34 took "
+          f"{time.perf_counter() - t_slice:.1f} s", flush=True)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
+    slice_counts = {f"{key}_{run}": got for key, res in slice_runs.items()
+                    for run, got in res["counts"].items()}
 
     kernels = [{
         "name": "linear_attention",
@@ -2783,7 +3336,8 @@ def main() -> None:
         "launches": launches,
         "launches_by_path": {"generate": launches,
                              "train": train_counts["train"]["forward"],
-                             "resume": train_counts["resume"]["forward"]},
+                             "resume": train_counts["resume"]["forward"]}
+                            | {k: v["linear_attention"] for k, v in slice_counts.items()},
         "max_abs_err": la_stats["max_abs_err"],
         "ms": la_stats["ms"],
         "plain_ms": la_stats["plain_ms"],
@@ -2794,6 +3348,8 @@ def main() -> None:
         "ms_is": "the six calls of one UNet evaluation at batch 64, bf16",
         "worst_rel_err": la_stats["worst_rel_err"],
         "shapes": la_stats["shapes"],
+        "slice_shapes": latent_stats["linear_attention"]["shapes"],
+        "slice_worst_rel_err": latent_stats["linear_attention"]["worst_rel_err"],
     }, {
         "name": "linear_attention_bwd",
         "route": "cuda",
@@ -2802,7 +3358,8 @@ def main() -> None:
         "launches": train_counts["train"]["backward"],
         "launches_by_path": {"generate": 0,
                              "train": train_counts["train"]["backward"],
-                             "resume": train_counts["resume"]["backward"]},
+                             "resume": train_counts["resume"]["backward"]}
+                            | {k: v["linear_attention_bwd"] for k, v in slice_counts.items()},
         "max_abs_err": bwd_stats["max_abs_err"],
         "ms": bwd_stats["ms"],
         "plain_ms": bwd_stats["plain_ms"],
@@ -2813,13 +3370,17 @@ def main() -> None:
         "ms_is": "the six calls of one train step at batch 128, bf16",
         "worst_rel_err": bwd_stats["worst_rel_err"],
         "shapes": bwd_stats["shapes"],
+        "slice_shapes": latent_stats["linear_attention_bwd"]["shapes"],
+        "slice_worst_rel_err": latent_stats["linear_attention_bwd"]["worst_rel_err"],
     }, {
         "name": "vq_nearest",
         "route": "cuda",
         "source": "lightning_generative_models_tpu_torch/csrc/vq.cu",
         "replaces": "lightning_generative_models_tpu/ops/vq.py:23",
         "launches": vq_counts["vqvae"],
-        "launches_by_path": {**vq_counts, "generate": 0},
+        "launches_by_path": {**vq_counts, "generate": 0}
+                            | {k: v["nearest_codes"] for k, v in slice_counts.items()
+                               if v["nearest_codes"]},
         "max_abs_err": vq_stats["max_abs_err"],
         "ms": vq_stats["ms"],
         "plain_ms": vq_stats["plain_ms"],
@@ -2832,7 +3393,7 @@ def main() -> None:
         "library_is": "torch.addmm(|e|^2, z, e^T, alpha=-2).argmin(1)",
         "bound_is": "2 N K D flops at 165 TFLOP/s f32-accurate (3xTF32 on the tensor cores)",
         "fma_bound_ms": vq_stats["fma_ops_ms"],
-        "shapes": vq_stats["shapes"],
+        "shapes": vq_stats["shapes"] + latent_stats["vq"],
     }, {
         "name": "attention_qkv",
         "route": "cuda",
@@ -2937,7 +3498,8 @@ def main() -> None:
     print(json.dumps({"train": train_stats, "vq_train": vq_train_stats, "dit": dit_stats,
                       "fm_dit_flash": fm_stats, "dcgan": dcgan_stats, "wgan_gp": wgan_stats,
                       "gan_family_entry_point_walls_s": gan_walls,
-                      "gan_family_launches": gan_counts}))
+                      "gan_family_launches": gan_counts, "slice": slice_stats,
+                      "slice_walls_s": {k: v["walls_s"] for k, v in slice_runs.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -195,7 +195,7 @@ cudaError_t dispatch(int c, const void* x, const float* g0, const float* wqkv,
 }
 
 bool shape_ok(int b, int n, int c, int m) {
-  return b >= 1 && b <= 65535 && n >= kTile && n % kTile == 0 && m >= 1 &&
+  return b >= 1 && b <= 65535 && n >= kSub && n % kSub == 0 && m >= 1 &&
          (c == 64 || c == 128 || c == 256);
 }
 
@@ -211,7 +211,7 @@ extern "C" size_t lgm_linear_attention_fwd_workspace(int b, int n, int c, int m,
 // x, out: [b, n, c] in f32 (bf16 == 0) or bf16 (bf16 == 1), which is also the compute type.
 // g0, bo, g1: [c]; wqkv: [c, 384]; mem_kv: [2, 4, 32, m]; wo: [128, c]; all f32.
 // workspace: at least lgm_linear_attention_fwd_workspace bytes, 256-byte aligned. Heads 4,
-// dim_head 32, c in {64, 128, 256}, n a multiple of 32. Launches on `stream` and returns
+// dim_head 32, c in {64, 128, 256}, n a multiple of 16. Launches on `stream` and returns
 // the first CUDA error.
 extern "C" int lgm_linear_attention_fwd(const void* x, const void* g0, const void* wqkv,
                                         const void* mem_kv, const void* wo, const void* bo,

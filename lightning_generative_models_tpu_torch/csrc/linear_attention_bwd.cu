@@ -466,7 +466,9 @@ la_bwd_token_b_kernel(const T* __restrict__ x, const float* __restrict__ g0,
 
 // (8, 9) out[split] = A[tokens of the split]ᵀ B[tokens of the split]: A [K][M] (row stride
 // lda), B [K][N] (ldb), both T; a 64 x NB tile of the [M, N] output a block, warp w its
-// rows 16 w .. 16 w + 15; the split's tokens through a two-stage cp.async ring of 32.
+// rows 16 w .. 16 w + 15; the split's tokens through a two-stage cp.async ring of 32. The
+// token count is a multiple of 16, not always of 32 (b n with n = 16 and b odd): the rows of
+// a stage past the split's end are zeros, which add nothing to the products.
 constexpr int kGemmStage = 32;
 
 template <typename T, int NB>
@@ -494,13 +496,15 @@ la_bwd_atb_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B, int
   auto fetch = [&](int slot, int k0) {
     for (int i = threadIdx.x; i < kGemmStage * kPa; i += 128) {
       const int r = i / kPa, c = i % kPa;
+      const bool live = k0 + r < k_end;
       tc::cp_async16(a_s + (slot * kGemmStage + r) * L::kLa + c * kVec,
-                     A + static_cast<size_t>(k0 + r) * lda + m0 + c * kVec, true);
+                     A + static_cast<size_t>(live ? k0 + r : k0) * lda + m0 + c * kVec, live);
     }
     for (int i = threadIdx.x; i < kGemmStage * kPb; i += 128) {
       const int r = i / kPb, c = i % kPb;
+      const bool live = k0 + r < k_end;
       tc::cp_async16(b_s + (slot * kGemmStage + r) * L::kLb + c * kVec,
-                     B + static_cast<size_t>(k0 + r) * ldb + n0 + c * kVec, true);
+                     B + static_cast<size_t>(live ? k0 + r : k0) * ldb + n0 + c * kVec, live);
     }
   };
   float acc[NB / 8][4];
@@ -546,7 +550,7 @@ la_bwd_atb_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B, int
 struct Splits {
   int splits, chunk;
   Splits(int tiles, int tokens) {
-    const int stages = tokens / kGemmStage;
+    const int stages = (tokens + kGemmStage - 1) / kGemmStage;
     int s = (2 * kSMs + tiles - 1) / tiles;
     if (s > stages) s = stages;
     chunk = (stages + s - 1) / s * kGemmStage;
@@ -708,7 +712,7 @@ cudaError_t dispatch(int c, const void* x, const float* g0, const float* wqkv,
 }
 
 bool shape_ok(int b, int n, int c, int m) {
-  return b >= 1 && b <= 65535 && n >= kTile && n % kTile == 0 && m >= 1 && m <= 8 &&
+  return b >= 1 && b <= 65535 && n >= kSub && n % kSub == 0 && m >= 1 && m <= 8 &&
          (c == 64 || c == 128 || c == 256);
 }
 
@@ -725,7 +729,7 @@ extern "C" size_t lgm_linear_attention_bwd_workspace(int b, int n, int c, int m,
 // g0, bo, g1: [c]; wqkv: [c, 384]; mem_kv: [2, 4, 32, m]; wo: [128, c]; all f32, as are
 // the gradients dg0, dw, dmem, dwo, dbo, dg1 of the same shapes. workspace: at least
 // lgm_linear_attention_bwd_workspace bytes, 256-byte aligned. Heads 4, dim_head 32,
-// c in {64, 128, 256}, n a multiple of 32, 1 <= m <= 8. Launches on `stream` and returns
+// c in {64, 128, 256}, n a multiple of 16, 1 <= m <= 8. Launches on `stream` and returns
 // the first CUDA error.
 extern "C" int lgm_linear_attention_bwd(const void* x, const void* g0, const void* wqkv,
                                         const void* mem_kv, const void* wo, const void* bo,

@@ -50,8 +50,7 @@ constexpr int kHeads = 4;
 constexpr int kDimHead = 32;
 constexpr int kHD = kHeads * kDimHead;  // 128
 constexpr int kQKV = 3 * kHD;           // Wqkv columns: q | k | v, each head-major
-constexpr int kTile = 32;               // n must be a multiple of this
-constexpr int kSub = 16;                // tokens of a warp's subtile: the rows of an mma
+constexpr int kSub = 16;                // tokens of a subtile, the rows of an mma: n is a multiple
 constexpr int kWarps = 4;               // warps of a block: one a head
 constexpr int kSMs = 132;
 constexpr int kMaxSmem = 232448;        // dynamic shared memory of a block, bytes

@@ -1,7 +1,8 @@
 """Sampling CLI of the port: generate a grid of images from a config.
 
 Counterpart of the repo's ``generate.py``. Samples N images with the model's
-``sample`` (a DDPM's or FlowMatching's EMA weights; a VQ model decodes random codes) and
+``sample`` (a diffusion, flow, EDM or consistency model's EMA weights, decoded by its frozen
+autoencoder for a latent model; a VQ model decodes random codes; a VAE random latents) and
 writes a grid PNG. The weights come from ``--weights``, an ``.npz`` with "/"-joined keys
 read by the model's ``load_flax_weights`` (a DDPM or FlowMatching: the flax tree of
 ``state.ema_params`` alone; a VQ-VAE or VQGAN: the whole flattened ``TrainState``), or,
@@ -10,9 +11,9 @@ an ``.npz`` written where JAX runs (README, "Continuing a JAX run in the port").
 ``--sampler``, ``--sampling_steps``, ``--label`` and ``--guidance_scale`` are refused for
 models whose sampling does not take them, as the JAX ``generate.py`` refuses them (a CGAN
 or ACGAN takes ``--label``; CycleGAN, which translates, raises ``NotImplementedError`` as
-its ``sample`` does); a diffusion model
-refuses the flow solvers' names and a flow model the diffusion samplers', with the JAX
-package's messages.
+its ``sample`` does); each sampling family (diffusion, flow matching, EDM, consistency)
+refuses the others' sampler names with the JAX package's messages. A latent model's
+``--weights`` is its whole flattened ``TrainState``, the autoencoder inside it.
 
     python -m lightning_generative_models_tpu_torch.generate \
         --config_path configs/diffusion/ddim_cifar10.json --num_samples 64 [--device cuda]
@@ -53,11 +54,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="classifier-free guidance scale for --label (default: the "
                         "model config's guidance_scale)")
     parser.add_argument("--sampler", type=str, default="auto",
-                        choices=["auto", "ddpm", "ddim", "dpmpp", "euler", "midpoint", "heun"],
+                        choices=["auto", "ddpm", "ddim", "dpmpp", "euler", "midpoint", "heun",
+                                 "onestep", "multistep"],
                         help="auto keeps each model's convention (diffusion: DDIM iff "
-                        "sampling_timesteps < T; flow matching: the configured solver); "
-                        "dpmpp: DPM-Solver++(2M); euler/midpoint/heun: the flow-matching "
-                        "ODE solvers. Each family refuses the other's samplers")
+                        "sampling_timesteps < T; flow matching and EDM: the configured "
+                        "solver; consistency: multistep iff sampling_steps > 1); dpmpp: "
+                        "DPM-Solver++(2M); euler/midpoint/heun: the flow-matching ODE "
+                        "solvers (EDM: heun/euler); onestep/multistep: the consistency "
+                        "samplers. Each family refuses the others' samplers")
     parser.add_argument("--sampling_steps", type=int, default=0,
                         help="override the sampler's step count (0 = the config's "
                         "sampling_timesteps or sampling_steps); ancestral ddpm always runs "

@@ -5,7 +5,9 @@ constructor's UNet and DiT branches with the same argument checks, the apply clo
 (``_apply_fn``, ``_guided_apply_fn`` for classifier-free guidance), the train step as
 ``grad_step`` + ``apply_grad_step`` (Adam, then the EMA: a hard copy up to
 ``ema_update_after_step``, then a decay every ``ema_update_every`` steps), ``eval_step``
-with the EMA weights, ``sample``, ``sample_classes`` and ``sample_raw``. The EMA
+with the EMA weights, ``sample``, ``sample_classes`` and ``sample_raw``, each through the
+diffusion-space hooks ``_to_diffusion_space`` / ``_from_diffusion_space`` (identities here;
+``LatentDiffusion`` runs the same steps in a frozen autoencoder's latent space). The EMA
 weights are a second copy of the denoiser (``ema_unet``, the name the JAX package gives
 the UNet and the DiT alike); the JAX package keeps them as
 ``TrainState.ema_params``. The model owns its step counter (``step``), as the JAX
@@ -199,6 +201,15 @@ class DDPM(GenerativeModel):
 
         return apply
 
+    # -- diffusion-space hooks (identities in pixel space) -----------------------------
+    def _to_diffusion_space(self, x01: torch.Tensor) -> torch.Tensor:
+        """A [0, 1] image batch into the space the process diffuses in."""
+        return x01
+
+    def _from_diffusion_space(self, z: torch.Tensor) -> torch.Tensor:
+        """A sample of the process back to [0, 1] images."""
+        return z
+
     def null_labels(self, batch: int) -> torch.Tensor:
         """The learned null (unconditional) token, broadcast to a batch."""
         return torch.full((batch,), self.unet.null_class, dtype=torch.long, device=self.device)
@@ -227,18 +238,18 @@ class DDPM(GenerativeModel):
         batch: Dict,
         generator: Optional[torch.Generator] = None,
         flip: Optional[torch.Tensor] = None,
-        t: Optional[torch.Tensor] = None,
-        noise: Optional[torch.Tensor] = None,
         drop: Optional[torch.Tensor] = None,
+        **loss_draws,
     ):
         """Gradients of the training loss on a uint8 batch, without changing the
         weights. The random draws (the flip, the classifier-free-guidance label drop,
-        then the loss's t and noise, in that order) come from ``generator`` unless
-        given: ``flip`` [B] bool, ``t`` [B], ``noise`` of the
-        batch's shape, ``drop`` [B] bool. Returns (grads, {"loss": loss})."""
+        then the loss's, in that order) come from ``generator`` unless given: ``flip``
+        [B] bool, ``drop`` [B] bool, and ``loss_draws`` as the process's ``p_losses``
+        names them (GaussianDiffusion: ``t`` [B] and ``noise`` of the batch's shape).
+        Returns (grads, {"loss": loss})."""
         batch = self._on_device(batch)
         prepared = prepare_batch(batch, generator, train=True, flip=flip)
-        x01 = prepared["image"]
+        x01 = self._to_diffusion_space(prepared["image"])
 
         labels = None
         if self.num_classes:
@@ -251,15 +262,17 @@ class DDPM(GenerativeModel):
 
         params = self._trainable()
         loss = self.diffusion.p_losses(self._apply_fn(self.unet, labels), x01, generator,
-                                       t=t, noise=noise)
+                                       **loss_draws)
+        return self._grads(loss, params), {"loss": loss.detach()}
+
+    def _grads(self, loss: torch.Tensor, params: list) -> list:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # Contiguous, as the parameters and Adam's moments are: cuDNN returns the conv
         # kernels' grads in channels-last strides, and a stride that differs from the
         # moments' sends Adam's foreach ops down their per-tensor path (a launch per
         # parameter and op).
-        grads = [torch.zeros_like(p) if g is None else g.contiguous()
-                 for p, g in zip(params, grads)]
-        return grads, {"loss": loss.detach()}
+        return [torch.zeros_like(p) if g is None else g.contiguous()
+                for p, g in zip(params, grads)]
 
     def _trainable(self) -> list:
         return [p for p in self.unet.parameters() if p.requires_grad]
@@ -300,15 +313,16 @@ class DDPM(GenerativeModel):
         self,
         batch: Dict,
         generator: Optional[torch.Generator] = None,
-        t: Optional[torch.Tensor] = None,
-        noise: Optional[torch.Tensor] = None,
+        **loss_draws,
     ) -> Dict[str, torch.Tensor]:
         """Validation loss of the EMA weights on a uint8 batch (no flip, no label
-        drop); t and noise from ``generator`` unless given."""
+        drop); the loss's draws (``loss_draws``, as in ``grad_step``) from ``generator``
+        unless given."""
         prepared = prepare_batch(self._on_device(batch), train=False)
+        x01 = self._to_diffusion_space(prepared["image"])
         labels = prepared["label"].long() if self.num_classes else None
-        loss = self.diffusion.p_losses(self._apply_fn(self.ema_unet, labels),
-                                       prepared["image"], generator, t=t, noise=noise)
+        loss = self.diffusion.p_losses(self._apply_fn(self.ema_unet, labels), x01,
+                                       generator, **loss_draws)
         return {"val_loss": loss}
 
     # -- checkpoint state ------------------------------------------------------------
@@ -359,10 +373,10 @@ class DDPM(GenerativeModel):
             return self.sample_classes(
                 generator, labels, method=method, steps=steps, x_T=x_T
             )
-        return self.diffusion.sample(
+        return self._from_diffusion_space(self.diffusion.sample(
             self._apply_fn(self.ema_unet), num_samples, generator,
             method=method, steps=steps, x_T=x_T,
-        )
+        ))
 
     @torch.inference_mode()
     def sample_classes(
@@ -381,9 +395,9 @@ class DDPM(GenerativeModel):
         labels = torch.as_tensor(labels, device=self.device).long()
         w = self.guidance_scale if guidance_scale is None else guidance_scale
         apply_fn = self._guided_apply_fn(self.ema_unet, labels, w)
-        return self.diffusion.sample(
+        return self._from_diffusion_space(self.diffusion.sample(
             apply_fn, labels.shape[0], generator, method=method, steps=steps, x_T=x_T
-        )
+        ))
 
     def validation_grids(self, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         """Per-class grid (row r: 4 guided samples of class r), conditional models
@@ -402,4 +416,5 @@ class DDPM(GenerativeModel):
             apply_fn = self._guided_apply_fn(self.unet, labels, self.guidance_scale)
         else:
             apply_fn = self._apply_fn(self.unet)
-        return self.diffusion.sample(apply_fn, num_samples, generator, **kwargs)
+        return self._from_diffusion_space(
+            self.diffusion.sample(apply_fn, num_samples, generator, **kwargs))

@@ -12,8 +12,9 @@ The JAX samplers are one ``lax.scan`` over a host-computed node table; here a Py
 loop over the same f32 table, with the per-step scalars in f32 as the scan has them.
 The random draws come from an explicit ``torch.Generator``, or are passed in (``t`` and
 ``noise`` for ``p_losses``, ``x_T`` for ``sample``), so that a test can hand both
-implementations the same numbers. ``interpolate`` and ``LatentFlowMatching`` are not
-ported yet.
+implementations the same numbers. ``LatentFlowMatching`` runs the flow in a frozen
+autoencoder's latent space (``LatentDiffusion``'s hooks). ``interpolate`` is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ import torch
 
 from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
 from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import ApplyFn
+from lightning_generative_models_tpu_torch.models.diffusion.latent_diffusion import (
+    LatentDiffusion,
+)
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 
 SOLVERS = ("euler", "midpoint", "heun")
@@ -229,5 +233,51 @@ class FlowMatching(DDPM):
             logit_normal_mean=logit_normal_mean,
             logit_normal_std=logit_normal_std,
             time_scale=time_scale,
+            device=self.device,
+        )
+
+
+class LatentFlowMatching(LatentDiffusion):
+    """Rectified flow in a frozen VQ autoencoder's latent space: ``LatentDiffusion``'s
+    hooks with ``RectifiedFlow`` (``auto_normalize=False``; the linear path assumes
+    latents scaled to about unit variance). The JAX constructor's arguments, plus
+    ``device``."""
+
+    def __init__(
+        self,
+        img_channels: int = 3,
+        img_size: int = 64,
+        autoencoder: Optional[dict] = None,
+        latent_scale: float = 1.0,
+        dim_mults=(1, 2, 4),
+        sampling_steps: int = 50,
+        solver: str = "euler",
+        time_sampling: str = "logit_normal",
+        logit_normal_mean: float = 0.0,
+        logit_normal_std: float = 1.0,
+        time_scale: float = 1000.0,
+        device: str | torch.device = "cuda",
+        **ddpm_kwargs,
+    ):
+        super().__init__(
+            img_channels=img_channels,
+            img_size=img_size,
+            autoencoder=autoencoder,
+            latent_scale=latent_scale,
+            dim_mults=dim_mults,
+            self_condition=False,
+            device=device,
+            **ddpm_kwargs,
+        )
+        self.diffusion = RectifiedFlow(
+            img_size=self.latent_hw,
+            channels=self.latent_c,
+            sampling_steps=sampling_steps,
+            solver=solver,
+            time_sampling=time_sampling,
+            logit_normal_mean=logit_normal_mean,
+            logit_normal_std=logit_normal_std,
+            time_scale=time_scale,
+            auto_normalize=False,
             device=self.device,
         )

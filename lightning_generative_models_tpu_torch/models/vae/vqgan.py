@@ -9,7 +9,9 @@ Counterpart of ``lightning_generative_models_tpu/models/vae/vqgan.py``:
   are the JAX package's;
 - the adaptive adversarial weight
   ``lambda = clip(||d L_rec / d W|| / (||d L_adv / d W|| + 1e-4), 0, 1e4) * disc_weight``
-  on the decoder's last transposed-conv kernel W.
+  on the decoder's last transposed-conv kernel W, where L_rec is taming's nll: the L1
+  reconstruction plus ``perceptual_weight`` times the mean LPIPS distance
+  (``metrics/lpips.py``, frozen, part of the checkpoint) when that weight is positive.
 
 The JAX step takes the two gradient norms from two extra forward passes with the
 codebook as it was before the step (``train=False``). With the plain codebook that
@@ -17,9 +19,6 @@ pass computes what the training pass computes, so the port reads both norms from
 training pass's graph (``retain_graph``): one codebook search per step. With the EMA
 codebook the training pass moves the codebook first, so the port runs one extra
 eval-mode pass before it and reads both norms from that: two searches per step.
-
-The perceptual (LPIPS) term waits for the metrics slice: ``perceptual_weight > 0``
-raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lightning_generative_models_tpu_torch.metrics.lpips import LPIPS
 from lightning_generative_models_tpu_torch.models.modules.layers import (
     Conv,
     GroupNorm,
@@ -89,16 +89,14 @@ class VQGAN(VQVAE):
         perceptual_weight: float = 0.0,
         **vqvae_kwargs,
     ):
-        if perceptual_weight > 0:
-            raise NotImplementedError(
-                "VQGAN's perceptual (LPIPS) term is not yet ported to the PyTorch package; "
-                "see ROADMAP.md, Queue 1 (metrics/lpips.py)")
         self.disc_start = disc_start
         self.disc_weight = disc_weight
         self.perceptual_weight = perceptual_weight
         self.disc_lr = disc_lr or vqvae_kwargs.get("lr", 1e-4)
         self.disc = NLayerDiscriminator(vqvae_kwargs.get("img_channels", 3))
         super().__init__(**vqvae_kwargs)
+        # Frozen, and drawn once here: a run's init_params leaves it as it is.
+        self.lpips = LPIPS(device=self.device).net if perceptual_weight > 0 else None
 
     def init_params(self, generator: Optional[torch.Generator] = None) -> None:
         """The VQ-VAE's weights, then the discriminator's, from one CPU generator; fresh
@@ -117,13 +115,25 @@ class VQGAN(VQVAE):
     def flax_layout(self) -> dict:
         layout = super().flax_layout()
         layout["params"]["params/disc"] = self.disc
+        if self.lpips is not None:
+            layout["params"]["mutable/lpips"] = self.lpips
         layout["adam"]["opt_state/disc"] = (self.disc_optimizer, {"": self.disc})
         return layout
 
+    def _nll(self, x_hat: torch.Tensor, x: torch.Tensor):
+        """(recon_loss, perceptual_loss, nll): the L1 reconstruction, the mean LPIPS
+        distance in model space (None without the perceptual term) and recon +
+        perceptual_weight * perceptual."""
+        recon_loss = torch.mean(torch.abs(x_hat - x))
+        if self.lpips is None:
+            return recon_loss, None, recon_loss
+        p_loss = torch.mean(self.lpips(x_hat, x))
+        return recon_loss, p_loss, recon_loss + self.perceptual_weight * p_loss
+
     # -- steps ---------------------------------------------------------------------
-    def _adaptive_weight(self, recon_loss, g_adv, retain: bool) -> torch.Tensor:
+    def _adaptive_weight(self, nll, g_adv, retain: bool) -> torch.Tensor:
         kernel = self.decoder.last_kernel
-        (g_rec,) = torch.autograd.grad(recon_loss, kernel, retain_graph=True)
+        (g_rec,) = torch.autograd.grad(nll, kernel, retain_graph=True)
         (g_adv_grad,) = torch.autograd.grad(g_adv, kernel, retain_graph=retain)
         weight = torch.clamp(_norm(g_rec) / (_norm(g_adv_grad) + 1e-4), 0.0, 1e4)
         return weight.detach() * self.disc_weight
@@ -137,14 +147,14 @@ class VQGAN(VQVAE):
 
         if self.use_ema:  # the norms from the codebook as it is before this step
             x_hat, _, _ = self._forward(x, False)
-            adaptive_w = self._adaptive_weight(torch.mean(torch.abs(x_hat - x)),
+            adaptive_w = self._adaptive_weight(self._nll(x_hat, x)[2],
                                                -torch.mean(self.disc(x_hat)), False)
         x_hat, vq_loss, perplexity = self._forward(x, True)
-        recon_loss = torch.mean(torch.abs(x_hat - x))
+        recon_loss, p_loss, nll = self._nll(x_hat, x)
         g_adv = -torch.mean(self.disc(x_hat))
         if not self.use_ema:
-            adaptive_w = self._adaptive_weight(recon_loss, g_adv, True)
-        loss = (self.loss_weights["recon_loss"] * recon_loss
+            adaptive_w = self._adaptive_weight(nll, g_adv, True)
+        loss = (self.loss_weights["recon_loss"] * nll
                 + self.loss_weights["vq_loss"] * vq_loss
                 + disc_on * adaptive_w * g_adv)
         params = self._trainable()
@@ -160,6 +170,8 @@ class VQGAN(VQVAE):
         metrics = {"loss": loss, "recon_loss": recon_loss, "vq_loss": vq_loss,
                    "perplexity": perplexity, "g_adv_loss": g_adv,
                    "adaptive_weight": adaptive_w, "d_loss": d_loss}
+        if p_loss is not None:
+            metrics["perceptual_loss"] = p_loss
         return self.prefix_metrics({k: v.detach() for k, v in metrics.items()}, "train")
 
     @torch.inference_mode()
@@ -167,18 +179,26 @@ class VQGAN(VQVAE):
                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         x = self.to_model_space(self._x01(batch, None, False, None))
         x_hat, vq_loss, perplexity = self._forward(x, False)
-        recon_loss = torch.mean(torch.abs(x_hat - x))
+        recon_loss, p_loss, _ = self._nll(x_hat, x)
         metrics = {"recon_loss": recon_loss, "vq_loss": vq_loss, "perplexity": perplexity,
                    "g_adv_loss": -torch.mean(self.disc(x_hat)),
                    "loss": recon_loss + vq_loss}
+        if p_loss is not None:
+            metrics["perceptual_loss"] = p_loss
+            metrics["loss"] = metrics["loss"] + self.perceptual_weight * p_loss
         return self.prefix_metrics(metrics, "val")
 
     # -- checkpoint state ------------------------------------------------------------
     def state_dict(self) -> dict:
-        return {**super().state_dict(), "disc": self.disc.state_dict(),
-                "disc_optimizer": self.disc_optimizer.state_dict()}
+        state = {**super().state_dict(), "disc": self.disc.state_dict(),
+                 "disc_optimizer": self.disc_optimizer.state_dict()}
+        if self.lpips is not None:
+            state["lpips"] = self.lpips.state_dict()
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         super().load_state_dict(state)
         self.disc.load_state_dict(state["disc"])
         self.disc_optimizer.load_state_dict(state["disc_optimizer"])
+        if self.lpips is not None:
+            self.lpips.load_state_dict(state["lpips"])

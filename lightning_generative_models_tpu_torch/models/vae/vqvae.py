@@ -186,12 +186,15 @@ class VQVAE(GenerativeModel):
         return prepare_batch(self._on_device(batch), generator, train=train,
                              flip=flip)["image"]
 
-    def _forward(self, x: torch.Tensor, train: bool):
-        """Model-space x -> (x_hat, vq_loss, perplexity); the EMA codebook moves only
-        when ``train``."""
-        latents = self.encoder(x)
+    def _apply_vq(self, latents: torch.Tensor, train: bool):
+        """The quantizer on encoder latents: (q, vq_loss, perplexity); the EMA codebook
+        moves only when ``train``. ``LatentDiffusion`` decodes through it."""
         self.vq.train(train)
-        q, vq_loss, perplexity = self.vq(latents)
+        return self.vq(latents)
+
+    def _forward(self, x: torch.Tensor, train: bool):
+        """Model-space x -> (x_hat, vq_loss, perplexity)."""
+        q, vq_loss, perplexity = self._apply_vq(self.encoder(x), train)
         return self.decoder(q), vq_loss, perplexity
 
     def _loss(self, x01: torch.Tensor, train: bool):

@@ -28,7 +28,7 @@ _EPS = 1e-12
 KERNEL_HEADS = 4
 KERNEL_DIM_HEAD = 32
 KERNEL_CHANNELS = (64, 128, 256)
-KERNEL_TILE = 32  # n must be a multiple of this
+KERNEL_TILE = 16  # n must be a multiple of this: the kernels' 16-token subtile
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_BWD_MAX_MEM = 8  # memory tokens the backward kernel takes
 

@@ -31,6 +31,16 @@ _PORTED = {
     "DDPM": ("lightning_generative_models_tpu_torch.models.diffusion.ddpm", "DDPM"),
     "FlowMatching": ("lightning_generative_models_tpu_torch.models.diffusion.flow_matching",
                      "FlowMatching"),
+    "LatentFlowMatching": (
+        "lightning_generative_models_tpu_torch.models.diffusion.flow_matching",
+        "LatentFlowMatching"),
+    "LatentDiffusion": ("lightning_generative_models_tpu_torch.models.diffusion.latent_diffusion",
+                        "LatentDiffusion"),
+    "EDM": ("lightning_generative_models_tpu_torch.models.diffusion.edm", "EDM"),
+    "LatentEDM": ("lightning_generative_models_tpu_torch.models.diffusion.edm", "LatentEDM"),
+    "ConsistencyModel": ("lightning_generative_models_tpu_torch.models.diffusion.consistency",
+                         "ConsistencyModel"),
+    "VAE": ("lightning_generative_models_tpu_torch.models.vae.vae", "VAE"),
     "VQVAE": ("lightning_generative_models_tpu_torch.models.vae.vqvae", "VQVAE"),
     "VQGAN": ("lightning_generative_models_tpu_torch.models.vae.vqgan", "VQGAN"),
 }

@@ -7,8 +7,8 @@ exactly), gradient accumulation by concatenated micro-batches or by summed
 micro-batch gradients (``auto`` picks as the JAX trainer does), the SIGTERM path that
 saves first and skips validation, the epoch-boundary ``last`` save, ``best`` by the
 model's monitored metric, ``resume`` and ``ckpt_path``, validation, the sample grid
-(conditional models) the per-class grid from the EMA weights, the codebook table
-(VQ models), and ``images_per_sec`` in the logged metrics.
+(conditional models) the per-class grid from the EMA weights, the latent table (VAE)
+and the codebook table (VQ models), and ``images_per_sec`` in the logged metrics.
 
 Randomness: where the JAX trainer folds the step into its run key, each step here
 draws from a generator seeded by (seed, stream, step), so a resumed run draws what
@@ -265,12 +265,19 @@ class Trainer:
         return means
 
     def _log_tables(self) -> None:
-        """The codebook table of the VQ models, at every validation."""
-        if not hasattr(self.model, "codebook_table"):
-            return
-        codebook = self.model.codebook_table()
-        cols = [f"d{i}" for i in range(codebook.shape[1])]
-        self.logger.log_table("codebook", cols, codebook.tolist(), self.global_step)
+        """At every validation: the latent means of the first validation batch's 256
+        first images with their labels (a VAE), the codebook (a VQ model)."""
+        if hasattr(self.model, "encode_for_logging"):
+            batch = next(iter(self.datamodule.val_batches()))
+            latents = self.model.encode_for_logging(batch)
+            cols = [f"z{i}" for i in range(latents.shape[1])] + ["label"]
+            rows = [list(map(float, z)) + [int(label)]
+                    for z, label in zip(latents[:256], np.asarray(batch["label"])[:256])]
+            self.logger.log_table("latent_space", cols, rows, self.global_step)
+        if hasattr(self.model, "codebook_table"):
+            codebook = self.model.codebook_table()
+            cols = [f"d{i}" for i in range(codebook.shape[1])]
+            self.logger.log_table("codebook", cols, codebook.tolist(), self.global_step)
 
     def _log_samples(self) -> None:
         try:

@@ -171,10 +171,12 @@ def load_flax_train_state(model, tree, optimizers: bool = True) -> None:
     ``flax_layout()`` maps it: ``{"params": {tree prefix: module}, "buffers": {tree
     prefix: module}, "tensors": {tree path: tensor}, "adam" / "rmsprop":
     {optimizer-state prefix: (optimizer, {moments subtree: module})}}``; then ``step`` to
-    ``model.step``. A DDPM maps ``params/model`` and ``ema_params``; a VQ-VAE
-    ``params/{encoder,decoder,vq}``, ``mutable/vq/codebook`` and ``opt_state/model``; a
-    VQGAN also ``params/disc`` and ``opt_state/disc``; BEGAN its ``mutable/k_t`` as a
-    tensor. ``optimizers=False`` loads the weights (and the tensors) alone."""
+    ``model.step``. A DDPM (EDM, ConsistencyModel alike) maps ``params/model`` and
+    ``ema_params``, a latent model also its autoencoder's ``mutable/autoencoder/...``; a
+    VAE ``params/{encoder,decoder}``; a VQ-VAE ``params/{encoder,decoder,vq}``,
+    ``mutable/vq/codebook`` and ``opt_state/model``; a VQGAN also ``params/disc`` and
+    ``opt_state/disc`` (and its LPIPS at ``mutable/lpips``); BEGAN its ``mutable/k_t`` as
+    a tensor. ``optimizers=False`` loads the weights (and the tensors) alone."""
     flat = read_tree(tree)
     layout = model.flax_layout()
     for kind, buffers in (("params", False), ("buffers", True)):

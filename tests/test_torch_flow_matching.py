@@ -19,9 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from lightning_generative_models_tpu.models.diffusion import consistency as JCT
+from lightning_generative_models_tpu.models.diffusion import edm as JEDM
 from lightning_generative_models_tpu.models.diffusion import flow_matching as JFM
 from lightning_generative_models_tpu.models.diffusion import gaussian_diffusion as JGD
 from lightning_generative_models_tpu_torch import generate, registry
+from lightning_generative_models_tpu_torch.models.diffusion import consistency as TCT
+from lightning_generative_models_tpu_torch.models.diffusion import edm as TEDM
 from lightning_generative_models_tpu_torch.models.diffusion import flow_matching as TFM
 from lightning_generative_models_tpu_torch.models.diffusion import gaussian_diffusion as TGD
 from lightning_generative_models_tpu_torch.weights import load_flax_train_state
@@ -143,16 +147,23 @@ def test_generate_heun_on_cpu(tmp_path):
 
 def test_solver_name_errors_are_jax_messages():
     """The flow refuses unknown settings and the diffusion samplers' names with JAX's
-    messages, and the DDPM family refuses the flow solvers' names with JAX's."""
+    messages; the DDPM, EDM and consistency families refuse each other's samplers with
+    JAX's."""
     for kw in ({"solver": "rk4"}, {"time_sampling": "beta"}):
         with pytest.raises(ValueError) as jax_err:
             JFM.RectifiedFlow(8, **kw)
         with pytest.raises(ValueError) as port_err:
             TFM.RectifiedFlow(8, device="cpu", **kw)
         assert str(port_err.value) == str(jax_err.value)
-    families = [(JFM.RectifiedFlow(8), TFM.RectifiedFlow(8, device="cpu"), ("ddim", "dpmpp")),
+    families = [(JFM.RectifiedFlow(8), TFM.RectifiedFlow(8, device="cpu"),
+                 ("ddim", "dpmpp", "onestep")),
                 (JGD.GaussianDiffusion(8, timesteps=10),
-                 TGD.GaussianDiffusion(8, timesteps=10, device="cpu"), TFM.SOLVERS)]
+                 TGD.GaussianDiffusion(8, timesteps=10, device="cpu"),
+                 TFM.SOLVERS + TCT.SOLVERS),
+                (JEDM.EDMProcess(8), TEDM.EDMProcess(8, device="cpu"),
+                 ("ddim", "dpmpp", "midpoint", "onestep")),
+                (JCT.ConsistencyProcess(8), TCT.ConsistencyProcess(8, device="cpu"),
+                 ("ddim", "heun", "euler"))]
     for jax_process, port_process, methods in families:
         for method in methods:
             with pytest.raises(ValueError) as jax_err:
@@ -163,5 +174,6 @@ def test_solver_name_errors_are_jax_messages():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TFM.RectifiedFlow(8, device="cpu").interpolate(None, None, None, None)
     assert registry.resolve_model_class("flowmatching") is TFM.FlowMatching
+    assert registry.resolve_model_class("LatentFlowMatching") is TFM.LatentFlowMatching
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.resolve_model_class("LatentFlowMatching")
+        registry.resolve_model_class("NICE")

@@ -27,3 +27,7 @@ def test_no_jax_imports(path):
 
 def test_port_has_modules():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    for module in ("models/diffusion/edm.py", "models/diffusion/consistency.py",
+                   "models/diffusion/latent_diffusion.py", "models/vae/vae.py",
+                   "metrics/lpips.py"):
+        assert PORT / module in FILES, module

@@ -30,11 +30,15 @@ def _la_args(b, n, c, dtype, heads=4, dim_head=32, m=4, seed=0):
 
 # (b, n, c, m): the UNet's five shapes at b 8; n 32, 96 and 160 (not multiples of 64: a
 # row's 16-token subtiles do not fill a four-warp block evenly) at c 64 and 256; b 1; one
-# memory token, and eight (the backward's most).
+# memory token, and eight (the backward's most); the latent UNet's outer stage, n 16 (one
+# subtile a row) at b 64 and 128, and at b 3 and 1, whose b n tokens are not a multiple of
+# the backward's 32-token GEMM stage; and the consistency model's doubled batch, b 256 at
+# n 1024.
 LA_CASES = [(8, 1024, 64, 4), (8, 256, 64, 4), (8, 256, 128, 4), (8, 64, 128, 4),
             (8, 64, 256, 4), (8, 32, 64, 4), (8, 96, 64, 4), (8, 160, 64, 4), (8, 32, 256, 4),
             (8, 96, 256, 4), (8, 160, 256, 4), (1, 96, 64, 4), (1, 160, 256, 4),
-            (4, 64, 64, 1), (4, 256, 128, 8)]
+            (4, 64, 64, 1), (4, 256, 128, 8), (64, 16, 64, 4), (128, 16, 64, 4),
+            (3, 16, 64, 4), (1, 16, 64, 4), (256, 1024, 64, 4)]
 
 
 # bf16: the kernel keeps q, k, v and y in f32 where the plain version rounds them to
@@ -58,7 +62,7 @@ def test_linear_attention_kernel_matches_plain(b, n, c, m, residual, dtype, tol)
 def test_linear_attention_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
-    args = _la_args(2, 48, 64, torch.float32)  # n not a multiple of 32
+    args = _la_args(2, 40, 64, torch.float32)  # n not a multiple of 16
     with torch.inference_mode(), pytest.raises(ValueError, match="multiple of"):
         TLA.linear_attention(*args, 4, 32, torch.float32)
     args = _la_args(2, 64, 64, torch.float32)
@@ -101,10 +105,11 @@ def test_linear_attention_bwd_kernel_matches_plain(b, n, c, m, residual, dtype, 
 
 
 # The head-scale-disparity input (head 0's q logits ~300x the others', up to ~1e3) in f32
-# at the UNet's five shapes: the gradients against the exact f64 ones, since there the plain
-# f32 version's own rounding, through the near one-hot softmax of head 0, is of the order of
-# the tolerance.
-@pytest.mark.parametrize("n,c", [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256)])
+# at the UNet's five shapes and the latent UNet's n 16: the gradients against the exact
+# f64 ones, since there the plain f32 version's own rounding, through the near one-hot
+# softmax of head 0, is of the order of the tolerance.
+@pytest.mark.parametrize("n,c", [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256),
+                                 (16, 64)])
 def test_linear_attention_bwd_kernel_disparity_matches_exact(n, c):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")

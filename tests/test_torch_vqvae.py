@@ -207,10 +207,15 @@ def test_train_state_npz_loads_and_next_step_matches_jax(jax_models, batch, tmp_
     _check_step(before, _pairs(model, state), metrics, jmetrics)
 
 
-def test_vqgan_perceptual_weight_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model({"name": "VQGAN", "args": {**ARGS, "perceptual_weight": 0.1}},
-                   device="cpu")
+def test_vqgan_perceptual_weight_not_ported(batch):
+    """The perceptual term is ported (``test_torch_vae_lpips.py`` holds it to JAX): the
+    model builds, its frozen LPIPS is in its checkpoint, and ``perceptual_loss`` is in
+    its train and eval metrics."""
+    model = load_model({"name": "VQGAN", "args": {**ARGS, "perceptual_weight": 0.1}},
+                       device="cpu")
+    assert "lpips" in model.state_dict() and model.lpips is not None
+    assert "train_perceptual_loss" in model.train_step(batch, flip=_flip(0))
+    assert "val_perceptual_loss" in model.eval_step(batch)
 
 
 def _tiny_config(tmp_path):

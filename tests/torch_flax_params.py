@@ -40,7 +40,7 @@ def flax_tree(module, flax_shapes, buffers: bool = False) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = value
         shapes[path] = value.shape
-    want = {"/".join(k.key for k in keys): tuple(leaf.shape)
+    want = {"/".join(_key_name(k) for k in keys): tuple(leaf.shape)
             for keys, leaf in jax.tree_util.tree_flatten_with_path(flax_shapes)[0]}
     assert shapes == want, (sorted(set(shapes) ^ set(want)),
                             {p: (shapes.get(p), want.get(p)) for p in want
