@@ -138,7 +138,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      resume, generate, every counter at its worked-out count;
  34. throughput with a profile: EDM train bs128 bf16, Heun-18 samples/s at bs64, CT train
      bs128, LDM train bs128 (busy share, top kernels);
- 35. a JSON line of the kernels, the card's line, and the last line
+ 35. card against CPU, f32 (TF32 off), batch 8, DAE, the UNet autoencoder, PixelCNN, NICE
+     and Glow at their configs' widths (dae, unet, pixelcnn, nice, glow_cifar10; every zero
+     leaf drawn off zero): one train step on the same batch and draws (metrics, gradient
+     and update norms, noise-level elements left out as [26] does); DAE's decode and
+     UNet's reconstruction; NICE's and Glow's z and log-det, inverse(forward(x)) on the
+     card and a sample on a fixed z; PixelCNN's first 32 pixels on fixed Gumbel draws, the
+     card replaying the CPU's picks, every step's logits held;
+ 36. their entry points on 1,024 synthetic images a config: train, resume, generate 64
+     (the UNet autoencoder's generate raises NotImplementedError as JAX's does), every
+     kernel counter set to 0 before each run and held to 0 after: no TPU kernel runs here;
+ 37. Glow CIFAR-10 train bs128 f32 (ms a step, images/s, busy share, launches a step, the
+     top device operations from a one-step profile),
+     Glow's sample at bs64, PixelCNN train bs64 and PixelCNN sampling at bs64 (784
+     forwards) with profiles, and the host syncs of NICE's and Glow's steps;
+ 38. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -298,6 +312,7 @@ PROFILE_GROUPS = {
     "preprocess (csrc/preprocess.cu)": ("normalize_flip_kernel",),
     "optimizer and EMA (foreach)": ("multi_tensor_apply",),
     "convolution (cuDNN)": ("fprop", "convolve", "cudnn", "nhwcAddPadding", "wgrad"),
+    "LU, solves and inverses (cuSOLVER, cuBLAS)": ("getrf", "getrs", "getri", "trsm", "laswp"),
     "matmul (cuBLAS)": ("gemm", "nvjet", "splitKreduce"),
     "elementwise and other": (),
 }
@@ -808,10 +823,12 @@ def train_main_path(torch, la, card: str) -> dict:
 
 
 def train_breakdown(torch, card: str, steps: int = 20, repeats: int = 3, config_path=CONFIG,
-                    out_name: str = "train_profile.txt") -> dict:
-    """Train images/s at batch 128, bf16, of ``config_path``'s model built and warmed up
-    (host clock around ``steps`` steps that end in a synchronize, median of ``repeats``),
-    then one step under torch.profiler (its table to chiprun_out/chip_smoke/<out_name>)."""
+                    out_name: str = "train_profile.txt", precision: str = "bf16") -> dict:
+    """Train images/s at the config's batch (128 but for PixelCNN's 64) of
+    ``config_path``'s model built and warmed up (host clock around ``steps`` steps that end
+    in a synchronize, median of ``repeats``), then one step under torch.profiler (its table
+    to chiprun_out/chip_smoke/<out_name>). ``precision`` labels the printout: the config's
+    (bf16 for the diffusion models)."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightning_generative_models_tpu_torch.config import load_config
@@ -829,25 +846,26 @@ def train_breakdown(torch, card: str, steps: int = 20, repeats: int = 3, config_
             model.train_step(batches[i % len(batches)], gen)
         torch.cuda.synchronize()
 
-    run(5)  # warm-up: cuDNN plans, the allocator
-    # Past the EMA's hard-copy phase, as in a long run: a decay every 10th step.
-    model.step = model.ema_update_after_step
+    run(5)  # warm-up: cuDNN plans, cuSOLVER's lazy load, the allocator
+    if hasattr(model, "ema_update_after_step"):
+        # Past the EMA's hard-copy phase, as in a long run: a decay every 10th step.
+        model.step = model.ema_update_after_step
     walls = []
     for _ in range(repeats):
         t0 = time.perf_counter()
         run(steps)
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    ips = steps * TRAIN_BATCH / wall
-    print(f"  {config['model']['name']} train bs{TRAIN_BATCH} bf16: "
+    n = batches[0]["image"].shape[0]
+    ips = steps * n / wall
+    print(f"  {config['model']['name']} train bs{n} {precision}: "
           f"{1e3 * wall / steps:.2f} ms per step, median of {[round(w, 4) for w in walls]} s "
           f"per {steps} steps, {ips:.1f} images/s on {card}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(1)
         wall_us = 1e6 * (time.perf_counter() - t0)
-    summary = profile_summary(torch, prof, wall_us, f"one train step bs{TRAIN_BATCH}",
-                              out_name, card)
+    summary = profile_summary(torch, prof, wall_us, f"one train step bs{n}", out_name, card)
     return {"images_per_s": ips, "ms_per_step": 1e3 * wall / steps, **summary}
 
 
@@ -3082,9 +3100,10 @@ def check_resume_restores_autoencoder(torch, model) -> None:
 
 
 def sample_breakdown(torch, card: str, config_path: Path, label: str, out_name: str,
-                     repeats: int = 3, **sample_kwargs) -> dict:
+                     repeats: int = 3, precision: str = "bf16", **sample_kwargs) -> dict:
     """Samples/s at bs64 of the config's model built (EMA weights from a seed), median of
-    ``repeats`` after a warm-up, then one batch under torch.profiler."""
+    ``repeats`` after a warm-up, then one batch under torch.profiler; ``precision`` labels
+    the printout."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightning_generative_models_tpu_torch.config import load_config
@@ -3104,7 +3123,8 @@ def sample_breakdown(torch, card: str, config_path: Path, label: str, out_name: 
         run()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    print(f"  {label} bs{MAIN_BATCH} bf16: {wall:.4f} s median of {[round(w, 4) for w in walls]}"
+    print(f"  {label} bs{MAIN_BATCH} {precision}: {wall:.4f} s median of "
+          f"{[round(w, 4) for w in walls]}"
           f", {MAIN_BATCH / wall:.2f} samples/s on {card}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3112,6 +3132,317 @@ def sample_breakdown(torch, card: str, config_path: Path, label: str, out_name: 
         wall_us = 1e6 * (time.perf_counter() - t0)
     summary = profile_summary(torch, prof, wall_us, f"{label} bs{MAIN_BATCH}", out_name, card)
     return {"samples_per_s": MAIN_BATCH / wall, "s_per_batch": wall, **summary}
+
+
+# -- the last five families: DAE, the UNet autoencoder, PixelCNN, NICE, Glow ([35]-[37]) --
+
+FAMILY_CONFIGS = {name: ROOT / "configs" / path for name, path in (
+    ("DAE", "autoencoder/dae.json"), ("UNet", "autoencoder/unet.json"),
+    ("PixelCNN", "autoregressive/pixelcnn.json"), ("NICE", "flow/nice.json"),
+    ("Glow", "flow/glow_cifar10.json"))}
+FAMILY_BATCH = 8  # [35]
+FAMILY_TOL = 1e-3  # f32 card against CPU: metrics, gradient and update norms, chains
+FLOW_TOL = 1e-4  # the flows' z and log-det (of 1 + |ref|) and inverse(forward(x)) on the card
+PIXELCNN_CHAIN = 32  # [35]: the first pixels of a PixelCNN chain, card against CPU
+FAMILY_STEPS, FAMILY_RESUME_STEPS = 12, 4  # [36]
+FAMILY_SYNTHETIC = 1024  # [36]: synthetic images a config stages (the data cut, not widths)
+
+
+def off_zero(torch, net, seed: int, std: float = 0.05) -> None:
+    """Every parameter that starts at exactly 0 (biases, ActNorm, NICE's scale, Glow's
+    zero-initialised coupling convs) drawn on the CPU from N(0, std^2), a kernel's from
+    N(0, std^2 / fan-in): at init most gradients of the flows are exactly 0, and a check
+    there tests almost nothing."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            if not p.detach().any():
+                scale = std * (p[0].numel() ** -0.5 if p.dim() > 1 else 1.0)
+                p.copy_(torch.randn(p.shape, generator=gen) * scale)
+
+
+def family_step_card_vs_cpu(torch, name: str, models: dict, batch: dict, draws: dict) -> None:
+    """One grad_step + apply_grad_step on the CPU and on the card from the same weights,
+    batch and draws: every metric within FAMILY_TOL of 1 + |ref|; each weight's gradient
+    norm, leaving out the weights whose CPU gradient is f32 noise (a norm below 1e-5 of the
+    largest); each weight's update norm, leaving out the elements whose two gradients differ
+    by more than FAMILY_TOL of the CPU's (Adam's first step moves an element by about lr
+    whatever its gradient's size, so f32 noise in a small gradient moves it by up to 2 lr),
+    at most GAN_NOISE_SHARE of the stepped elements, as [26] does."""
+    res = {}
+    for dev, m in models.items():
+        params = list(m.net.parameters())
+        before = [p.detach().cpu().clone() for p in params]
+        grads, metrics = m.grad_step(batch, **draws)
+        grads = [g.cpu() for g in grads]
+        metrics = m.apply_grad_step([g.to(m.device) for g in grads], metrics)
+        res[dev] = (metrics, grads, [p.detach().cpu() - b for p, b in zip(params, before)])
+    (m_ref, g_ref, u_ref), (m_out, g_out, u_out) = res["cpu"], res["cuda"]
+    metric_err = max(_rel(m_out[k], m_ref[k]) for k in m_ref)
+    top = max(float(g.norm()) for g in g_ref)
+    worst, left_out, stepped = (0.0, ""), 0, 0
+    for (pname, _), go, gr, uo, ur in zip(models["cpu"].net.named_parameters(), g_out, g_ref,
+                                          u_out, u_ref):
+        if float(gr.norm()) >= 1e-5 * top:
+            worst = max(worst, (_rel_norm(float(go.norm()), float(gr.norm())),
+                                f"{pname} gradient"))
+        kept = (go - gr).abs() <= FAMILY_TOL * gr.abs()
+        left_out += int((~kept).sum())
+        stepped += kept.numel()
+        worst = max(worst, (_rel_norm(float(uo[kept].norm()), float(ur[kept].norm())),
+                            f"{pname} update"))
+    ok = max(metric_err, worst[0]) <= FAMILY_TOL and left_out <= GAN_NOISE_SHARE * stepped
+    print(f"  {name} train step, card vs CPU: metrics {metric_err:.2e} ("
+          + ", ".join(f"{k} {float(m_out[k]):.5f}" for k in sorted(m_ref))
+          + f"), worst gradient and update norm {worst[0]:.2e} ({worst[1]}; {left_out} of "
+          f"{stepped} stepped elements left out as noise); tol {FAMILY_TOL:.0e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name}: the card's train step disagrees with the CPU's")
+
+
+def pixelcnn_chain(torch, model, gumbel, picks=None) -> tuple:
+    """The first len(gumbel) pixels of ``model``'s raster chain from a blank batch: each
+    pixel's logits (one full forward) and its own Gumbel-max pick; with ``picks`` the chain
+    goes on with those (the CPU's) instead of its own. Returns (logits, own picks, images)."""
+    logits_seen, own = [], []
+    with torch.inference_mode():
+        images = torch.zeros((gumbel.shape[1], model.img_size, model.img_size,
+                              model.img_channels), device=model.device)
+        for idx in range(gumbel.shape[0]):
+            logits = model.pixel_logits(images, idx)
+            pick = torch.argmax(logits + gumbel[idx].to(model.device), dim=-1)
+            logits_seen.append(logits.cpu())
+            own.append(pick.cpu())
+            model.set_pixel(images, idx, pick if picks is None else picks[idx].to(model.device))
+    return torch.stack(logits_seen), torch.stack(own), images.cpu()
+
+
+def check_families_card_vs_cpu(torch) -> None:
+    """[35]: each of the five at its config's widths in f32 (TF32 off), batch 8, the card
+    against the CPU from the same weights (every zero leaf drawn off zero: ``off_zero``):
+    one train step on the same batch and draws (family_step_card_vs_cpu); DAE's decode of
+    fixed noise images and UNet's reconstruction; NICE's and Glow's z and log-det within
+    FLOW_TOL of 1 + |ref| on the prepared batch, ``inverse(forward(x))`` on the card within
+    FLOW_TOL, and a sample on a fixed z; PixelCNN's first PIXELCNN_CHAIN pixels on fixed
+    Gumbel draws, the card replaying the CPU's picks (a near tie of two levels can pick
+    another one on the card, and every later pixel would differ), every step's logits held
+    within FAMILY_TOL of max(1, max |ref|), and the card's own picks counted against the
+    CPU's."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    rs = np.random.RandomState(35)
+    n = FAMILY_BATCH
+    t0 = time.perf_counter()
+
+    def randn(*shape):
+        return torch.tensor(rs.randn(*shape).astype(np.float32))
+
+    for i, (name, path) in enumerate(FAMILY_CONFIGS.items()):
+        cfg = load_config(path)["model"]
+        models = {d: load_model(cfg, device=d) for d in ("cpu", "cuda")}
+        for m in models.values():
+            off_zero(torch, m.net, 35 + i)
+        cpu = models["cpu"]
+        s, c = cpu.img_size, cpu.img_channels
+        batch = {"image": rs.randint(0, 256, (n, s, s, c)).astype(np.uint8),
+                 "label": np.zeros(n, np.int32)}
+        flip = torch.tensor(rs.rand(n) < 0.5)
+        draws = {"DAE": {"flip": flip, "noise": randn(n, s, s, c)}, "UNet": {"flip": flip},
+                 "PixelCNN": {}}.get(name, {"uniform": torch.tensor(rs.rand(n, s, s, c)
+                                                                   .astype(np.float32))})
+        label = f"{name} {path.name} bs{n}"
+        family_step_card_vs_cpu(torch, label, models, batch, draws)
+        if name == "DAE":
+            noise = randn(2, s, s, c)
+            slice_chain_card_vs_cpu(torch, "DAE decode of fixed noise images", models,
+                                    lambda m: m.sample(None, 2, noise=noise))
+        elif name == "UNet":
+            slice_chain_card_vs_cpu(torch, "UNet autoencoder reconstruction", models,
+                                    lambda m: m.reconstruct(batch))
+        elif name == "PixelCNN":
+            gumbel = -torch.log(-torch.log(torch.tensor(
+                rs.rand(PIXELCNN_CHAIN, 2, c, cpu.num_levels).astype(np.float32)
+            ).clamp_min(torch.finfo(torch.float32).tiny)))
+            ref_logits, ref_picks, ref_images = pixelcnn_chain(torch, cpu, gumbel)
+            logits, picks, images = pixelcnn_chain(torch, models["cuda"], gumbel, ref_picks)
+            err = (logits - ref_logits).abs().max().item()
+            scale = max(1.0, ref_logits.abs().max().item())
+            other = int((picks != ref_picks).sum())
+            ok = err <= FAMILY_TOL * scale and torch.equal(images, ref_images)
+            print(f"  PixelCNN chain of the first {PIXELCNN_CHAIN} pixels bs2, the card on the "
+                  f"CPU's picks: logits max_abs_err {err:.3e} (tol {FAMILY_TOL:.0e} x "
+                  f"max(1, max|ref|) = {FAMILY_TOL * scale:.1e}); the card's own picks differ "
+                  f"at {other} of {picks.numel()}; images equal {torch.equal(images, ref_images)}"
+                  f" {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail("PixelCNN: card and CPU chains disagree")
+        else:
+            prep = {d: (m._flatten(batch["image"]) if name == "NICE"
+                        else m._prepare(batch["image"])) for d, m in models.items()}
+            with torch.inference_mode():
+                out = {d: m.net(prep[d]) for d, m in models.items()}
+                z_err = _rel(out["cuda"][0], out["cpu"][0])
+                ld_err = _rel(out["cuda"][1].reshape(-1), out["cpu"][1].reshape(-1))
+                back = models["cuda"].net.inverse(out["cuda"][0])
+                inv_err = (back - prep["cuda"]).abs().max().item()
+            ok = max(z_err, ld_err, inv_err) <= FLOW_TOL
+            print(f"  {name} forward, card vs CPU: z {z_err:.2e}, log-det {ld_err:.2e} (of 1 + "
+                  f"|ref|; log-det {float(out['cpu'][1].reshape(-1)[0]):.2f}), inverse(forward(x))"
+                  f" on the card max_abs_err {inv_err:.2e}; tol {FLOW_TOL:.0e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{name}: the card's flow disagrees with the CPU's or does not invert")
+            z = randn(2, s * s * c)
+            slice_chain_card_vs_cpu(torch, f"{name} sample on a fixed z", models,
+                                    lambda m: m.sample(None, 2, z=z))
+    print(f"  [35] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def derive_family_configs() -> dict:
+    """Each config of FAMILY_CONFIGS with its synthetic data cut to FAMILY_SYNTHETIC images
+    (``<name>_synthetic.json`` in chiprun_out/chip_smoke/; no file is added under
+    configs/): the widths and batch as they are."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, path in FAMILY_CONFIGS.items():
+        config = json.loads(path.read_text())
+        config["dataset"]["synthetic_size"] = FAMILY_SYNTHETIC
+        derived = OUT_DIR / f"{path.stem}_synthetic.json"
+        derived.write_text(json.dumps(config, indent=4) + "\n")
+        out[name] = derived
+    return out
+
+
+def family_entry_path(torch, card: str, name: str, config_path: Path) -> dict:
+    """[36]: train FAMILY_STEPS steps (a validation, a grid of 64 but for the UNet
+    autoencoder, checkpoints), a --resume to FAMILY_STEPS + FAMILY_RESUME_STEPS, then
+    generate 64 (the UNet autoencoder's raises NotImplementedError with JAX's text), every
+    kernel counter set to 0 before each run and held to 0 after it. Returns the walls."""
+    import math
+
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch import generate, train
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    run = f"chip_smoke_{name.lower()}"
+    run_dir = EXPERIMENT_DIR / name / run
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--config_path", str(config_path), "--experiment_name", run, "--device", "cuda",
+            "--check_val_every_n_epoch", "1000", "--sample_every_n_steps", "0"]
+    walls, counts = {}, {}
+    total = FAMILY_STEPS + FAMILY_RESUME_STEPS
+    for label, steps, extra in (("train", FAMILY_STEPS, []), ("resume", total, ["--resume"])):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        model = train.main(argv + ["--max_steps", str(steps)] + extra)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        counts[label] = read_counts()
+        if model.step != steps:
+            fail(f"the {name} {label} run ended at step {model.step}, not {steps}")
+    records = read_metrics(run_dir)
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    val = [{k: round(v, 4) for k, v in r.items() if k.startswith("val_")} for r in records
+           if any(k.startswith("val_") for k in r)]
+    grids = len(list((run_dir / "samples").glob("random_generation_*.png")))
+    print(f"  {name}: train {FAMILY_STEPS} steps {walls['train']:.1f} s, resume to {total} "
+          f"{walls['resume']:.1f} s (model build, data, validation, grid, checkpoints); "
+          f"train_loss {[round(v, 4) for v in losses]}; validation {val}; {grids} grids",
+          flush=True)
+    want_grids = 0 if name == "UNet" else 2
+    if not all(math.isfinite(v) for v in losses) or len(val) != 2 or grids != want_grids:
+        fail(f"{name}: a loss is not finite, or not one validation and grid per run")
+    for which in ("last", "best"):
+        if not (run_dir / "checkpoints" / f"checkpoint_meta_{which}.json").exists():
+            fail(f"{name}: no {which} checkpoint meta")
+    argv = ["--config_path", str(config_path), "--num_samples", "64", "--device", "cuda",
+            "--seed", "0", "--out", str(OUT_DIR / run)]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    if name == "UNet":
+        try:
+            generate.main(argv)
+            fail("the UNet autoencoder's generate did not raise")
+        except NotImplementedError as err:
+            print(f"  UNet generate raises NotImplementedError: {err}", flush=True)
+            if str(err) != "UNet autoencoder has no generative prior":
+                fail("the UNet autoencoder's generate raised another text than JAX's")
+    else:
+        images = generate.main(argv)
+        torch.cuda.synchronize()
+        walls["generate"] = time.perf_counter() - t0
+        print(f"  {name} generate bs64: {images.shape} in {walls['generate']:.2f} s (model "
+              f"build, init and PNG included)", flush=True)
+        if not (np.isfinite(images).all() and images.min() >= 0.0 and images.max() <= 1.0):
+            fail(f"{name} samples are not finite values in [0, 1]")
+    counts["generate"] = read_counts()
+    if any(any(c.values()) for c in counts.values()):
+        fail(f"{name}'s paths launched a TPU kernel's counterpart: {counts}")
+    print(f"  {name}: every kernel counter 0 on train, resume and generate", flush=True)
+    return walls
+
+
+def glow_syncs(torch, configs: dict) -> dict:
+    """NICE's and Glow's train_step once each (after a warm-up step) under
+    torch.cuda.set_sync_debug_mode("warn"): the host syncs it reports, by message."""
+    import warnings
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    out = {}
+    for name in ("NICE", "Glow"):
+        config = load_config(configs[name])
+        model = load_model(config["model"], device="cuda")
+        batch = {k: torch.as_tensor(v).cuda() for k, v in
+                 next(DataModule(**config["dataset"]).train_batches(0)).items()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model.train_step(batch, gen)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                model.train_step(batch, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        msgs = {}
+        for w in caught:
+            text = str(w.message).splitlines()[0][:120]
+            if not text.startswith("Synchronization debug mode is a prototype"):
+                msgs[text] = msgs.get(text, 0) + 1
+        out[name] = msgs
+        print(f"  {name} train_step under set_sync_debug_mode('warn'): {sum(msgs.values())} "
+              f"host syncs {msgs}", flush=True)
+    return out
+
+
+def family_breakdown(torch, card: str, configs: dict) -> dict:
+    """[37]: Glow CIFAR-10 training at bs128; Glow's sample at bs64; PixelCNN training at
+    bs64; PixelCNN sampling at bs64 (after a warm-up batch, one batch of 784 forwards
+    timed, one under torch.profiler); the host syncs of NICE's and Glow's steps."""
+    stats = {"glow_train": train_breakdown(
+        torch, card, steps=20, repeats=3, config_path=configs["Glow"], precision="f32",
+        out_name="glow_train_profile.txt")}
+    stats["glow_sample"] = sample_breakdown(torch, card, FAMILY_CONFIGS["Glow"], "Glow sample",
+                                            "glow_sample_profile.txt", repeats=2,
+                                            precision="f32")
+    stats["pixelcnn_train"] = train_breakdown(
+        torch, card, steps=20, repeats=2, config_path=configs["PixelCNN"],
+        precision="f32", out_name="pixelcnn_train_profile.txt")
+    stats["pixelcnn_sample"] = sample_breakdown(
+        torch, card, FAMILY_CONFIGS["PixelCNN"], "PixelCNN sample (784 forwards)",
+        "pixelcnn_sample_profile.txt", repeats=1, precision="f32")
+    stats["syncs"] = glow_syncs(torch, configs)
+    return stats
 
 
 def main() -> None:
@@ -3324,6 +3655,23 @@ def main() -> None:
     }
     print(f"  [34] took {time.perf_counter() - t0:.1f} s; phases 29-34 took "
           f"{time.perf_counter() - t_slice:.1f} s", flush=True)
+
+    print("[35] DAE, the UNet autoencoder, PixelCNN, NICE and Glow at their configs' widths, "
+          "card against CPU, f32", flush=True)
+    t_families = time.perf_counter()
+    check_families_card_vs_cpu(torch)
+    print(f"[36] their entry points: train {FAMILY_STEPS} steps, resume to "
+          f"{FAMILY_STEPS + FAMILY_RESUME_STEPS}, generate 64", flush=True)
+    t0 = time.perf_counter()
+    family_configs = derive_family_configs()
+    family_walls = {name: family_entry_path(torch, card, name, path)
+                    for name, path in family_configs.items()}
+    print(f"  [36] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[37] Glow and PixelCNN throughput and where the time goes", flush=True)
+    t0 = time.perf_counter()
+    family_stats = family_breakdown(torch, card, family_configs)
+    print(f"  [37] took {time.perf_counter() - t0:.1f} s; phases 35-37 took "
+          f"{time.perf_counter() - t_families:.1f} s", flush=True)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
     slice_counts = {f"{key}_{run}": got for key, res in slice_runs.items()
                     for run, got in res["counts"].items()}
@@ -3499,7 +3847,8 @@ def main() -> None:
                       "fm_dit_flash": fm_stats, "dcgan": dcgan_stats, "wgan_gp": wgan_stats,
                       "gan_family_entry_point_walls_s": gan_walls,
                       "gan_family_launches": gan_counts, "slice": slice_stats,
-                      "slice_walls_s": {k: v["walls_s"] for k, v in slice_runs.items()}}))
+                      "slice_walls_s": {k: v["walls_s"] for k, v in slice_runs.items()},
+                      "families": family_stats, "family_walls_s": family_walls}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,19 @@ its modules, optimizer and step counter and updates them in place:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch import nn
+
+from lightning_generative_models_tpu_torch.models.modules.layers import init_params
+from lightning_generative_models_tpu_torch.ops.common import resolve_device
+from lightning_generative_models_tpu_torch.train.state import (
+    apply_grads,
+    count_params,
+    make_adam,
+)
+from lightning_generative_models_tpu_torch.weights import load_flax_train_state
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -102,3 +112,65 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     ``max(l, 0) - l t + log(1 + exp(-|l|))``, as the JAX package computes it."""
     return torch.mean(torch.clamp(logits, min=0.0) - logits * targets
                       + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+class AdamModel(GenerativeModel):
+    """A model whose weights are one module, ``net``, under one Adam: the JAX package's
+    ``params={"model": ...}`` and ``opt_state={"model": ...}`` (the autoencoders, PixelCNN,
+    NICE and Glow). It owns the device, the optimizer, the step counter, the checkpoint
+    state and the flax layout; a subclass adds the math, ``grad_step`` among it."""
+
+    def __init__(self, img_channels: int, img_size: int, net: nn.Module, lr: float,
+                 b1: float, b2: float, weight_decay: float,
+                 device: str | torch.device = "cuda"):
+        super().__init__(img_channels, img_size)
+        self.device = resolve_device(device)
+        self.net = net
+        self.lr, self.betas, self.weight_decay = lr, (b1, b2), weight_decay
+        self.init_params()
+
+    def init_params(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw every weight from the CPU ``generator`` (seed 0 when omitted) and start a
+        fresh optimizer at step 0."""
+        init_params(self.net, generator)
+        self.net.to(self.device)
+        self.optimizer = make_adam(list(self.net.parameters()), self.lr, *self.betas,
+                                   weight_decay=self.weight_decay)
+        self.step = 0
+
+    def param_counts(self) -> Dict[str, int]:
+        return {"model": count_params(self.net)}
+
+    def flax_layout(self) -> dict:
+        return {"params": {"params/model": self.net},
+                "adam": {"opt_state/model": (self.optimizer, {"": self.net})}}
+
+    def load_flax_weights(self, tree) -> None:
+        """``generate --weights``: a flattened JAX ``TrainState`` (its ``params``)."""
+        load_flax_train_state(self, tree, optimizers=False)
+
+    def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def _grads(self, loss: torch.Tensor, metrics: Metrics):
+        """(gradients of ``loss`` for every weight of ``net``, detached metrics)."""
+        grads = torch.autograd.grad(loss, list(self.net.parameters()))
+        return list(grads), {k: v.detach() for k, v in metrics.items()}
+
+    def apply_grad_step(self, grads, metrics: Metrics) -> Metrics:
+        apply_grads(self.optimizer, list(self.net.parameters()), grads)
+        self.step += 1
+        return self.prefix_metrics(metrics, "train")
+
+    def train_step(self, batch: Batch, generator: Optional[torch.Generator] = None,
+                   **draws) -> Metrics:
+        return self.apply_grad_step(*self.grad_step(batch, generator, **draws))
+
+    def state_dict(self) -> dict:
+        return {"net": self.net.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.net.load_state_dict(state["net"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])

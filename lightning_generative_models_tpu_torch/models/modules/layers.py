@@ -37,14 +37,15 @@ class Conv(nn.Module):
     """flax ``nn.Conv`` on NHWC input, at any stride. With "SAME" padding lax pads
     (low, high) per axis by ``same_padding``, asymmetric for an even kernel at stride 1
     (4x4: (1, 2)); "VALID" pads nothing. The kernel is stored OIHW and drawn from
-    N(0, std^2) (``std`` None: fan-in^-1/2); input, kernel and bias are cast to
-    ``dtype`` as flax's ``dtype=``."""
+    N(0, std^2) (``std`` None: fan-in^-1/2; ``zero_init``: zeros, flax's
+    ``kernel_init=zeros``); input, kernel and bias are cast to ``dtype`` as flax's
+    ``dtype=``."""
 
     FLAX_LEAVES = {"weight": ("kernel", "conv"), "bias": ("bias", None)}
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  dtype: torch.dtype = torch.float32, bias: bool = True, stride: int = 1,
-                 padding: str = "SAME", std: Optional[float] = None):
+                 padding: str = "SAME", std: Optional[float] = None, zero_init: bool = False):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"Conv padding is SAME or VALID, got {padding!r}")
@@ -53,12 +54,16 @@ class Conv(nn.Module):
         self.stride = stride
         self.padding = padding
         self.std = std
+        self.zero_init = zero_init
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        std = self.weight[0].numel() ** -0.5 if self.std is None else self.std
-        normal_(self.weight, std, generator)
+        if self.zero_init:
+            self.weight.data.zero_()
+        else:
+            std = self.weight[0].numel() ** -0.5 if self.std is None else self.std
+            normal_(self.weight, std, generator)
         if self.bias is not None:
             self.bias.data.zero_()
 

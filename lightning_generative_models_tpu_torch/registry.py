@@ -1,9 +1,8 @@
 """Model registry: config name -> model class.
 
 Counterpart of ``lightning_generative_models_tpu/registry.py``, with the same
-case-insensitive table of names. Only the names the port implements resolve; every
-other registered name raises ``NotImplementedError``, and an unknown name raises
-``ValueError`` listing the valid choices.
+case-insensitive table of names: every one resolves to the port's class, and an unknown
+name raises ``ValueError`` listing the valid choices.
 """
 
 from __future__ import annotations
@@ -13,16 +12,8 @@ from typing import Any, Dict
 
 import torch
 
-# Every name of the JAX package's registry.
-_NAMES = (
-    "GAN", "CGAN", "InfoGAN", "DCGAN", "LSGAN", "WGAN", "R1GAN", "CycleGAN", "SGAN",
-    "ACGAN", "BEGAN", "VAE", "VQVAE", "VQGAN", "DDPM", "LatentDiffusion",
-    "FlowMatching", "LatentFlowMatching", "EDM", "LatentEDM", "ConsistencyModel",
-    "DAE", "UNet", "PixelCNN", "NICE", "Glow",
-)
-
-# name -> (module path, class name) for the names ported so far.
-_PORTED = {
+# Every name of the JAX package's registry -> (module path, class name).
+_MODELS = {
     "GAN": ("lightning_generative_models_tpu_torch.models.gan.gan", "GAN"),
     "DCGAN": ("lightning_generative_models_tpu_torch.models.gan.dcgan", "DCGAN"),
     **{name: (f"lightning_generative_models_tpu_torch.models.gan.{name.lower()}", name)
@@ -43,13 +34,19 @@ _PORTED = {
     "VAE": ("lightning_generative_models_tpu_torch.models.vae.vae", "VAE"),
     "VQVAE": ("lightning_generative_models_tpu_torch.models.vae.vqvae", "VQVAE"),
     "VQGAN": ("lightning_generative_models_tpu_torch.models.vae.vqgan", "VQGAN"),
+    "DAE": ("lightning_generative_models_tpu_torch.models.autoencoder.dae", "DAE"),
+    "UNet": ("lightning_generative_models_tpu_torch.models.autoencoder.unet", "UNetAE"),
+    "PixelCNN": ("lightning_generative_models_tpu_torch.models.autoregressive.pixelcnn",
+                 "PixelCNN"),
+    "NICE": ("lightning_generative_models_tpu_torch.models.flow.nice", "NICE"),
+    "Glow": ("lightning_generative_models_tpu_torch.models.flow.glow", "Glow"),
 }
 
-_LOWER = {k.lower(): k for k in _NAMES}
+_LOWER = {k.lower(): k for k in _MODELS}
 
 
 def available_models() -> list[str]:
-    return sorted(_NAMES)
+    return sorted(_MODELS)
 
 
 def resolve_model_class(name: str) -> Any:
@@ -58,11 +55,7 @@ def resolve_model_class(name: str) -> Any:
         raise ValueError(
             f"Unknown model '{name}'. Available: {', '.join(available_models())}"
         )
-    if key not in _PORTED:
-        raise NotImplementedError(
-            f"Model '{key}' is not yet ported to the PyTorch package, see ROADMAP.md"
-        )
-    module_path, class_name = _PORTED[key]
+    module_path, class_name = _MODELS[key]
     return getattr(importlib.import_module(module_path), class_name)
 
 

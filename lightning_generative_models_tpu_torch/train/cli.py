@@ -7,7 +7,7 @@ The flags keep ``train.py``'s names for what is ported, and add ``--device`` (cu
 default; cpu only when asked). What is not ported raises ``NotImplementedError``
 naming ROADMAP.md: ``--strategy`` fsdp/tp/pp (the port trains on one device),
 ``--unroll_steps`` above 1, ``--profile_steps``, ``--eval``, bf16 ``--mu_dtype`` /
-``--nu_dtype``, and the models that ``registry.py`` does not port yet. Runs write to
+``--nu_dtype``. Runs write to
 ``experiments/<model name>/<experiment_name>/``: ``metrics.jsonl``,
 ``samples/*.png``, ``checkpoints/{last,best}`` and their meta files.
 """
@@ -103,7 +103,7 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         refuse("--profile_steps")
     if args.eval_split:
         refuse("--eval")
-    resolve_model_class(args.config["model"]["name"])  # raises for what is not ported
+    resolve_model_class(args.config["model"]["name"])  # raises for an unknown name
     set_default_mu_dtype(None if args.mu_dtype == "float32" else args.mu_dtype)
     set_default_nu_dtype(None if args.nu_dtype == "float32" else args.nu_dtype)
 

@@ -175,5 +175,6 @@ def test_solver_name_errors_are_jax_messages():
         TFM.RectifiedFlow(8, device="cpu").interpolate(None, None, None, None)
     assert registry.resolve_model_class("flowmatching") is TFM.FlowMatching
     assert registry.resolve_model_class("LatentFlowMatching") is TFM.LatentFlowMatching
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.resolve_model_class("NICE")
+    assert registry.resolve_model_class("NICE").__module__.endswith("models.flow.nice")
+    with pytest.raises(ValueError, match="Unknown model"):
+        registry.resolve_model_class("RealNVP")

@@ -233,17 +233,28 @@ def test_networks_forward_match_jax(jax_models, name):
     rs = np.random.RandomState(2)
     z = rs.randn(B, jmodel.latent_dim).astype(np.float32)
     x = rs.uniform(-1, 1, (B, *jmodel.image_shape())).astype(np.float32)
-    for net, jnet, inp in ((model.G, jmodel.G, z), (model.D, jmodel.D, x)):
+
+    @jax.jit
+    def references(state, inputs):
+        """Both nets in train mode (with the statistics they move) and in eval mode."""
+        out = {}
+        for key, inp in inputs.items():
+            jnet = getattr(jmodel, key)
+            variables = {"params": state.params[key], **state.mutable[key]}
+            if state.mutable[key]:
+                out[key, True] = jnet.apply(variables, inp, train=True,
+                                            mutable=("batch_stats",))
+            else:
+                out[key, True] = jnet.apply(variables, inp, train=True), {}
+            out[key, False] = jnet.apply(variables, inp, train=False), {}
+        return out
+
+    refs = jax.device_get(references(state, {"G": jnp.asarray(z), "D": jnp.asarray(x)}))
+    for net, inp in ((model.G, z), (model.D, x)):
         key = "G" if net is model.G else "D"
-        variables = {"params": state.params[key], **state.mutable[key]}
-        apply = jax.jit(jnet.apply, static_argnames=("train", "mutable"))
         before = {k: v.clone() for k, v in net.state_dict().items()}
         for train in (True, False):
-            if train and state.mutable[key]:
-                ref, updated = apply(variables, jnp.asarray(inp), train=True,
-                                     mutable=("batch_stats",))
-            else:
-                ref, updated = apply(variables, jnp.asarray(inp), train=train), {}
+            ref, updated = refs[key, train]
             net.train(train)
             out = net(torch.tensor(inp)).detach().numpy()
             ref = np.asarray(ref)
@@ -291,17 +302,25 @@ def test_eval_step_and_sample_match_jax(jax_models, name):
     model = _port(name, state)
     before = {k: v.clone() for k, v in {**model.G.state_dict(), **model.D.state_dict()}.items()}
 
-    jmetrics = jax.jit(jmodel.eval_step)(state, jbatch, RNG)
-    z_eval = torch.tensor(np.asarray(jmodel.sample_z(jax.random.fold_in(RNG, 1), B)))
-    metrics = model.eval_step(batch, z=z_eval)
+    rng = jax.random.PRNGKey(11)
+
+    @jax.jit
+    def references(state, batch):
+        """eval_step and its z, sample and its z: one program."""
+        return {"eval": jmodel.eval_step(state, batch, RNG),
+                "z_eval": jmodel.sample_z(jax.random.fold_in(RNG, 1), B),
+                "sample": jmodel.sample(state, rng, 5), "z": jmodel.sample_z(rng, 5)}
+
+    refs = jax.device_get(references(state, jbatch))
+    jmetrics = refs["eval"]
+    metrics = model.eval_step(batch, z=torch.tensor(refs["z_eval"]))
     assert set(metrics) == set(jmetrics)
     for key, value in jmetrics.items():
         np.testing.assert_allclose(float(metrics[key]), float(value), rtol=1e-5, atol=1e-6,
                                    err_msg=key)
 
-    rng = jax.random.PRNGKey(11)
-    ref = np.asarray(jax.jit(jmodel.sample, static_argnums=2)(state, rng, 5))
-    images = model.sample(None, 5, z=torch.tensor(np.asarray(jmodel.sample_z(rng, 5))))
+    ref = refs["sample"]
+    images = model.sample(None, 5, z=torch.tensor(refs["z"]))
     assert images.shape == ref.shape
     np.testing.assert_allclose(images.numpy(), ref, atol=1e-5)
     after = {**model.G.state_dict(), **model.D.state_dict()}

@@ -72,15 +72,22 @@ def test_generate_cuda_without_gpu_raises(tiny_run):
 
 
 def test_registry_resolves_ported_and_rejects_the_rest():
+    """All 26 names of the JAX package's registry resolve, case-insensitively, to classes
+    of the port; an unknown name raises ValueError."""
+    from lightning_generative_models_tpu.registry import available_models as jax_models
+
     assert registry.resolve_model_class("ddpm").__name__ == "DDPM"
     assert registry.resolve_model_class("gan").__name__ == "GAN"
     assert registry.resolve_model_class("DCGAN").__name__ == "DCGAN"
     for name in ("LSGAN", "WGAN", "R1GAN", "CGAN", "InfoGAN", "ACGAN", "SGAN", "BEGAN",
-                 "CycleGAN"):
+                 "CycleGAN", "DAE", "PixelCNN", "NICE", "Glow"):
         assert registry.resolve_model_class(name.lower()).__name__ == name
+    assert registry.resolve_model_class("unet").__name__ == "UNetAE"
+    assert registry.available_models() == sorted(jax_models())
     assert len(registry.available_models()) == 26
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.resolve_model_class("NICE")
+    for name in registry.available_models():
+        cls = registry.resolve_model_class(name)
+        assert cls.__module__.startswith("lightning_generative_models_tpu_torch."), name
     with pytest.raises(ValueError, match="Unknown model"):
         registry.resolve_model_class("NoSuchModel")
 

@@ -29,5 +29,7 @@ def test_port_has_modules():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
     for module in ("models/diffusion/edm.py", "models/diffusion/consistency.py",
                    "models/diffusion/latent_diffusion.py", "models/vae/vae.py",
-                   "metrics/lpips.py"):
+                   "metrics/lpips.py", "models/autoencoder/dae.py",
+                   "models/autoencoder/unet.py", "models/autoregressive/pixelcnn.py",
+                   "models/flow/nice.py", "models/flow/glow.py"):
         assert PORT / module in FILES, module

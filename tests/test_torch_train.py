@@ -81,10 +81,13 @@ def _rel_to_max(port, ref):
     return float((port - ref).abs().max() / (1.0 + ref.abs().max()))
 
 
-def test_prepare_batch_and_p_losses_match_jax(jax_setup):
+def test_prepare_batch_and_p_losses_match_jax(jax_setup, jitted):
+    """The flipped batch bit for bit, q_sample, and p_losses on JAX's draws: JAX's loss is
+    its grad_step's on the same key (prepare_batch, then p_losses), the module's one
+    compiled grad_step."""
     model, state, batch = jax_setup
     rng = jax.random.PRNGKey(7)
-    draws, loss_rng = _draws(rng, 0, (B, 16, 16, 3))
+    draws, _ = _draws(rng, int(state.step), (B, 16, 16, 3))
     jflip = jnp.asarray(draws["flip"].numpy()).reshape(-1, 1, 1, 1)
     x01 = np.asarray(jax_prepare({"image": jnp.asarray(batch["image"])}, None)["image"])
     x01 = np.where(np.asarray(jflip), x01[:, :, ::-1], x01)
@@ -101,9 +104,8 @@ def test_prepare_batch_and_p_losses_match_jax(jax_setup):
 
     with torch.no_grad():
         loss = ddpm.diffusion.p_losses(ddpm._apply_fn(ddpm.unet), port_x01, t=t, noise=noise)
-    jloss = jax.jit(lambda params, x, r: model.diffusion.p_losses(
-        model._apply_fn(params), x, r))(state.params["model"], jnp.asarray(x01), loss_rng)
-    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _, jmetrics = jitted[0](state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+    np.testing.assert_allclose(float(loss), float(jmetrics["loss"]), rtol=1e-5)
 
 
 def test_grad_step_matches_jax_grad(jax_setup, jitted):
@@ -361,7 +363,7 @@ def test_sigterm_saves_first_and_skips_validation(tmp_path, monkeypatch):
     ["--strategy", "fsdp"], ["--strategy", "tp"], ["--strategy", "pp"],
     ["--unroll_steps", "2"], ["--profile_steps", "1:2"], ["--eval", "test"],
     ["--mu_dtype", "bfloat16"], ["--nu_dtype", "bfloat16"],
-    ["--config_path", str(ROOT / "configs" / "flow" / "nice.json")],
+    ["--config_path", str(ROOT / "configs" / "diffusion" / "dit_moe_cifar10.json")],
 ])
 def test_refused_flags_raise_not_implemented(tmp_path, monkeypatch, flags):
     monkeypatch.setattr(cli, "EXPERIMENT_DIR", tmp_path / "experiments")

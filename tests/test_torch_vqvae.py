@@ -146,10 +146,24 @@ def test_three_train_steps_match_jax(jax_models, batch, name):
 
 @pytest.mark.parametrize("name", ["vqvae", "vqvae_ema", "vqgan"])
 def test_eval_reconstruct_and_decode_match_jax(jax_models, batch, name):
+    """eval_step, reconstruct and a decode of fixed codes one step in; JAX's three in one
+    jitted program."""
     jmodel, state, train_step = jax_models[name]
-    state, _ = train_step(state, {k: jnp.asarray(v) for k, v in batch.items()}, RNG)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    state, _ = train_step(state, jbatch, RNG)
     model = _port(name, state)
-    jmetrics = jmodel.eval_step(state, {k: jnp.asarray(v) for k, v in batch.items()}, RNG)
+    idx = np.random.RandomState(1).randint(0, 16, (3, 4, 4))
+
+    @jax.jit
+    def references(state, batch, idx):
+        codebook = jmodel._codebook(state)
+        decoded = jmodel.decoder.apply({"params": state.params["decoder"]}, codebook[idx])
+        return {"eval": jmodel.eval_step(state, batch, RNG), "codebook": codebook,
+                "reconstruct": jmodel.reconstruct(state, {"image": batch["image"]}),
+                "decode": jmodel.to_image_space(decoded)}
+
+    refs = jax.device_get(references(state, jbatch, jnp.asarray(idx)))
+    jmetrics = refs["eval"]
     before = {k: v.clone() for k, v in model.net.state_dict().items()}
     metrics = model.eval_step(batch)
     assert set(metrics) == set(jmetrics)
@@ -159,19 +173,14 @@ def test_eval_reconstruct_and_decode_match_jax(jax_models, batch, name):
         assert torch.equal(v, before[k])
 
     # Images in [0, 1] from f32 conv stacks summed in another order: 5e-5.
-    ref = np.asarray(jmodel.reconstruct(state, {"image": jnp.asarray(batch["image"])}))
-    np.testing.assert_allclose(model.reconstruct(batch).numpy(), ref, atol=5e-5)
-
-    idx = np.random.RandomState(1).randint(0, 16, (3, 4, 4))
-    codebook = jmodel._codebook(state)
-    jdec = jmodel.to_image_space(jmodel.decoder.apply(
-        {"params": state.params["decoder"]}, codebook[jnp.asarray(idx)]))
-    np.testing.assert_allclose(model.decode_codes(torch.tensor(idx)).numpy(),
-                               np.asarray(jdec), atol=5e-5)
+    np.testing.assert_allclose(model.reconstruct(batch).numpy(), refs["reconstruct"],
+                               atol=5e-5)
+    np.testing.assert_allclose(model.decode_codes(torch.tensor(idx)).numpy(), refs["decode"],
+                               atol=5e-5)
     images = model.sample(torch.Generator().manual_seed(0), 5)
     assert images.shape == (5, 32, 32, 3)
     assert 0.0 <= float(images.min()) <= float(images.max()) <= 1.0
-    np.testing.assert_allclose(model.codebook_table(), np.asarray(codebook), atol=0)
+    np.testing.assert_allclose(model.codebook_table(), refs["codebook"], atol=0)
 
 
 @pytest.mark.parametrize("name", ["vqvae_ema", "vqgan"])
