@@ -152,7 +152,36 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      top device operations from a one-step profile),
      Glow's sample at bs64, PixelCNN train bs64 and PixelCNN sampling at bs64 (784
      forwards) with profiles, and the host syncs of NICE's and Glow's steps;
- 38. a JSON line of the kernels, the card's line, and the last line
+ 38. InceptionV3 (the FID/KID/IS extractor) at 299 x 299, bs8, f32 (TF32 off), card
+     against CPU on the same He-scaled random weights (BatchNorms drawn off their
+     defaults): the ingestion of uint8 32 px images and the features and logits, within
+     1e-3 of 1 + |ref|; then metrics.verify's stage 1 on the card (the reference
+     torchvision-layout net through torchmetrics' ingestion against the port's extractor
+     through load_torch_weights) and its stage 2 (a local pytorch-fid file, if any);
+ 39. kernels #3 and #4 against their plain versions at the DiT-MoE shape (b 128, n 256,
+     h 8, d 48, h3d, bf16), with their times, bounds and scaled_dot_product_attention's;
+ 40. card against CPU, f32, bs4, the full-width DiT-MoE of configs/diffusion/
+     dit_moe_cifar10.json (8 experts on the 6 odd blocks, weights moved off adaLN-Zero's
+     zeros): the forward, a 3-step guided DDIM chain and one train step (loss, moe_aux,
+     gradients), the card's MoE layers replaying the CPU's top-1 choices (RouteTape), with
+     the tokens whose route the card's router would change counted and bounded;
+ 41. DiT-MoE paths: generate DDIM-50 guided at bs64 (600 #3 launches), then train
+     DIT_MOE_TRAIN_STEPS steps at bs128 bf16 with validation and a --resume, launch counts
+     held as in 15 (12 #3 and 12 #4 a step), moe_aux logged and finite;
+ 42. FID on a trained model: generate --fid 10000 --fid_batch 256 from [24]'s DCGAN
+     CIFAR-10 run (InceptionV3 at 299 in f32, TF32 off), the artifact's keys and sizes,
+     the wall split into sampling, InceptionV3 and the statistics, every kernel counter
+     0; FID of 24 real against 24 fake images with the same extractor on the card and on
+     the CPU, within FID_REL_TOL relative;
+ 43. GAN validation with the generative metrics: dcgan_cifar10.json with
+     calculate_metrics and metrics [fid, kid, is] (derived into chiprun_out/chip_smoke/)
+     trained DCGAN_METRICS_STEPS steps through one validation (fid_score, mean/std KID and
+     IS logged, finite), then --eval test (test_-prefixed keys);
+ 44. throughput: DiT-MoE train bs128 bf16 (images/s, a step under torch.profiler: busy
+     share, launches), the MoE layers' share of a step's device time (a MoE layer's
+     forward and backward at the step's shape by CUDA events, times six), guided DDIM-50
+     samples/s at bs64, InceptionV3 images/s at bs256 (f32, TF32 off);
+ 45. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -184,6 +213,10 @@ FM_CONFIG = ROOT / "chiprun_out" / "chip_smoke" / "fm_dit_flash_cifar10.json"  #
 FM_RUN = "chip_smoke_fm_dit"  # experiments/FlowMatching/<this>
 DCGAN_CONFIG = ROOT / "configs" / "gan" / "dcgan_cifar10.json"
 DCGAN_RUN = "chip_smoke_dcgan"  # experiments/DCGAN/<this>
+DIT_MOE_CONFIG = ROOT / "configs" / "diffusion" / "dit_moe_cifar10.json"
+DIT_MOE_RUN = "chip_smoke_dit_moe"  # experiments/DDPM/<this>
+DCGAN_METRICS_CONFIG = ROOT / "chiprun_out" / "chip_smoke" / "dcgan_cifar10_metrics.json"
+DCGAN_METRICS_RUN = "chip_smoke_dcgan_metrics"  # experiments/DCGAN/<this>
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time for a kernel's work.
 PEAK_BYTES_PER_S = 3.35e12
@@ -1271,8 +1304,9 @@ def sdpa_views(qkv, heads, layout):
     return [x[:, :, i].transpose(1, 2) for i in range(3)]
 
 
-def check_attention(torch, ta) -> dict:
-    """Kernels #3 and #4 against their plain versions on the card (ATTN_CASES): the
+def check_attention(torch, ta, cases=ATTN_CASES,
+                    main_case=(*ATTN_MAIN, "s3hd", "bfloat16")) -> dict:
+    """Kernels #3 and #4 against their plain versions on the card (``cases``): the
     forward, the backward, bit-identical repeats, and the autograd path (forward kernel +
     backward kernel) against torch autograd through the plain version (f32; in bf16
     against autograd through the plain math in f32 on the same bf16 inputs). Times by
@@ -1280,7 +1314,7 @@ def check_attention(torch, ta) -> dict:
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(12)
     shapes, main = [], {}
-    for b, n, heads, d, layout, dt in ATTN_CASES:
+    for b, n, heads, d, layout, dt in cases:
         dtype = getattr(torch, dt)
         qkv = torch.randn(b, n, 3 * heads * d, device="cuda", generator=gen).to(dtype)
         g = torch.randn(b, n, heads * d, device="cuda", generator=gen).to(dtype)
@@ -1346,7 +1380,7 @@ def check_attention(torch, ta) -> dict:
               f"ms, plain {bwd_plain_ms:.4f} ms, SDPA backward {bwd_library_ms:.4f} ms, bound "
               f"{shape['bwd_bound_ms']:.4f} ms (bytes {bbytes_ms:.4f}, operations "
               f"{bops_ms:.4f})", flush=True)
-        if (b, n, heads, d) == ATTN_MAIN and (layout, dt) == ("s3hd", "bfloat16"):
+        if (b, n, heads, d, layout, dt) == main_case:
             main = shape
     return {**main, "shapes": shapes}
 
@@ -1373,14 +1407,16 @@ def report_close(torch, name: str, out, ref) -> None:
         fail(f"{name}: the two disagree")
 
 
-def report_grad_steps(torch, name: str, models: dict, batch: dict, draws: dict) -> None:
+def report_grad_steps(torch, name: str, models: dict, batch: dict, draws: dict) -> list:
     """One grad_step on the CPU and on the card from the same batch and draws: the loss
-    within DIT_TOL relative, each gradient within DIT_TOL of its largest magnitude."""
+    within DIT_TOL relative, each gradient within DIT_TOL of its largest magnitude.
+    Returns the two steps' metrics, CPU first."""
     import numpy as np
 
-    results = []
+    results, step_metrics = [], []
     for dev in ("cpu", "cuda"):
         grads, metrics = models[dev].grad_step(batch, **draws)
+        step_metrics.append({k: float(v) for k, v in metrics.items()})
         results.append((float(metrics["loss"]), [g.float().cpu() for g in grads]))
     (ref_loss, ref_g), (loss, out_g) = results
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
@@ -1392,6 +1428,7 @@ def report_grad_steps(torch, name: str, models: dict, batch: dict, draws: dict) 
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"{name}: card and CPU disagree")
+    return step_metrics
 
 
 def check_dit_card_vs_cpu(torch) -> None:
@@ -3445,6 +3482,387 @@ def family_breakdown(torch, card: str, configs: dict) -> dict:
     return stats
 
 
+# --- the metrics and DiT-MoE slice: [38]-[44] ---------------------------------------------
+INCEPTION_TOL = 1e-3  # f32 InceptionV3 card against CPU: ingestion, features, logits (1 + |ref|)
+INCEPTION_BATCH = 8  # [38]
+INCEPTION_THROUGHPUT_BATCH = 256  # [44]
+# The DiT-MoE shape of kernels #3 and #4: dit_moe_cifar10 at bs128 (8 heads of d 48, h3d).
+MOE_ATTN_CASE = (128, 256, 8, 48, "h3d", "bfloat16")
+MOE_BATCH = 4  # [40]
+# [40]: most tokens whose top-1 expert the card's own router would change, as a share of
+# the routed tokens: each is a token whose two best router probabilities lie within the
+# f32 difference of the two devices' sums.
+MOE_REPLAY_SHARE = 1e-2
+DIT_MOE_TRAIN_STEPS, DIT_MOE_RESUME_STEPS = 30, 10  # [41]
+FID_N, FID_BATCH = 10000, 256  # [42]
+FID_SMALL = 24  # [42]: images in each set of the card-against-CPU FID
+# FID card against CPU on 24 + 24 images: rank-deficient covariances (24 rows of 2,048
+# features), where the square root of near-zero eigenvalues amplifies f32 differences.
+FID_REL_TOL = 1e-3
+DCGAN_METRICS_STEPS = 4  # [43]
+GEN_METRIC_KEYS = ("fid_score", "mean_kid_score", "std_kid_score", "mean_inception_score",
+                   "std_inception_score")
+JAX_FID_KEYS = {"fid", "n_fake", "n_real", "pretrained_inception", "comparable_to_published",
+                "checkpoint", "step", "dataset", "synthetic_data", "seed", "sampler",
+                "sampling_steps"}
+DIT_MOE_PATH = TransformerPath(
+    "DiT-MoE", DIT_MOE_CONFIG, "DDPM", DIT_MOE_RUN, "fused_attention_qkv",
+    "fused_attention_qkv_bwd", f"DDIM-{DDIM_STEPS} guided", 2 * DIT_BATCH, 2,
+    DIT_MOE_TRAIN_STEPS, DIT_MOE_RESUME_STEPS, "dit_moe")
+
+
+def inception_pair(torch, seed: int):
+    """The port's InceptionV3 with He-scaled random weights and BatchNorms drawn off their
+    defaults, as two extractors: on the CPU and on the card."""
+    import copy
+
+    from lightning_generative_models_tpu_torch.metrics import inception as ti
+
+    net = ti.he_scaled_random_init(ti.InceptionV3(), torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                c = mod.num_features
+                mod.weight.copy_(0.5 + torch.rand(c, generator=gen))
+                mod.bias.copy_(0.2 * torch.randn(c, generator=gen))
+                mod.running_mean.copy_(0.2 * torch.randn(c, generator=gen))
+                mod.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+    return (ti.InceptionFeatureExtractor(copy.deepcopy(net), device="cpu"),
+            ti.InceptionFeatureExtractor(net, device="cuda"))
+
+
+def check_inception_card_vs_cpu(torch) -> dict:
+    """[38]: ingestion, features and logits of bs8 uint8 32 px images, card against CPU
+    (f32, TF32 off), within INCEPTION_TOL of 1 + |ref|; metrics.verify's stages on the
+    card."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.metrics import inception as ti
+    from lightning_generative_models_tpu_torch.metrics import verify
+
+    cpu, card = inception_pair(torch, seed=38)
+    images = np.random.RandomState(38).randint(0, 256, (INCEPTION_BATCH, 32, 32, 3),
+                                               dtype=np.uint8)
+    errs = {"ingestion": _rel(ti.ingest(images, torch.device("cuda")).cpu(),
+                              ti.ingest(images, torch.device("cpu")))}
+    (rf, rl), (kf, kl) = cpu(images), card(images)
+    errs["features"] = _rel(torch.from_numpy(kf), torch.from_numpy(rf))
+    errs["logits"] = _rel(torch.from_numpy(kl), torch.from_numpy(rl))
+    ok = all(np.isfinite(a).all() for a in (kf, kl)) and max(errs.values()) <= INCEPTION_TOL
+    spread = float(rf.std(axis=0).mean())
+    print(f"  InceptionV3 bs{INCEPTION_BATCH} at 299 f32, card vs CPU: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (max |k - p| / (1 + |p|), tol {INCEPTION_TOL:.0e}); feature spread over the "
+          f"batch {spread:.3e} {'ok' if ok and spread > 1e-3 else 'FAIL'}", flush=True)
+    if not ok or spread <= 1e-3:
+        fail("InceptionV3 on the card disagrees with the CPU")
+    fid = verify.verify_loader_path("cuda")
+    stage2 = verify.verify_pretrained("cuda")
+    return {**errs, "verify_stage1_fid": fid, "pretrained_found": stage2 == 0}
+
+
+class RouteTape:
+    """Top-1 routes of a model's MoE layers on the CPU, replayed on the card: every CPU
+    MoEMlp records the experts its router picks, call by call; the card's layer at the
+    same place computes its own router probabilities and picks, counts the tokens whose
+    pick differs from the CPU's and routes them as the CPU did. ``margin`` is the
+    smallest gap between a token's two best CPU probabilities."""
+
+    def __init__(self, torch, cpu_net, card_net):
+        from lightning_generative_models_tpu_torch.models.modules.moe import MoEMlp
+
+        layers = [[m for m in net.modules() if isinstance(m, MoEMlp)]
+                  for net in (cpu_net, card_net)]
+        self.torch = torch
+        self.queues = [[] for _ in layers[0]]
+        self.replayed = self.routed = 0
+        self.margin = float("inf")
+        for i, (cpu_layer, card_layer) in enumerate(zip(*layers)):
+            cpu_layer.route = self._record(i, cpu_layer.route)
+            card_layer.route = self._replay(i, card_layer.route)
+
+    def _record(self, i, route):
+        def record(x):
+            probs, choice = route(x)
+            top = self.torch.topk(probs.detach(), 2, dim=-1).values
+            self.margin = min(self.margin, float((top[..., 0] - top[..., 1]).min()))
+            self.queues[i].append(choice.detach().clone())
+            return probs, choice
+        return record
+
+    def _replay(self, i, route):
+        def replay(x):
+            probs, choice = route(x)
+            want = self.queues[i].pop(0).to(choice.device)
+            self.replayed += int((choice != want).sum())
+            self.routed += choice.numel()
+            return probs, want
+        return replay
+
+
+def check_dit_moe_card_vs_cpu(torch) -> dict:
+    """[40]: the full-width DiT-MoE in f32 at bs4, card against CPU, the same weights and
+    inputs, the card replaying the CPU's routes: the forward, a 3-step guided DDIM chain,
+    one train step."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
+
+    args = {**load_config(DIT_MOE_CONFIG)["model"]["args"], "use_bf16": False}
+    models = {dev: DDPM(**args, device=dev) for dev in ("cpu", "cuda")}
+    open_dit(torch, models["cpu"].unet, seed=40)
+    models["cuda"].unet.load_state_dict(models["cpu"].unet.state_dict())
+    for model in models.values():
+        model.copy_params_to_ema()
+    tapes = [RouteTape(torch, models["cpu"].unet, models["cuda"].unet),
+             RouteTape(torch, models["cpu"].ema_unet, models["cuda"].ema_unet)]
+
+    gen = torch.Generator().manual_seed(41)
+    x = torch.randn(MOE_BATCH, 32, 32, 3, generator=gen)
+    t, labels = torch.tensor([0, 250, 600, 999]), torch.tensor([3, 10, 7, 1])  # 10: null
+    with torch.inference_mode():
+        ref, ref_aux = models["cpu"].unet(x, t, labels=labels, return_aux=True)
+        out, aux = models["cuda"].unet(x.cuda(), t.cuda(), labels=labels.cuda(),
+                                       return_aux=True)
+    report_close(torch, f"DiT-MoE f32 bs{MOE_BATCH} forward, card vs CPU", out, ref)
+    report_close(torch, "its mean load-balancing loss", aux.reshape(1), ref_aux.reshape(1))
+
+    x_T = torch.randn(2, 32, 32, 3, generator=gen)
+    samples = [models[dev].sample(None, 2, steps=3, x_T=x_T) for dev in ("cpu", "cuda")]
+    report_close(torch, "DDIM-3 with guidance (w 3) f32 bs2 from one x_T, card vs CPU",
+                 samples[1], samples[0])
+
+    rs = np.random.RandomState(42)
+    batch = {"image": rs.randint(0, 256, (MOE_BATCH, 32, 32, 3)).astype(np.uint8),
+             "label": np.array([4, 7, 0, 9], np.int32)}
+    draws = {"flip": torch.tensor([True, False, False, True]),
+             "drop": torch.tensor([False, True, False, False]),
+             "t": torch.tensor([10, 600, 300, 999]),
+             "noise": torch.tensor(rs.randn(MOE_BATCH, 32, 32, 3).astype(np.float32))}
+    aux_vals = [m["moe_aux"] for m in report_grad_steps(
+        torch, f"DiT-MoE train step f32 bs{MOE_BATCH}, card vs CPU", models, batch, draws)]
+    replayed = sum(tp.replayed for tp in tapes)
+    routed = sum(tp.routed for tp in tapes)
+    margin = min(tp.margin for tp in tapes)
+    ok = (replayed <= MOE_REPLAY_SHARE * routed and not any(q for tp in tapes for q in tp.queues)
+          and abs(aux_vals[1] - aux_vals[0]) <= DIT_TOL * abs(aux_vals[0]))
+    print(f"  routes replayed: {replayed} of {routed} routed tokens took another expert on "
+          f"the card (bound {MOE_REPLAY_SHARE:.0%}); smallest CPU top-2 margin {margin:.3e}; "
+          f"moe_aux card {aux_vals[1]:.6f} vs CPU {aux_vals[0]:.6f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the DiT-MoE routes or load-balancing loss disagree between card and CPU")
+    return {"replayed": replayed, "routed": routed, "min_top2_margin": margin}
+
+
+def dit_moe_paths(torch, card: str) -> dict:
+    """[41]: generate and train + resume on dit_moe_cifar10.json, launch counts held as
+    for the DiT; the train runs log a finite moe_aux."""
+    import math
+
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    counts = {"generate": transformer_generate_path(torch, card, DIT_MOE_PATH)}
+    counts.update(transformer_train_path(torch, card, DIT_MOE_PATH))
+    aux = [r["train_moe_aux"] for r in read_metrics(EXPERIMENT_DIR / "DDPM" / DIT_MOE_RUN)
+           if "train_moe_aux" in r]
+    print(f"  DiT-MoE train_moe_aux by logged step: {[round(a, 4) for a in aux]}", flush=True)
+    if not aux or not all(math.isfinite(a) and a > 0 for a in aux):
+        fail(f"the DiT-MoE runs logged no finite moe_aux: {aux}")
+    return counts
+
+
+def fid_path(torch, card: str) -> dict:
+    """[42]: generate --fid FID_N from [24]'s DCGAN run, then FID_SMALL + FID_SMALL images
+    through the same random-init extractor on the card and on the CPU."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch import generate
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.metrics.generative import (
+        FrechetInceptionDistance,
+        to_uint8,
+    )
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    run_dir = EXPERIMENT_DIR / "DCGAN" / DCGAN_RUN
+    argv = ["--config_path", str(DCGAN_CONFIG), "--device", "cuda", "--experiment_name",
+            DCGAN_RUN, "--which", "last", "--fid", str(FID_N), "--fid_batch", str(FID_BATCH)]
+    torch.cuda.synchronize()
+    zero_counts()
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        art = generate.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print("\n".join("  " + line for line in text.getvalue().splitlines()))
+    split = dict(zip(("sampling_s", "inception_s", "statistics_s"), map(float, re.search(
+        r"sampling ([\d.]+) s, InceptionV3 ([\d.]+) s, statistics ([\d.]+) s",
+        text.getvalue()).groups())))
+    step = DCGAN_STEPS + DCGAN_RESUME_STEPS
+    path = run_dir / f"fid_{FID_N}_last_step{step}.json"
+    ok = (set(art) == JAX_FID_KEYS and art["n_fake"] == art["n_real"] == FID_N
+          and art["step"] == step and np.isfinite(art["fid"]) and art["fid"] > 0
+          and path.exists() and not any(counts.values()))
+    images = 2 * FID_N
+    print(f"  FID@{FID_N} = {art['fid']:.4f} in {wall:.1f} s (model build, the synthetic "
+          f"real set and the JSON included): sampling {split['sampling_s']:.3f} s, "
+          f"InceptionV3 {split['inception_s']:.3f} s ({images / split['inception_s']:.1f} "
+          f"images/s over {images} images, f32, TF32 off), statistics "
+          f"{split['statistics_s']:.3f} s; launches {counts} (expected all 0) on {card} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"generate --fid wrote {art} to {path} with launches {counts}")
+
+    config = load_config(DCGAN_CONFIG)
+    model = load_model(config["model"], device="cuda")
+    CheckpointManager(run_dir / "checkpoints").restore(model, "last")
+    reals = next(DataModule(**config["dataset"]).val_batches())["image"][:FID_SMALL]
+    fakes = to_uint8(model.sample(torch.Generator(device="cuda").manual_seed(42),
+                                  FID_SMALL)).cpu().numpy()
+    values = []
+    for extractor in inception_pair(torch, seed=42):
+        fid = FrechetInceptionDistance(extractor)
+        fid.update(reals, real=True)
+        fid.update(fakes, real=False)
+        values.append(fid.compute())
+    rel = abs(values[1] - values[0]) / abs(values[0])
+    ok = np.isfinite(values).all() and rel <= FID_REL_TOL
+    print(f"  FID of {FID_SMALL} real vs {FID_SMALL} DCGAN images: card {values[1]:.6f}, CPU "
+          f"{values[0]:.6f}, relative difference {rel:.2e} (tol {FID_REL_TOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("FID on the card disagrees with the CPU")
+    return {"fid": art["fid"], "wall_s": wall, **split, "launches": counts,
+            "small_set_card": values[1], "small_set_cpu": values[0], "small_set_rel": rel}
+
+
+def derive_dcgan_metrics_config() -> None:
+    """DCGAN_METRICS_CONFIG: dcgan_cifar10.json with FID, KID and IS in validation."""
+    config = json.loads(DCGAN_CONFIG.read_text())
+    config["model"]["args"].update(calculate_metrics=True, metrics=["fid", "kid", "is"])
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    DCGAN_METRICS_CONFIG.write_text(json.dumps(config, indent=4) + "\n")
+
+
+def gan_metrics_path(torch, card: str) -> dict:
+    """[43]: the derived DCGAN config trained through one validation with the generative
+    metrics, then --eval test; every kernel counter 0."""
+    import math
+
+    from lightning_generative_models_tpu_torch import train
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    derive_dcgan_metrics_config()
+    run_dir = EXPERIMENT_DIR / "DCGAN" / DCGAN_METRICS_RUN
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--config_path", str(DCGAN_METRICS_CONFIG), "--device", "cuda",
+            "--experiment_name", DCGAN_METRICS_RUN]
+    out = {}
+    for name, extra in (("train", ["--max_steps", str(DCGAN_METRICS_STEPS),
+                                   "--check_val_every_n_epoch", "1000",
+                                   "--sample_every_n_steps", "0"]),
+                        ("test", ["--eval", "test"])):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        result = train.main(argv + extra)
+        torch.cuda.synchronize()
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+        out[f"{name}_launches"] = read_counts()
+    val = [r for r in read_metrics(run_dir) if "fid_score" in r]
+    test = result
+    keys = {k: val[-1].get(k) for k in GEN_METRIC_KEYS} if val else {}
+    test_keys = {f"test_{k}": test.get(f"test_{k}") for k in GEN_METRIC_KEYS}
+    finite = all(v is not None and math.isfinite(v) for v in (*keys.values(),
+                                                                 *test_keys.values()))
+    ok = (len(val) == 1 and finite and not any(v for c in (out["train_launches"],
+                                                           out["test_launches"])
+                                               for v in c.values()))
+    print(f"  validation after {DCGAN_METRICS_STEPS} steps in {out['train_wall_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in keys.items()), flush=True)
+    print(f"  --eval test in {out['test_wall_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in test_keys.items())
+          + f"; launches {out['train_launches']} / {out['test_launches']} (expected all 0) "
+          f"on {card} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the GAN metrics path logged {val} and tested {test}")
+    return {**out, **keys, **test_keys}
+
+
+def moe_layer_ms(torch) -> float:
+    """Device time of one MoE layer's forward and backward at dit_moe_cifar10's train
+    shape (bs128, 256 tokens, width 384, bf16), by CUDA events."""
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.models.modules.layers import init_params
+    from lightning_generative_models_tpu_torch.models.modules.moe import MoEMlp
+
+    args = load_config(DIT_MOE_CONFIG)["model"]["args"]
+    hidden = args["dim"]
+    moe = init_params(MoEMlp(hidden, 4 * hidden, args["num_experts"], args["capacity_factor"],
+                             torch.bfloat16), torch.Generator().manual_seed(44)).cuda()
+    x = torch.randn(TRAIN_BATCH, 256, hidden, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    g = torch.randn_like(x)
+    params = [x, *moe.parameters()]
+
+    def step():
+        out, aux = moe(x)
+        torch.autograd.grad((out, aux), params, (g, torch.ones_like(aux)))
+
+    return time_ms(step, iters=10)
+
+
+def inception_throughput(torch, card: str) -> float:
+    """[44]: InceptionV3 images/s at bs256 from uint8 32 px images (ingestion included),
+    f32 with TF32 off, median of 3 timings."""
+    import numpy as np
+
+    _, card_extractor = inception_pair(torch, seed=44)
+    images = torch.from_numpy(np.random.RandomState(44).randint(
+        0, 256, (INCEPTION_THROUGHPUT_BATCH, 32, 32, 3), dtype=np.uint8)).cuda()
+    card_extractor(images)  # warm-up: cuDNN plans
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_extractor(images)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    ips = INCEPTION_THROUGHPUT_BATCH / wall
+    print(f"  InceptionV3 bs{INCEPTION_THROUGHPUT_BATCH} at 299 f32 (TF32 off): "
+          f"{1e3 * wall:.1f} ms a batch, median of {[round(w, 4) for w in walls]} s, "
+          f"{ips:.1f} images/s on {card}", flush=True)
+    return ips
+
+
+def moe_breakdown(torch, card: str) -> dict:
+    """[44]: DiT-MoE train and sampling throughput with profiles, the MoE layers' share of
+    a step's device time, InceptionV3 images/s."""
+    stats = transformer_breakdown(torch, card, DIT_MOE_PATH)
+    layer_ms = moe_layer_ms(torch)
+    moe_layers = 6
+    stats["moe_layer_fwd_bwd_ms"] = layer_ms
+    if stats.get("busy_us"):
+        stats["moe_share_of_step_device_time"] = moe_layers * layer_ms * 1e3 / stats["busy_us"]
+        print(f"  a MoE layer's forward + backward at bs{TRAIN_BATCH}: {layer_ms:.3f} ms; "
+              f"x {moe_layers} = {moe_layers * layer_ms:.2f} ms of the step's "
+              f"{stats['busy_us'] / 1e3:.2f} ms busy "
+              f"({100 * stats['moe_share_of_step_device_time']:.1f}%)", flush=True)
+    stats["inception_images_per_s"] = inception_throughput(torch, card)
+    return stats
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3672,6 +4090,40 @@ def main() -> None:
     family_stats = family_breakdown(torch, card, family_configs)
     print(f"  [37] took {time.perf_counter() - t0:.1f} s; phases 35-37 took "
           f"{time.perf_counter() - t_families:.1f} s", flush=True)
+
+    print(f"[38] InceptionV3 at 299 x 299 bs{INCEPTION_BATCH}, card against CPU, f32; "
+          "metrics.verify on the card", flush=True)
+    t_metrics = t0 = time.perf_counter()
+    inception_stats = check_inception_card_vs_cpu(torch)
+    print(f"  [38] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[39] kernels #3 and #4 at the DiT-MoE shape against their plain versions",
+          flush=True)
+    moe_attn_stats = check_attention(torch, ta, cases=[MOE_ATTN_CASE], main_case=MOE_ATTN_CASE)
+    print(f"[40] DiT-MoE ({DIT_MOE_CONFIG.name}) at full width, card against CPU, f32, "
+          f"routes replayed", flush=True)
+    t0 = time.perf_counter()
+    moe_card_stats = check_dit_moe_card_vs_cpu(torch)
+    print(f"  [40] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[41] DiT-MoE paths: generate DDIM-{DDIM_STEPS} guided bs{DIT_BATCH}, train "
+          f"{DIT_MOE_TRAIN_STEPS} steps bs{TRAIN_BATCH} bf16, then resume", flush=True)
+    t0 = time.perf_counter()
+    moe_counts = dit_moe_paths(torch, card)
+    print(f"  [41] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[42] generate --fid {FID_N} on {DCGAN_RUN} (DCGAN CIFAR-10); FID card against "
+          f"CPU", flush=True)
+    t0 = time.perf_counter()
+    fid_stats = fid_path(torch, card)
+    print(f"  [42] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[43] DCGAN with calculate_metrics through a validation, then --eval test",
+          flush=True)
+    t0 = time.perf_counter()
+    gan_metrics_stats = gan_metrics_path(torch, card)
+    print(f"  [43] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[44] DiT-MoE and InceptionV3 throughput and where the time goes", flush=True)
+    t0 = time.perf_counter()
+    moe_stats = moe_breakdown(torch, card)
+    print(f"  [44] took {time.perf_counter() - t0:.1f} s; phases 38-44 took "
+          f"{time.perf_counter() - t_metrics:.1f} s", flush=True)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
     slice_counts = {f"{key}_{run}": got for key, res in slice_runs.items()
                     for run, got in res["counts"].items()}
@@ -3752,7 +4204,10 @@ def main() -> None:
                              "train": dit_counts["train"]["fused_attention_qkv"],
                              "resume": dit_counts["resume"]["fused_attention_qkv"],
                              "fm_flash_generate": fm_gen_counts["fused_attention_qkv"],
-                             "fm_flash_train": fm_counts["train"]["fused_attention_qkv"]},
+                             "fm_flash_train": fm_counts["train"]["fused_attention_qkv"],
+                             "dit_moe_generate": moe_counts["generate"]["fused_attention_qkv"],
+                             "dit_moe_train": moe_counts["train"]["fused_attention_qkv"],
+                             "dit_moe_resume": moe_counts["resume"]["fused_attention_qkv"]},
         "max_abs_err": attn_stats["max_abs_err"],
         "ms": attn_stats["ms"],
         "plain_ms": attn_stats["plain_ms"],
@@ -3765,6 +4220,8 @@ def main() -> None:
         "library_is": "torch.nn.functional.scaled_dot_product_attention on [b, h, n, d] views",
         "shapes": [{k: v for k, v in sh.items() if not k.startswith("bwd_")}
                    for sh in attn_stats["shapes"]],
+        "moe_shape": {k: v for k, v in moe_attn_stats.items()
+                      if k != "shapes" and not k.startswith("bwd_")},
     }, {
         "name": "attention_qkv_bwd",
         "route": "cuda",
@@ -3775,7 +4232,10 @@ def main() -> None:
                              "train": dit_counts["train"]["fused_attention_qkv_bwd"],
                              "resume": dit_counts["resume"]["fused_attention_qkv_bwd"],
                              "fm_flash_train": fm_counts["train"]["flash_attention_bwd_cuda"],
-                             "fm_flash_resume": fm_counts["resume"]["flash_attention_bwd_cuda"]},
+                             "fm_flash_resume": fm_counts["resume"]["flash_attention_bwd_cuda"],
+                             "dit_moe_generate": moe_counts["generate"]["fused_attention_qkv_bwd"],
+                             "dit_moe_train": moe_counts["train"]["fused_attention_qkv_bwd"],
+                             "dit_moe_resume": moe_counts["resume"]["fused_attention_qkv_bwd"]},
         "launches_by_path_are": "its own entry in the DiT runs; in the FM-DiT flash runs the "
                                 "flash path's backward route (flash_attention_bwd_cuda's count)",
         "max_abs_err": attn_stats["bwd_max_abs_err"],
@@ -3793,6 +4253,8 @@ def main() -> None:
         "shapes": [{k[4:]: v for k, v in sh.items() if k.startswith("bwd_")}
                    | {k: sh[k] for k in ("b", "n", "heads", "d", "layout", "dtype")}
                    for sh in attn_stats["shapes"]],
+        "moe_shape": {k[4:]: v for k, v in moe_attn_stats.items() if k.startswith("bwd_")}
+                     | {k: moe_attn_stats[k] for k in ("b", "n", "heads", "d", "layout", "dtype")},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -3848,7 +4310,10 @@ def main() -> None:
                       "gan_family_entry_point_walls_s": gan_walls,
                       "gan_family_launches": gan_counts, "slice": slice_stats,
                       "slice_walls_s": {k: v["walls_s"] for k, v in slice_runs.items()},
-                      "families": family_stats, "family_walls_s": family_walls}))
+                      "families": family_stats, "family_walls_s": family_walls,
+                      "inception": inception_stats, "dit_moe_card_vs_cpu": moe_card_stats,
+                      "dit_moe": moe_stats, "fid": fid_stats,
+                      "gan_metrics": gan_metrics_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -14,24 +14,44 @@ or ACGAN takes ``--label``; CycleGAN, which translates, raises ``NotImplementedE
 its ``sample`` does); each sampling family (diffusion, flow matching, EDM, consistency)
 refuses the others' sampler names with the JAX package's messages. A latent model's
 ``--weights`` is its whole flattened ``TrainState``, the autoencoder inside it.
+``--experiment_name`` (with ``--which`` last or best) restores instead a port run's
+checkpoint from ``experiments/<MODEL>/<experiment_name>/``.
 
     python -m lightning_generative_models_tpu_torch.generate \
         --config_path configs/diffusion/ddim_cifar10.json --num_samples 64 [--device cuda]
+
+``--fid N`` computes FID@N instead of a grid, as the JAX ``generate.py --fid`` does: the
+real statistics over the full train split (train and validation; a synthetic stand-in is
+regenerated at ``--fid_real`` or N images, and its real set is N images), N fakes
+sampled in ``--fid_batch`` chunks, each from its own generator, quantised to uint8 by
+truncation, InceptionV3 on the card; the result goes to
+``fid_<N>_<which>_step<step>[_<sampler><steps>].json`` (JAX's keys) in the run's
+directory (``--experiment_name``) or the output directory, where ``<which>`` is the
+checkpoint restored, ``weights`` for ``--weights`` or ``seed`` for drawn weights.
 """
 
 from __future__ import annotations
 
 import argparse
 import inspect
+import json
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from lightning_generative_models_tpu_torch.config import load_config
+from lightning_generative_models_tpu_torch.data.datamodule import DataModule
 from lightning_generative_models_tpu_torch.experiment.logger import _write_png
+from lightning_generative_models_tpu_torch.metrics import inception
+from lightning_generative_models_tpu_torch.metrics.generative import (
+    FrechetInceptionDistance,
+    to_uint8,
+)
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.registry import load_model
+from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
 from lightning_generative_models_tpu_torch.utils.grid import make_grid
 from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
 
@@ -46,6 +66,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--weights", type=str, default=None,
                         help=".npz read by the model's load_flax_weights (default: "
                         "weights from --seed)")
+    parser.add_argument("--experiment_name", type=str, default=None,
+                        help="restore this port run's checkpoint "
+                        "(experiments/<MODEL>/<experiment_name>/checkpoints/<which>)")
+    parser.add_argument("--which", type=str, default="last", choices=("last", "best"),
+                        help="which checkpoint --experiment_name restores")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--label", type=int, default=None,
                         help="class label for a conditional model (CGAN, ACGAN, a "
@@ -68,16 +93,97 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "the full chain")
     parser.add_argument("--interpolate", type=int, default=0, metavar="N",
                         help="not ported yet")
-    parser.add_argument("--fid", type=int, default=0, metavar="N", help="not ported yet")
+    parser.add_argument("--fid", type=int, default=0, metavar="N",
+                        help="compute FID@N against the train split's statistics and "
+                        "write fid_<N>_<which>_step<step>.json")
+    parser.add_argument("--fid_batch", type=int, default=256,
+                        help="sampling/feature batch size for --fid")
+    parser.add_argument("--fid_real", type=int, default=0,
+                        help="cap on real images for --fid statistics (0 = full train "
+                        "split, or N on synthetic data)")
     return parser.parse_args(argv)
 
 
+def compute_fid(model, config: dict, args: argparse.Namespace, step: int, which: str,
+                out_dir: Path, sample_kwargs: dict) -> dict:
+    """FID@N (see the module doc); prints the value and the wall split into sampling,
+    InceptionV3 and the statistics; returns the artifact."""
+    n, bs = args.fid, args.fid_batch
+    dm = DataModule(**config["dataset"])
+    dm.setup()
+    # The seeded train/val split partitions the train pool: their union restores it.
+    reals = np.concatenate([dm.train_images, dm.val_images])
+    if dm.is_synthetic and len(reals) < (args.fid_real or n):
+        # The synthetic pool is smaller than the protocol's real set: regenerate it.
+        dm = DataModule(**{**config["dataset"], "synthetic_size": args.fid_real or n})
+        dm.setup()
+        reals = np.concatenate([dm.train_images, dm.val_images])
+    if args.fid_real:
+        reals = reals[: args.fid_real]
+    elif dm.is_synthetic:
+        reals = reals[:n]  # synthetic protocol: real-set size == fake-set size
+
+    device = model.device
+    extractor = inception.InceptionFeatureExtractor(device=device)
+    fid = FrechetInceptionDistance(extractor)
+    t0 = time.perf_counter()
+    for start in range(0, len(reals), bs):
+        fid.update(reals[start: start + bs], real=True)
+    t_inception, t_sampling = time.perf_counter() - t0, 0.0
+    done, i = 0, 0
+    while done < n:
+        b = min(bs, n - done)
+        seed = np.random.SeedSequence([args.seed, i]).generate_state(1)[0]
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        t0 = time.perf_counter()
+        fake_u8 = to_uint8(model.sample(generator, b, **sample_kwargs))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # the sampling's time, apart from InceptionV3's
+        t1 = time.perf_counter()
+        fid.update(fake_u8, real=False)
+        t_sampling += t1 - t0
+        t_inception += time.perf_counter() - t1
+        done += b
+        i += 1
+    t0 = time.perf_counter()
+    value = float(fid.compute())
+    t_stats = time.perf_counter() - t0
+
+    artifact = {
+        "fid": value,
+        "n_fake": n,
+        "n_real": int(len(reals)),
+        "pretrained_inception": bool(extractor.pretrained),
+        "comparable_to_published": bool(extractor.pretrained),
+        "checkpoint": which,
+        "step": int(step),
+        "dataset": config["dataset"]["name"],
+        "synthetic_data": bool(dm.is_synthetic),
+        "seed": args.seed,
+        "sampler": args.sampler,
+        "sampling_steps": args.sampling_steps or None,
+    }
+    suffix = "" if args.sampler == "auto" and not args.sampling_steps else (
+        f"_{args.sampler}{args.sampling_steps or ''}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path = out_dir / f"fid_{n}_{which}_step{step}{suffix}.json"
+    with open(out_path, "w") as f:
+        json.dump(artifact, f, indent=2)
+    kind = "pretrained" if extractor.pretrained else (
+        "He-scaled random-init (relative tracking only — drop "
+        "pt_inception-2015-12-05.pth for published-comparable numbers, "
+        "see docs/FID.md)")
+    print(f"FID@{n} = {value:.4f}  [{kind}]")
+    print(f"FID@{n} wall: sampling {t_sampling:.3f} s, InceptionV3 {t_inception:.3f} s, "
+          f"statistics {t_stats:.3f} s")
+    print(f"Wrote {out_path}")
+    return artifact
+
+
 def main(argv=None) -> np.ndarray:
-    """Run the CLI; returns the sampled images, [N, H, W, C] in [0, 1]."""
+    """Run the CLI; returns the sampled images, [N, H, W, C] in [0, 1] (with ``--fid``,
+    the FID artifact)."""
     args = parse_args(argv)
-    if args.fid:
-        raise NotImplementedError(
-            "--fid needs the Inception metrics, not yet ported; see ROADMAP.md")
     if args.interpolate:
         raise NotImplementedError(
             "--interpolate needs the diffusion interpolation, not yet ported; see ROADMAP.md")
@@ -91,16 +197,26 @@ def main(argv=None) -> np.ndarray:
                          "(diffusion models only)")
     if args.label is not None and not hasattr(model, "sample_classes"):
         raise SystemExit(f"{name} does not support --label (conditional models only)")
+    step, which = 0, "weights" if args.weights else "seed"
+    run_dir = EXPERIMENT_DIR / config["model"]["name"] / (args.experiment_name or "")
     if args.weights:
         model.load_flax_weights(args.weights)
     else:
         model.init_params(torch.Generator().manual_seed(args.seed))
+    if args.experiment_name:
+        step, _ = CheckpointManager(run_dir / "checkpoints").restore(model, args.which)
+        which = args.which
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     kwargs = {}
     if args.sampler != "auto" or args.sampling_steps:
         kwargs = {"method": None if args.sampler == "auto" else args.sampler,
                   "steps": args.sampling_steps or None}
+    out_dir = (Path(args.out) if args.out
+               else run_dir if args.experiment_name
+               else EXPERIMENT_DIR / config["model"]["name"] / "generated_torch")
+    if args.fid:
+        return compute_fid(model, config, args, step, which, out_dir, kwargs)
     if args.label is not None:
         labels = torch.full((args.num_samples,), args.label, dtype=torch.long)
         if args.guidance_scale is not None:
@@ -111,9 +227,6 @@ def main(argv=None) -> np.ndarray:
     else:
         images = model.sample(generator, args.num_samples, **kwargs)
     images = images.float().cpu().numpy()
-
-    out_dir = (Path(args.out) if args.out
-               else EXPERIMENT_DIR / config["model"]["name"] / "generated_torch")
     out_dir.mkdir(parents=True, exist_ok=True)
     grid_path = out_dir / "grid.png"
     _write_png(grid_path, make_grid(images))

@@ -79,7 +79,9 @@ class DDPM(GenerativeModel):
         """The JAX constructor's arguments, plus ``device``, checked as there:
         ``network`` picks the UNet or the DiT (``dim`` is then the hidden width, and
         ``patch_size``/``depth``/``num_heads``/``mlp_ratio``/``qkv_layout`` its shape).
-        The DiT's MoE and pipeline stages are not ported yet and raise.
+        With ``num_experts`` the DiT's MoE blocks add ``moe_aux_weight`` times their
+        mean load-balancing loss to the training loss. The DiT's pipeline stages are not
+        ported yet and raise.
         The weights start from ``init_params`` with seed 0; ``init_params(generator)``
         redraws them."""
         super().__init__(img_channels, img_size)
@@ -88,6 +90,7 @@ class DDPM(GenerativeModel):
         self.ema_decay = ema_decay
         self.ema_update_after_step = ema_update_after_step
         self.num_classes = int(num_classes or 0)
+        self.moe_aux_weight = moe_aux_weight
         self.cond_drop_prob = cond_drop_prob
         self.guidance_scale = guidance_scale
         self.step = 0
@@ -246,7 +249,9 @@ class DDPM(GenerativeModel):
         then the loss's, in that order) come from ``generator`` unless given: ``flip``
         [B] bool, ``drop`` [B] bool, and ``loss_draws`` as the process's ``p_losses``
         names them (GaussianDiffusion: ``t`` [B] and ``noise`` of the batch's shape).
-        Returns (grads, {"loss": loss})."""
+        Returns (grads, {"loss": loss}); a DiT with MoE blocks adds ``moe_aux_weight``
+        times the mean of their load-balancing losses to the loss, and that mean as
+        ``moe_aux`` (JAX ``ddpm.py``: the training loss calls the network once)."""
         batch = self._on_device(batch)
         prepared = prepare_batch(batch, generator, train=True, flip=flip)
         x01 = self._to_diffusion_space(prepared["image"])
@@ -261,9 +266,22 @@ class DDPM(GenerativeModel):
                                  labels)
 
         params = self._trainable()
-        loss = self.diffusion.p_losses(self._apply_fn(self.unet, labels), x01, generator,
-                                       **loss_draws)
-        return self._grads(loss, params), {"loss": loss.detach()}
+        if getattr(self.unet, "num_experts", 0) <= 0:
+            loss = self.diffusion.p_losses(self._apply_fn(self.unet, labels), x01,
+                                           generator, **loss_draws)
+            return self._grads(loss, params), {"loss": loss.detach()}
+        auxes = []
+
+        def apply(x, t, x_self_cond=None):
+            kwargs = {"labels": labels} if self.num_classes else {}
+            out, aux = self.unet(x, t, x_self_cond, return_aux=True, **kwargs)
+            auxes.append(aux)
+            return out
+
+        loss = self.diffusion.p_losses(apply, x01, generator, **loss_draws)
+        loss = loss + self.moe_aux_weight * auxes[0]
+        return self._grads(loss, params), {"loss": loss.detach(),
+                                           "moe_aux": auxes[0].detach()}
 
     def _grads(self, loss: torch.Tensor, params: list) -> list:
         grads = torch.autograd.grad(loss, params, allow_unused=True)

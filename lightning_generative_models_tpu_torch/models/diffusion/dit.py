@@ -18,9 +18,12 @@ with ``flash_attn``, q, k and v go as [b, h, n, d] views of the packed qkv (no c
 through ``ops.attention.scaled_dot_product_attention(use_pallas=True)``: the flash
 kernel on the card at n >= 256, the plain attention otherwise.
 
-Not ported yet (each raises ``NotImplementedError``, see ROADMAP.md): ``num_experts``
-(MoE) and ``pipeline_stages``. ``seq_parallel`` is accepted and does nothing on one
-device, as the JAX package's ``seq_shard`` off a tensor-parallel mesh.
+With ``num_experts > 0`` the MLP of every ``moe_every``-th block, counted from the last,
+is a top-1 ``MoEMlp`` (``block_{i}/moe/{router,wi,bi,wo,bo}``, flax's names);
+``forward(..., return_aux=True)`` also returns the mean of those layers' load-balancing
+losses, which flax sows. Not ported yet: ``pipeline_stages`` (raises
+``NotImplementedError``, see ROADMAP.md). ``seq_parallel`` is accepted and does nothing on
+one device, as the JAX package's ``seq_shard`` off a tensor-parallel mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lightning_generative_models_tpu_torch.models.modules.layers import Dense, Embed, LayerNorm
+from lightning_generative_models_tpu_torch.models.modules.moe import MoEMlp
 from lightning_generative_models_tpu_torch.models.modules.time_embedding import (
     SinusoidalPosEmb,
 )
@@ -71,11 +75,14 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch
 class DiTBlock(nn.Module):
     """Pre-LN transformer block with adaLN-Zero conditioning: the LayerNorms carry no
     affine; shift, scale and gate of both branches come from a zero-initialised Dense of
-    SiLU(c), so the block is the identity at init."""
+    SiLU(c), so the block is the identity at init. With ``num_experts > 0`` the MLP is a
+    top-1 ``MoEMlp``; ``forward`` returns the block's output and its MoE load-balancing
+    loss (None for a dense MLP)."""
 
     def __init__(self, hidden: int, heads: int, mlp_ratio: float = 4.0, flash: bool = False,
                  dtype: torch.dtype = torch.float32, qkv_layout: str = "s3hd",
-                 einsum_attn: bool = False):
+                 einsum_attn: bool = False, num_experts: int = 0,
+                 capacity_factor: float = 1.25):
         super().__init__()
         self.heads = heads
         self.flash = flash
@@ -89,10 +96,14 @@ class DiTBlock(nn.Module):
         self.qkv = Dense(hidden, 3 * hidden, dtype)
         self.proj = Dense(hidden, hidden, dtype)
         self.norm2 = LayerNorm()
-        self.fc1 = Dense(hidden, mlp_dim, dtype)
-        self.fc2 = Dense(mlp_dim, hidden, dtype)
+        if num_experts > 0:
+            self.moe = MoEMlp(hidden, mlp_dim, num_experts, capacity_factor, dtype)
+        else:
+            self.moe = None
+            self.fc1 = Dense(hidden, mlp_dim, dtype)
+            self.fc2 = Dense(mlp_dim, hidden, dtype)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor):
         mod = self.adaLN_modulation(F.silu(c))
         sh_a, sc_a, gate_a, sh_m, sc_m, gate_m = mod.chunk(6, dim=-1)
 
@@ -107,8 +118,12 @@ class DiTBlock(nn.Module):
         x = x + gate_a[:, None, :].to(x.dtype) * att.to(x.dtype)
 
         h = modulate(self.norm2(x), sh_m, sc_m).to(self.dtype)
-        h = self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
-        return x + gate_m[:, None, :].to(x.dtype) * h.to(x.dtype)
+        aux = None
+        if self.moe is not None:
+            h, aux = self.moe(h)
+        else:
+            h = self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
+        return x + gate_m[:, None, :].to(x.dtype) * h.to(x.dtype), aux
 
     def _flash_attention(self, qkv: torch.Tensor) -> torch.Tensor:
         """The JAX block's flash branch: [b, h, n, d] views of q, k and v in the packed
@@ -151,14 +166,11 @@ class DiT(nn.Module):
         einsum_attn: bool = False,
         pp_fused_attn: bool = False,
     ):
-        """The JAX module's fields. ``seq_parallel``, ``capacity_factor``, ``moe_every``,
-        ``pipeline_microbatches`` and ``pp_fused_attn`` change nothing on one device
-        without MoE or pipeline stages."""
+        """The JAX module's fields. ``seq_parallel``, ``pipeline_microbatches`` and
+        ``pp_fused_attn`` change nothing on one device without pipeline stages; block i
+        is MoE when ``num_experts > 0`` and ``(depth - 1 - i) % moe_every == 0``, so the
+        last block always is."""
         super().__init__()
-        if num_experts > 0:
-            raise NotImplementedError(
-                "DiT(num_experts > 0) (MoE) is not yet ported to the PyTorch package; "
-                "see ROADMAP.md")
         if pipeline_stages > 0:
             raise NotImplementedError(
                 "DiT(pipeline_stages > 0) is not yet ported to the PyTorch package; "
@@ -172,6 +184,7 @@ class DiT(nn.Module):
         self.num_classes = num_classes
         self.output_channels = out_channels or channels
         self.dtype = dtype
+        self.num_experts = num_experts
         p = patch_size
 
         self.patch_embed = Dense(p * p * channels, hidden, dtype)
@@ -182,8 +195,9 @@ class DiT(nn.Module):
             self.class_emb = Embed(num_classes + 1, hidden, std=0.02)
         self.blocks = []
         for i in range(depth):
+            moe_here = num_experts > 0 and (depth - 1 - i) % moe_every == 0
             block = DiTBlock(hidden, heads, mlp_ratio, flash_attn, dtype, qkv_layout,
-                             einsum_attn)
+                             einsum_attn, num_experts if moe_here else 0, capacity_factor)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
         self.final_modulation = Dense(hidden, 2 * hidden, zero_init=True)
@@ -210,8 +224,11 @@ class DiT(nn.Module):
         time: torch.Tensor,
         x_self_cond: Optional[torch.Tensor] = None,
         labels: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
-        """x: [B, H, W, C], time: [B] -> [B, H, W, output_channels] f32."""
+        return_aux: bool = False,
+    ):
+        """x: [B, H, W, C], time: [B] -> [B, H, W, output_channels] f32; with
+        ``return_aux`` also the mean of the MoE layers' load-balancing losses (0 without
+        MoE), which the JAX module sows into ``intermediates``."""
         if x_self_cond is not None:
             raise ValueError(
                 "DiT does not support self-conditioning; configure the DDPM "
@@ -240,8 +257,11 @@ class DiT(nn.Module):
                 )
             c = c + self.class_emb(labels)
 
+        auxes = []
         for block in self.blocks:
-            tok = block(tok, c)
+            tok, aux = block(tok, c)
+            if aux is not None:
+                auxes.append(aux)
 
         # final layer: adaLN (zero-init) -> zero-init linear head
         shift, scale = self.final_modulation(F.silu(c)).chunk(2, dim=-1)
@@ -250,4 +270,7 @@ class DiT(nn.Module):
         # unpatchify: [b, n, p*p*co] -> [b, h, w, co]
         co = self.output_channels
         out = out.reshape(b, gh, gw, p, p, co).permute(0, 1, 3, 2, 4, 5)
-        return out.reshape(b, hh, ww, co).float()
+        out = out.reshape(b, hh, ww, co).float()
+        if not return_aux:
+            return out
+        return out, (torch.stack(auxes).mean() if auxes else out.new_zeros(()))

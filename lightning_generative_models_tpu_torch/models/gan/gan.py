@@ -162,16 +162,14 @@ class GAN(AdversarialModel):
         device: str | torch.device = "cuda",
     ):
         """The JAX constructor's arguments, plus ``device``. ``summary`` (the per-layer
-        tables) is accepted and not printed; ``calculate_metrics`` (FID/KID/IS in
-        validation, of the ``metrics`` named) raises until the metrics are ported. The
-        weights start from ``init_params`` with seed 0."""
+        tables) is accepted and not printed; ``calculate_metrics`` has the trainer's
+        validation and test passes compute the ``metrics`` named ("fid", "kid", "is")
+        on the card's InceptionV3. The weights start from ``init_params`` with seed 0."""
         super().__init__(img_channels, img_size)
         if loss_type not in ("min-max", "non-saturating"):
             raise ValueError(f"loss_type is 'min-max' or 'non-saturating', got {loss_type!r}")
-        if calculate_metrics:
-            raise NotImplementedError(
-                "calculate_metrics (FID/KID/IS in validation) is not yet ported to the "
-                "PyTorch package; see ROADMAP.md, Queue 1 #7")
+        self.calculate_metrics = calculate_metrics
+        self.metrics = list(metrics or [])
         self.device = resolve_device(device)
         self.latent_dim = latent_dim
         self.loss_type = loss_type

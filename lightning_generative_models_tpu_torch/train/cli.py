@@ -4,10 +4,11 @@
         --config_path configs/diffusion/ddpm_cifar10.json [--device cuda] [--max_steps N]
 
 The flags keep ``train.py``'s names for what is ported, and add ``--device`` (cuda by
-default; cpu only when asked). What is not ported raises ``NotImplementedError``
-naming ROADMAP.md: ``--strategy`` fsdp/tp/pp (the port trains on one device),
-``--unroll_steps`` above 1, ``--profile_steps``, ``--eval``, bf16 ``--mu_dtype`` /
-``--nu_dtype``. Runs write to
+default; cpu only when asked). ``--eval test`` evaluates the test split from the
+``--eval_which`` checkpoint instead of training and returns its ``test_`` metrics. What
+is not ported raises ``NotImplementedError`` naming ROADMAP.md: ``--strategy``
+fsdp/tp/pp (the port trains on one device), ``--unroll_steps`` above 1,
+``--profile_steps``, bf16 ``--mu_dtype`` / ``--nu_dtype``. Runs write to
 ``experiments/<model name>/<experiment_name>/``: ``metrics.jsonl``,
 ``samples/*.png``, ``checkpoints/{last,best}`` and their meta files.
 """
@@ -75,8 +76,11 @@ def setup_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--grad_accum_mode", type=str, default="auto",
                         choices=("auto", "concat", "scan"))
     parser.add_argument("--eval", type=str, default=None, choices=("test",),
-                        dest="eval_split", help="not ported")
-    parser.add_argument("--eval_which", type=str, default="last", choices=("last", "best"))
+                        dest="eval_split",
+                        help="evaluate the held-out test split from a checkpoint instead "
+                        "of training")
+    parser.add_argument("--eval_which", type=str, default="last", choices=("last", "best"),
+                        help="which checkpoint --eval restores")
     parser.add_argument("--project", type=str, default="Lightning generative models")
     parser.add_argument("--experiment_name", type=str,
                         default=datetime.now().strftime("%Y-%m-%d_%H:%M"))
@@ -101,15 +105,14 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         refuse("--unroll_steps > 1")
     if args.profile_steps:
         refuse("--profile_steps")
-    if args.eval_split:
-        refuse("--eval")
     resolve_model_class(args.config["model"]["name"])  # raises for an unknown name
     set_default_mu_dtype(None if args.mu_dtype == "float32" else args.mu_dtype)
     set_default_nu_dtype(None if args.nu_dtype == "float32" else args.nu_dtype)
 
 
 def main(argv=None):
-    """Run the CLI; returns the trained model."""
+    """Run the CLI; returns the trained model (with ``--eval test``, the test
+    metrics)."""
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     args = setup_arguments(argv)
     _refuse_unported(args)
@@ -153,6 +156,10 @@ def main(argv=None):
         strategy=args.strategy,
     )
     try:
+        if args.eval_split == "test":
+            metrics = trainer.test(which=args.eval_which)
+            print(json.dumps(metrics, indent=2, sort_keys=True))
+            return metrics
         return trainer.fit(ckpt_path=args.ckpt_path, resume=args.resume)
     finally:
         exp_logger.finish()

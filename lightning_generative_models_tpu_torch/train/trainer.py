@@ -9,12 +9,16 @@ saves first and skips validation, the epoch-boundary ``last`` save, ``best`` by 
 model's monitored metric, ``resume`` and ``ckpt_path``, validation, the sample grid
 (conditional models) the per-class grid from the EMA weights, the latent table (VAE)
 and the codebook table (VQ models), and ``images_per_sec`` in the logged metrics.
+Validation and the test split (``test``, keys prefixed ``test_``) share ``_eval_over``:
+the mean eval metrics and, for a model with ``calculate_metrics``, the FID/KID/IS it
+names (``metrics``), real batches against fakes sampled per batch and quantised to
+uint8 by truncation, as the reference quantises them.
 
 Randomness: where the JAX trainer folds the step into its run key, each step here
 draws from a generator seeded by (seed, stream, step), so a resumed run draws what
-the uninterrupted run would have drawn. Not ported: meshes and the fsdp/tp/pp
-strategies, unrolled steps, profiler windows, the test split and the generative
-metrics (FID/KID/IS); see ROADMAP.md.
+the uninterrupted run would have drawn; each evaluation batch's fakes come from their
+own generator. Not ported: meshes and the fsdp/tp/pp strategies, unrolled steps and
+profiler windows; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,6 +34,13 @@ import torch
 
 from lightning_generative_models_tpu_torch.data.pipeline import prefetch_to_device
 from lightning_generative_models_tpu_torch.experiment.logger import ExperimentLogger
+from lightning_generative_models_tpu_torch.metrics import inception
+from lightning_generative_models_tpu_torch.metrics.generative import (
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    to_uint8,
+)
 from lightning_generative_models_tpu_torch.models.base import GenerativeModel
 from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
 from lightning_generative_models_tpu_torch.utils.grid import make_grid
@@ -41,7 +52,7 @@ STRATEGIES = ("data_parallel", "ddp", "auto")
 NOT_PORTED_STRATEGIES = ("fsdp", "tp", "pp")
 
 # Seed streams of the run's generators.
-_TRAIN, _VAL, _SAMPLE, _GRIDS = 0, 1, 2, 3
+_TRAIN, _VAL, _SAMPLE, _GRIDS, _FAKES = 0, 1, 2, 3, 4
 
 
 class Trainer:
@@ -245,17 +256,91 @@ class Trainer:
             self.ckpt.save_last(self.model, self.global_step, self.epoch + 1)
             self._last_saved_step = self.global_step
 
-    def _validate(self) -> Dict[str, float]:
+    def test(self, which: str = "last") -> Dict[str, float]:
+        """Evaluate the held-out test split with checkpoint ``which`` ("last" or
+        "best"; freshly initialised weights, with a warning, when there is none), as
+        validation evaluates; the keys are prefixed ``test_`` and logged."""
+        seed_everything(self.seed)
+        self.model.init_params(torch.Generator().manual_seed(self.seed))
+        if self.ckpt.has_checkpoint(which):
+            self.global_step, _ = self.ckpt.restore(self.model, which)
+        else:
+            logger.warning("No '%s' checkpoint under %s; testing freshly initialized "
+                           "weights.", which, self.ckpt.directory)
+        means = self._eval_over(self.datamodule.test_batches())
+        renamed = {(k.replace("val_", "test_", 1) if k.startswith("val_") else f"test_{k}"): v
+                   for k, v in means.items()}
+        if renamed:
+            self.logger.log_metrics(renamed, self.global_step)
+        return renamed
+
+    def _eval_over(self, batches: Iterator[Any]) -> Dict[str, float]:
+        """Mean per-batch eval metrics, and the generative metrics the model asks for,
+        over a batch iterator (validation and the test split)."""
         sums: Dict[str, float] = {}
         count = 0
-        for batch in prefetch_to_device(self.datamodule.val_batches(), self.device):
+        gen_metrics = self._generative_metrics()
+        for batch in prefetch_to_device(batches, self.device):
             metrics = self.model.eval_step(batch, self._generator(_VAL, count))
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
+            if gen_metrics:
+                # A generator per batch: fakes drawn from one generator state would
+                # repeat one batch, and FID's covariance would be over its copies.
+                self._update_generative_metrics(batch, self._generator(_FAKES, count),
+                                                gen_metrics)
             count += 1
         if count == 0:
             return {}
         means = {k: v / count for k, v in sums.items()}
+        if gen_metrics:
+            means.update(self._compute_generative_metrics(gen_metrics))
+        return means
+
+    def _generative_metrics(self) -> Dict[str, Any]:
+        if not getattr(self.model, "calculate_metrics", False):
+            return {}
+        if not hasattr(self, "_gen_metric_objs"):
+            wanted = getattr(self.model, "metrics", None) or []
+            extractor = inception.InceptionFeatureExtractor(device=self.device)
+            objs: Dict[str, Any] = {}
+            if "fid" in wanted:
+                objs["fid"] = FrechetInceptionDistance(extractor)
+            if "kid" in wanted:
+                objs["kid"] = KernelInceptionDistance(extractor, subset_size=100)
+            if "is" in wanted:
+                objs["is"] = InceptionScore(extractor)
+            self._gen_metric_objs = objs
+        return self._gen_metric_objs
+
+    def _update_generative_metrics(self, batch: Dict, generator: torch.Generator,
+                                   objs: Dict[str, Any]) -> None:
+        real_u8 = batch["image"]
+        fake_u8 = to_uint8(self.model.sample(generator, real_u8.shape[0]))
+        for name in ("fid", "kid"):
+            if name in objs:
+                objs[name].update(real_u8, real=True)
+                objs[name].update(fake_u8, real=False)
+        if "is" in objs:
+            objs["is"].update(fake_u8)
+
+    @staticmethod
+    def _compute_generative_metrics(objs: Dict[str, Any]) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        if "fid" in objs:
+            out["fid_score"] = objs["fid"].compute()
+        if "kid" in objs:
+            out["mean_kid_score"], out["std_kid_score"] = objs["kid"].compute()
+        if "is" in objs:
+            out["mean_inception_score"], out["std_inception_score"] = objs["is"].compute()
+        for metric in objs.values():
+            metric.reset()
+        return out
+
+    def _validate(self) -> Dict[str, float]:
+        means = self._eval_over(self.datamodule.val_batches())
+        if not means:
+            return {}
         self.logger.log_metrics(means, self.global_step)
         self._log_samples()
         for name, images in self.model.validation_grids(self._generator(_GRIDS)).items():

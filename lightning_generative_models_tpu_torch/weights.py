@@ -192,3 +192,64 @@ def load_flax_train_state(model, tree, optimizers: bool = True) -> None:
             for prefix, (optimizer, modules) in layout.get(kind, {}).items():
                 load(optimizer, flat, prefix, modules)
         model.step = int(np.asarray(flat["step"]))
+
+
+# The flax InceptionV3 (JAX ``metrics/inception.py``) names its submodules by type in
+# creation order: the stem's ``BasicConv_0..4``, then ``InceptionA_0..2``, ``InceptionB_0``,
+# ``InceptionC_0..3``, ``InceptionD_0``, ``InceptionE_0..1`` and the head ``Dense_0``;
+# inside a block ``BasicConv_j`` is its j-th conv in the torchvision definition order.
+_INCEPTION_BLOCKS = (
+    [(f"BasicConv_{i}", name) for i, name in enumerate(
+        ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
+         "Conv2d_4a_3x3"))]
+    + [(f"InceptionA_{i}", name) for i, name in enumerate(("Mixed_5b", "Mixed_5c",
+                                                             "Mixed_5d"))]
+    + [("InceptionB_0", "Mixed_6a")]
+    + [(f"InceptionC_{i}", name) for i, name in enumerate(("Mixed_6b", "Mixed_6c",
+                                                             "Mixed_6d", "Mixed_6e"))]
+    + [("InceptionD_0", "Mixed_7a")]
+    + [(f"InceptionE_{i}", name) for i, name in enumerate(("Mixed_7b", "Mixed_7c"))]
+)
+
+
+def inception_flax_paths(net: nn.Module) -> Dict[str, tuple]:
+    """{flax variable path: (tensor, transform)} of the port's ``InceptionV3``: every
+    conv kernel (HWIO -> OIHW), BatchNorm ``scale``/``bias`` (``params``) and
+    ``mean``/``var`` (``batch_stats``), and the ``Dense_0`` head."""
+    paths = {}
+
+    def basic_conv(flax_prefix: str, module: nn.Module) -> None:
+        paths[f"params/{flax_prefix}/Conv_0/kernel"] = (module.conv.weight, "conv")
+        for leaf, tensor in (("scale", module.bn.weight), ("bias", module.bn.bias)):
+            paths[f"params/{flax_prefix}/BatchNorm_0/{leaf}"] = (tensor, None)
+        for leaf, tensor in (("mean", module.bn.running_mean),
+                             ("var", module.bn.running_var)):
+            paths[f"batch_stats/{flax_prefix}/BatchNorm_0/{leaf}"] = (tensor, None)
+
+    for flax_name, port_name in _INCEPTION_BLOCKS:
+        block = getattr(net, port_name)
+        if flax_name.startswith("BasicConv_"):
+            basic_conv(flax_name, block)
+            continue
+        for j, (_, conv) in enumerate(block.named_children()):
+            basic_conv(f"{flax_name}/BasicConv_{j}", conv)
+    paths["params/Dense_0/kernel"] = (net.fc.weight, "dense")
+    paths["params/Dense_0/bias"] = (net.fc.bias, None)
+    return paths
+
+
+@torch.no_grad()
+def load_flax_inception(net: nn.Module, variables: Tree) -> nn.Module:
+    """The flax InceptionV3's variables (``{"params", "batch_stats"}``, nested or "/"-keyed,
+    or an ``.npz``) into the port's ``InceptionV3`` ``net``; any unmatched leaf on either
+    side, or a shape that does not fit, raises."""
+    flat = read_tree(variables)
+    expected = inception_flax_paths(net)
+    missing = sorted(set(expected) - set(flat))
+    extra = sorted(set(flat) - set(expected))
+    if missing or extra:
+        raise KeyError(f"flax InceptionV3 variables do not fit: missing {missing}, "
+                       f"left over {extra}")
+    for path, (tensor, transform) in expected.items():
+        tensor.copy_(_converted(path, flat[path], transform, tensor))
+    return net

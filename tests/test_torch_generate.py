@@ -1,6 +1,7 @@
 """The port's generate entry point, registry and PNG writer, on the CPU."""
 
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -58,9 +59,11 @@ def test_generate_main_on_cpu(tiny_run):
 
 def test_generate_rejects_unported_flags(tiny_run):
     _, config, _ = tiny_run
-    for flag in ("--fid", "--interpolate"):
+    pp = str(Path(__file__).resolve().parents[1] / "configs" / "diffusion" / "dit_cifar10_pp.json")
+    for argv in (["--config_path", str(config), "--interpolate", "8"],
+                 ["--config_path", pp]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            generate.main(["--config_path", str(config), flag, "8", "--device", "cpu"])
+            generate.main(argv + ["--device", "cpu"])
 
 
 def test_generate_cuda_without_gpu_raises(tiny_run):

@@ -31,5 +31,6 @@ def test_port_has_modules():
                    "models/diffusion/latent_diffusion.py", "models/vae/vae.py",
                    "metrics/lpips.py", "models/autoencoder/dae.py",
                    "models/autoencoder/unet.py", "models/autoregressive/pixelcnn.py",
-                   "models/flow/nice.py", "models/flow/glow.py"):
+                   "models/flow/nice.py", "models/flow/glow.py", "metrics/inception.py",
+                   "metrics/generative.py", "metrics/verify.py", "models/modules/moe.py"):
         assert PORT / module in FILES, module

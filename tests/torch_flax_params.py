@@ -103,17 +103,20 @@ def as_port(module, jax_tree) -> list:
         np.asarray(flat[by_param[id(p)][0]], np.float32))) for p in module.parameters()]
 
 
-def k_bias_mask(module) -> torch.Tensor:
-    """True on the k part of every DiT qkv bias (s3hd: channels [hd, 2 hd)), in the order
-    of the module's parameters. Adding the same vector to every key moves each query's
-    logits by a constant, which the softmax ignores: its gradient is exactly 0, and both
-    frameworks return f32 noise there (~1e-9), which Adam's first steps turn into a move
-    of +-lr with a random sign."""
+def k_bias_mask(module, layout: str = "s3hd", heads: int = 1) -> torch.Tensor:
+    """True on the k part of every DiT qkv bias (s3hd: channels [hd, 2 hd); h3d: each
+    head's middle d of its [3, d]), in the order of the module's parameters. Adding the
+    same vector to every key moves each query's logits by a constant, which the softmax
+    ignores: its gradient is exactly 0, and both frameworks return f32 noise there
+    (~1e-9), which Adam's first steps turn into a move of +-lr with a random sign."""
     masks = []
     for name, p in module.named_parameters():
         m = torch.zeros(p.numel(), dtype=torch.bool)
         if name.endswith("qkv.bias"):
             hd = p.numel() // 3
-            m[hd:2 * hd] = True
+            if layout == "h3d":
+                m.view(heads, 3, hd // heads)[:, 1] = True
+            else:
+                m[hd:2 * hd] = True
         masks.append(m)
     return torch.cat(masks)
