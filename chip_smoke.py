@@ -181,7 +181,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      share, launches), the MoE layers' share of a step's device time (a MoE layer's
      forward and backward at the step's shape by CUDA events, times six), guided DDIM-50
      samples/s at bs64, InceptionV3 images/s at bs256 (f32, TF32 off);
- 45. a JSON line of the kernels, the card's line, and the last line
+ 45. UNROLL-step CUDA graphs (train/graphs.py) against UNROLL eager steps from one state
+     with the same draws, cuDNN deterministic: DDPM (ddpm_cifar10) at bs128 bf16 and at
+     bs8 f32, DiT-S/2, FM-DiT flash, DCGAN, WGAN-GP (a whole critic cycle of 6) and VQ-VAE,
+     every state tensor bit for bit (else Adam's moments within 1e-6 of 1 + |ref| and the
+     rest by update norm within 1e-3, with two eager runs compared to name the cause);
+     kernels #1-#6 counted per replay equal to the eager steps' counts; graphs per model;
+ 46. the train entry point on ddpm_cifar10.json (its validation grid by DDIM-50) at full
+     width with --unroll_steps 4 --mu_dtype bfloat16 --nu_dtype bfloat16 --profile_steps
+     8:12 for 48 steps, then a
+     --resume with the same flags: #1 and #2 per replay and per run, the logging cadence,
+     bf16 moments in the checkpoint, the trace under profile/ naming #1 and #2, a resume
+     with float32 moments refused, a bf16-moment Adam card against CPU; DCGAN with
+     --unroll_steps 4 (train, resume, generate); then every other trainable registry name
+     from its run's last checkpoint: 2 dispatches of the trainer at --unroll_steps 2,
+     captured or not, graphs, launches per replay;
+ 47. train throughput at --unroll_steps 1 and 4, interleaved, 3 repeats: DDPM and DCGAN
+     at bs128 bf16 (ms a step, images/s; a dispatch's worth of steps profiled: device
+     busy, kernel launches and CUDA runtime calls a step);
+ 48. interpolation: the four processes card against CPU (f32, dim 64, explicit draws,
+     1e-4 of 1 + |ref|); generate --interpolate 8 on [6]'s DDPM run (999 ancestral
+     evaluations, #1 counted) and on the FM-DiT flash, EDM and CT runs;
+ 49. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -3863,6 +3884,620 @@ def moe_breakdown(torch, card: str) -> dict:
     return stats
 
 
+# -- unrolled steps as CUDA graphs, bf16 Adam moments, the profiler window,
+# interpolation ([45]-[48]) ---------------------------------------------------------------
+UNROLL = 4  # [45]-[47]: steps a CUDA graph replays
+DDPM_UNROLL_CONFIG = ROOT / "configs" / "diffusion" / "ddpm_cifar10.json"
+# [46]: the same config with its validation grid by DDIM-50 (sampling_timesteps 50, derived
+# into chiprun_out/chip_smoke/): the 1,000-step ancestral grid of 64 took 45 s a fit.
+DDPM_UNROLL_DERIVED = ROOT / "chiprun_out" / "chip_smoke" / "ddpm_cifar10_ddim50.json"
+DDPM_UNROLL_RUN = "chip_smoke_ddpm_unroll"  # experiments/DDPM/<this>: [46]
+DDPM_UNROLL_FLAGS = ["--unroll_steps", str(UNROLL), "--mu_dtype", "bfloat16", "--nu_dtype",
+                     "bfloat16", "--profile_steps", "8:12"]
+DDPM_UNROLL_STEPS, DDPM_UNROLL_RESUME = 48, 16
+DCGAN_UNROLL_RUN = "chip_smoke_dcgan_unroll"  # experiments/DCGAN/<this>: [46]
+DCGAN_UNROLL_STEPS, DCGAN_UNROLL_RESUME = 24, 12
+NAME_UNROLL, NAME_DISPATCHES = 2, 2  # [46]: every other registry name, 2 dispatches of 2
+GRAPH_MOMENT_TOL = 1e-6  # [45] if not bit-identical: Adam's moments, of 1 + |ref|
+GRAPH_UPDATE_TOL = 1e-3  # [45] if not bit-identical: each parameter's update, by its norm
+ADAM_CARD_TOL = 1e-5  # [46]: a bf16-moment Adam step, card against CPU (f32 weights)
+INTERP_TOL = 1e-4  # [48]: the four processes' interpolate, card against CPU, of 1 + |ref|
+INTERP_N = 8  # [48]: generate --interpolate
+THROUGHPUT_STEPS = 20  # [47]: steps a timing (5 dispatches of 4)
+LA_COUNTERS = ("linear_attention", "linear_attention_bwd")
+
+
+def graph_cases() -> list:
+    """[45]: (label, config, model-arg overrides, batch, k) of each model held graph against
+    eager: k = UNROLL, WGAN-GP a whole critic cycle (n_critic + 1 = 6)."""
+    return [("DDPM bs128 bf16", DDPM_UNROLL_CONFIG, {}, TRAIN_BATCH, UNROLL),
+            ("DDPM bs8 f32", DDPM_UNROLL_CONFIG, {"use_bf16": False}, 8, UNROLL),
+            ("DiT-S/2 bs128 bf16", DIT_CONFIG, {}, TRAIN_BATCH, UNROLL),
+            ("FM-DiT flash bs128 bf16", FM_CONFIG, {}, TRAIN_BATCH, UNROLL),
+            ("DCGAN bs128 bf16", DCGAN_CONFIG, {}, TRAIN_BATCH, UNROLL),
+            ("WGAN-GP bs64 f32", WGAN_CONFIG, {}, 64, 6),
+            ("VQ-VAE bs256 f32", VQVAE_CONFIG, {}, 256, UNROLL)]
+
+
+def stacked_batches(torch, config: dict, batch: int, k: int, paired: bool = False) -> dict:
+    """k train batches of ``config``'s data at ``batch``, stacked [k, B, ...] on the card."""
+    from lightning_generative_models_tpu_torch.data.datamodule import (
+        DataModule,
+        PairedDataModule,
+    )
+
+    data = {**config["dataset"], "batch_size": batch}
+    data.pop("paired", None)
+    dm = (PairedDataModule if paired else DataModule)(**data)
+    it = dm.train_batches(0)
+    items = [next(it) for _ in range(k)]
+    return {key: torch.stack([torch.as_tensor(b[key]) for b in items]).cuda()
+            for key in items[0]}
+
+
+def snapshot(model) -> tuple:
+    from lightning_generative_models_tpu_torch.train.graphs import host_scalars, state_tensors
+
+    return ({n: t.detach().clone() for n, t in state_tensors(model).items()},
+            host_scalars(model))
+
+
+def restore(torch, model, snap: tuple) -> None:
+    from lightning_generative_models_tpu_torch.train.graphs import state_tensors
+
+    tensors, scalars = snap
+    with torch.no_grad():
+        for n, t in state_tensors(model).items():
+            t.copy_(tensors[n])
+    vars(model).update(scalars)
+
+
+def state_diff(torch, a: dict, b: dict) -> tuple:
+    """(max |a - b| over every state tensor, the names that differ)."""
+    worst, names = 0.0, []
+    for n, t in a.items():
+        d = float((t.double() - b[n].double()).abs().max()) if t.numel() else 0.0
+        if d > 0:
+            names.append(n)
+        worst = max(worst, d)
+    return worst, names
+
+
+def graph_against_eager(torch, label: str, config_path: Path, overrides: dict, batch: int,
+                        k: int) -> dict:
+    """[45]: one state, the same draws: k eager steps twice (their difference is the
+    steps' own nondeterminism) and one k-step CUDA-graph replay (train/graphs.py), held bit
+    for bit, else as JAX's unroll test reasons (module doc, 45); the launch counts of the
+    replay against the eager steps'."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.ops.common import launch_counts
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.train.graphs import StepGraphs
+
+    config = load_config(config_path)
+    config["model"]["args"].update(overrides)
+    model = load_model(config["model"], device="cuda")
+    model.init_params(torch.Generator().manual_seed(45))
+    stacked = stacked_batches(torch, config, batch, k)
+    graphs = StepGraphs(model, k, model.train_step, torch.device("cuda"))
+
+    def seeds():
+        return [int(np.random.SeedSequence([45, 0, model.step + i]).generate_state(1)[0])
+                for i in range(k)]
+
+    graphs(stacked, seeds())  # warm-up: the key's eager dispatch (state made, no sync)
+    torch.cuda.synchronize()
+    start = snapshot(model)
+
+    def eager():
+        restore(torch, model, start)
+        before = launch_counts()
+        for i, seed in enumerate(seeds()):
+            model.train_step({n: v[i] for n, v in stacked.items()},
+                             torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        counts = {n: c - before[n] for n, c in launch_counts().items()}
+        return snapshot(model)[0], counts
+
+    eager1, eager_counts = eager()
+    restore(torch, model, start)
+    key_seeds = seeds()
+    graphs(stacked, key_seeds)
+    torch.cuda.synchronize()
+    graphed = snapshot(model)[0]
+    entry = next(iter(graphs.graphs.values()))
+    worst, differ = state_diff(torch, graphed, eager1)
+    # Two eager runs, compared only where the graph differs: the steps' own nondeterminism.
+    eager2 = eager()[0] if worst > 0 else eager1
+    noise, _ = state_diff(torch, eager1, eager2)
+    out = {"max_abs_diff": worst, "eager_repeat_max_abs_diff": noise,
+           "graphs": len(graphs.graphs), "launches_per_replay": entry.launches,
+           "eager_launches": eager_counts, "step": model.step}
+    print(f"  {label}: k={k}, graph against eager max |diff| {worst:.3e} over "
+          f"{len(graphed)} state tensors ({len(differ)} differ); "
+          f"{len(graphs.graphs)} graph(s); launches per replay "
+          f"{ {n: c for n, c in entry.launches.items() if c} } (eager "
+          f"{ {n: c for n, c in eager_counts.items() if c} })", flush=True)
+    if entry.launches != eager_counts:
+        fail(f"[45] {label}: a replay counts {entry.launches}, k eager steps {eager_counts}")
+    if worst > 0:
+        # As JAX's test_ddpm_trainer_unroll_gated_matches_plain reasons: the moments
+        # (linear in the gradients) tightly, the rest (weights, EMA weights, buffers) by
+        # its update's norm; the EMA flags are the branch tuple, the same by construction.
+        errs = {"moments": {}, "updates": {}}
+        for n in differ:
+            ref, got, was = eager1[n].double(), graphed[n].double(), start[0][n].double()
+            if "exp_avg" in n:
+                errs["moments"][n] = float(((got - ref).abs() / (1 + ref.abs())).max())
+            else:
+                step = float((ref - was).norm())
+                errs["updates"][n] = float((got - ref).norm()) / max(step, 1e-30)
+        for kind, tol in (("moments", GRAPH_MOMENT_TOL), ("updates", GRAPH_UPDATE_TOL)):
+            if errs[kind]:
+                n = max(errs[kind], key=errs[kind].get)
+                print(f"    {kind}: {len(errs[kind])} differ, worst {errs[kind][n]:.3e} "
+                      f"({n}; tol {tol})", flush=True)
+                if errs[kind][n] > tol:
+                    fail(f"[45] {label}: {n} differs from the eager steps by "
+                         f"{errs[kind][n]:.3e}")
+        first = sorted(set(differ) & set(state_diff(torch, eager1, eager2)[1]))
+        print(f"    not bit-identical; two eager runs differ by {noise:.3e} in "
+              f"{len(state_diff(torch, eager1, eager2)[1])} tensors: "
+              f"{'the steps own nondeterminism' if noise > 0 else 'the graph'}"
+              f"{f' (e.g. {first[:3]})' if first else ''}", flush=True)
+        out["differ"] = {k: len(v) for k, v in errs.items()}
+    del graphs, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def graphs_against_eager(torch) -> dict:
+    """[45] for every case of ``graph_cases`` with cuDNN's deterministic algorithms: by
+    default its backward may sum with atomics, and two eager runs then differ by as much
+    as the graph does (DDPM's last conv, WGAN-GP's penalty through Adam's first steps)."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, config, overrides, batch, k in graph_cases():
+            out[label] = graph_against_eager(torch, label, config, overrides, batch, k)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def adam_bf16_card_vs_cpu(torch) -> float:
+    """[46]: three steps of the bf16-moment Adam (f32 weights) on the card and on the CPU
+    from the same weights and gradients: the weights within ADAM_CARD_TOL, the bf16
+    moments bit for bit or one bf16 step apart."""
+    from lightning_generative_models_tpu_torch.train.state import Adam
+
+    gen = torch.Generator().manual_seed(46)
+    shapes = [(64, 3, 3, 3), (257,), (128, 64)]
+    weights = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) * 1e-2 for s in shapes] for _ in range(3)]
+    params, opts = {}, {}
+    for dev in ("cpu", "cuda"):
+        params[dev] = [w.clone().to(dev).requires_grad_() for w in weights]
+        opts[dev] = Adam(params[dev], 2e-4, 0.9, 0.99, mu_dtype="bfloat16",
+                         nu_dtype="bfloat16")
+        for step in grads:
+            for p, g in zip(params[dev], step):
+                p.grad = g.to(dev)
+            opts[dev].step()
+    err = max(float((a.detach() - b.detach().cpu()).abs().max())
+              for a, b in zip(params["cpu"], params["cuda"]))
+    for p_cpu, p_gpu in zip(params["cpu"], params["cuda"]):
+        for key in ("exp_avg", "exp_avg_sq"):
+            a, b = opts["cpu"].state[p_cpu][key], opts["cuda"].state[p_gpu][key].cpu()
+            if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+                fail(f"[46] Adam's {key} is {a.dtype} / {b.dtype}, not bfloat16")
+            ulp = (a.float().abs() * 2.0**-7).clamp(min=1e-30)
+            if bool(((a.float() - b.float()).abs() > ulp).any()):
+                fail(f"[46] the bf16 {key} differs card against CPU by more than a bf16 step")
+    print(f"  bf16-moment Adam, 3 steps, card against CPU: weights max |diff| {err:.3e} "
+          f"(tol {ADAM_CARD_TOL}), moments within a bf16 step", flush=True)
+    if err > ADAM_CARD_TOL:
+        fail(f"[46] the bf16-moment Adam step differs card against CPU by {err:.3e}")
+    return err
+
+
+def logged_steps(k: int, start: int, stop: int, every: int = 50) -> list:
+    """The steps a run of k-step dispatches from ``start`` to ``stop`` logs (the trainer's
+    ``crossed`` cadence, the first step and the last)."""
+    out, step = [], start
+    while step < stop:
+        nxt = step + k
+        if every > 0 and step // every != nxt // every or step == 0 or nxt >= stop:
+            out.append(step)
+        step = nxt
+    return out
+
+
+def check_profile_trace(run_dir: Path) -> dict:
+    """[46]: the run's one chrome trace under profile/ names kernels #1 and #2 (the
+    window's dispatches are graph replays)."""
+    traces = sorted((run_dir / "profile").glob("*.json"))
+    text = traces[0].read_text() if len(traces) == 1 else ""
+    named = {g: sum(text.count(m) for m in PROFILE_GROUPS[g]) for g in list(PROFILE_GROUPS)[:2]}
+    print(f"  profile: {[t.name for t in traces]}, {len(text) / 1e6:.1f} MB; mentions of "
+          f"#1 {list(named.values())[0]}, of #2 {list(named.values())[1]}", flush=True)
+    if len(traces) != 1 or not all(named.values()):
+        fail("[46] the --profile_steps trace is missing or does not name kernels #1 and #2")
+    return {"files": [t.name for t in traces], "mentions": list(named.values())}
+
+
+def ddpm_unroll_path(torch, card: str) -> dict:
+    """[46]: the train entry point on ddpm_cifar10.json (DDPM_UNROLL_DERIVED: its grid by
+    DDIM-50) at full width, bs128 bf16, with DDPM_UNROLL_FLAGS for DDPM_UNROLL_STEPS steps, then a --resume with the same flags to
+    + DDPM_UNROLL_RESUME: kernels #1 and #2 counted per replay (6 a step each, as eager),
+    the logging cadence, bf16 moments in the checkpoint, the profiler's trace naming #1 and
+    #2, and a resume with float32 moments refused."""
+    from lightning_generative_models_tpu_torch import train
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.train import trainer as trainer_mod
+    from lightning_generative_models_tpu_torch.train.state import (
+        set_default_mu_dtype,
+        set_default_nu_dtype,
+    )
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    run_dir = EXPERIMENT_DIR / "DDPM" / DDPM_UNROLL_RUN
+    shutil.rmtree(run_dir, ignore_errors=True)
+    config = json.loads(DDPM_UNROLL_CONFIG.read_text())
+    config["model"]["args"]["sampling_timesteps"] = DDIM_STEPS
+    DDPM_UNROLL_DERIVED.parent.mkdir(parents=True, exist_ok=True)
+    DDPM_UNROLL_DERIVED.write_text(json.dumps(config, indent=4) + "\n")
+    val_batches = len(list(DataModule(**load_config(DDPM_UNROLL_CONFIG)["dataset"])
+                           .val_batches()))
+    argv = ["--config_path", str(DDPM_UNROLL_DERIVED), "--device", "cuda", "--experiment_name",
+            DDPM_UNROLL_RUN, "--check_val_every_n_epoch", "1000", "--sample_every_n_steps",
+            "0"] + DDPM_UNROLL_FLAGS
+    made = []
+    base = trainer_mod.StepGraphs
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    trainer_mod.StepGraphs = Recorded
+    out = {}
+    try:
+        total = DDPM_UNROLL_STEPS + DDPM_UNROLL_RESUME
+        for name, steps, extra in (("train", DDPM_UNROLL_STEPS, []),
+                                   ("resume", total, ["--resume"])):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            model = train.main(argv + ["--max_steps", str(steps)] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            new = steps - (0 if name == "train" else DDPM_UNROLL_STEPS)
+            graphs = made[-1].graphs
+            per_replay = {n: sum(e.launches[n] for e in graphs.values()) // max(len(graphs), 1)
+                          for n in LA_COUNTERS}
+            # Validation: each val batch one evaluation; the grid of 64: DDIM-50.
+            want = {"linear_attention": 6 * (new + val_batches + DDIM_STEPS),
+                    "linear_attention_bwd": 6 * new}
+            print(f"  {name}: {new} steps to step {model.step} in {wall:.1f} s on {card}; "
+                  f"{len(graphs)} graph(s) of {UNROLL} steps, #1/#2 per replay "
+                  f"{per_replay} (eager: {6 * UNROLL} each); launches {got['linear_attention']}"
+                  f" / {got['linear_attention_bwd']} (expected {want['linear_attention']} / "
+                  f"{want['linear_attention_bwd']})", flush=True)
+            if per_replay != {n: 6 * UNROLL for n in LA_COUNTERS}:
+                fail(f"[46] the DDPM graph counts {per_replay} launches per replay")
+            if {n: got[n] for n in LA_COUNTERS} != want or model.step != steps:
+                fail(f"[46] the {name} run: launches {got}, step {model.step}")
+            out[name] = {"wall_s": wall, "graphs": len(graphs), "per_replay": per_replay,
+                         "counts": {n: got[n] for n in LA_COUNTERS}}
+            if name == "train":
+                out["trace"] = check_profile_trace(run_dir)
+    finally:
+        trainer_mod.StepGraphs = base
+        set_default_mu_dtype(None)
+        set_default_nu_dtype(None)
+    records = [r for r in read_metrics(run_dir) if "train_loss" in r]
+    want_steps = (logged_steps(UNROLL, 0, DDPM_UNROLL_STEPS)
+                  + logged_steps(UNROLL, DDPM_UNROLL_STEPS, total))
+    print(f"  logged train steps {[r['step'] for r in records]} (expected {want_steps}); "
+          f"losses {[round(r['train_loss'], 4) for r in records]}", flush=True)
+    if [r["step"] for r in records] != want_steps:
+        fail("[46] the unrolled DDPM run's logging cadence")
+    if not all(r["train_loss"] == r["train_loss"] for r in records):
+        fail("[46] a train loss is not finite")
+    state = torch.load(run_dir / "checkpoints" / "last", map_location="cpu", weights_only=True)
+    dtypes = {str(s[k].dtype) for s in state["optimizer"]["state"].values()
+              for k in ("exp_avg", "exp_avg_sq")}
+    print(f"  the checkpoint's Adam moments: {sorted(dtypes)}", flush=True)
+    if dtypes != {"torch.bfloat16"}:
+        fail(f"[46] the checkpoint's moments are {dtypes}")
+    # On a copy: the entry point writes its args.json (generate reads the dtypes there).
+    refused = f"{DDPM_UNROLL_RUN}_f32_resume"
+    shutil.rmtree(run_dir.parent / refused, ignore_errors=True)
+    shutil.copytree(run_dir, run_dir.parent / refused)
+    f32_argv = [a for a in argv if a not in ("bfloat16", "--mu_dtype", "--nu_dtype")]
+    f32_argv[f32_argv.index(DDPM_UNROLL_RUN)] = refused
+    try:
+        train.main(f32_argv + ["--max_steps", str(total + UNROLL), "--resume"])
+        fail("[46] a resume with float32 moments from a bf16-moment checkpoint trained")
+    except ValueError as e:
+        print(f"  resume with float32 moments refused: {e}", flush=True)
+    shutil.rmtree(run_dir.parent / refused, ignore_errors=True)
+    out["adam_card_vs_cpu"] = adam_bf16_card_vs_cpu(torch)
+    return out
+
+
+def dcgan_unroll_path(torch, card: str) -> dict:
+    """[46]: DCGAN (dcgan_cifar10.json, full width, bs128 bf16) with --unroll_steps 4:
+    train, resume, generate; every kernel counter 0."""
+    from lightning_generative_models_tpu_torch import generate, train
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    run_dir = EXPERIMENT_DIR / "DCGAN" / DCGAN_UNROLL_RUN
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--config_path", str(DCGAN_CONFIG), "--device", "cuda", "--experiment_name",
+            DCGAN_UNROLL_RUN, "--unroll_steps", str(UNROLL), "--sample_every_n_steps", "0"]
+    total = DCGAN_UNROLL_STEPS + DCGAN_UNROLL_RESUME
+    zero_counts()
+    walls = {}
+    for name, steps, extra in (("train", DCGAN_UNROLL_STEPS, []), ("resume", total, ["--resume"])):
+        t0 = time.perf_counter()
+        model = train.main(argv + ["--max_steps", str(steps)] + extra)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if model.step != steps:
+            fail(f"[46] the DCGAN {name} run ended at step {model.step}")
+    images = generate.main(["--config_path", str(DCGAN_CONFIG), "--device", "cuda",
+                            "--experiment_name", DCGAN_UNROLL_RUN, "--num_samples", "64",
+                            "--out", str(OUT_DIR / "dcgan_unroll")])
+    records = [r for r in read_metrics(run_dir) if "train_g_loss" in r]
+    counts = read_counts()
+    print(f"  DCGAN --unroll_steps {UNROLL}: train {DCGAN_UNROLL_STEPS} in {walls['train']:.1f} s,"
+          f" resume to {total} in {walls['resume']:.1f} s; logged steps "
+          f"{[r['step'] for r in records]}; generate {images.shape}; counters {counts}",
+          flush=True)
+    if any(counts.values()) or not (images.min() >= 0 and images.max() <= 1):
+        fail("[46] the unrolled DCGAN path launched a kernel or sampled out of [0, 1]")
+    if not all(r["train_g_loss"] == r["train_g_loss"] for r in records):
+        fail("[46] a DCGAN loss is not finite")
+    return walls
+
+
+def registry_runs() -> list:
+    """[46]: (registry name, config, experiment) of every trainable registry name but the
+    two unrolled above: the runs of [6], [10], [15], [21], [27], [31]-[33], [36] and [41]."""
+    runs = [("DDPM", CONFIG, TRAIN_RUN), ("DDPM (DiT)", DIT_CONFIG, DIT_RUN),
+            ("DDPM (DiT-MoE)", DIT_MOE_CONFIG, DIT_MOE_RUN),
+            ("FlowMatching", FM_CONFIG, FM_RUN), ("VQVAE", VQVAE_CONFIG, "chip_smoke_vqvae"),
+            ("VQGAN", VQGAN_CONFIG, "chip_smoke_vqgan")]
+    for path in derive_gan_configs():
+        name = json.loads(path.read_text())["model"]["name"]
+        runs.append((name, path, f"chip_smoke_{path.stem}"))
+    runs += [(p.model, p.config, p.run) for p in SLICE_PATHS.values()]
+    runs += [(p.model, p.resume_config, p.run) for p in latent_paths(derive_latent_configs())]
+    runs += [("VAE", VAE_CONFIG, "chip_smoke_vae"),
+             ("VQGAN (LPIPS)", VQGAN_LPIPS_CONFIG, "chip_smoke_vqgan_lpips")]
+    runs += [(json.loads(p.read_text())["model"]["name"], p, f"chip_smoke_{name.lower()}")
+             for name, p in derive_family_configs().items()]
+    return runs
+
+
+def unrolled_dispatches(torch, card: str) -> dict:
+    """[46]: every name of ``registry_runs`` from its run's last checkpoint (its resume
+    leg's; fresh weights where there is none): NAME_DISPATCHES dispatches of the trainer
+    at --unroll_steps NAME_UNROLL (the first of a branch tuple eager, the second captured
+    and replayed: every name's next 4 steps are of one tuple); per name whether it
+    captured, its graphs and its launches per replay."""
+    import gc
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import (
+        DataModule,
+        PairedDataModule,
+    )
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
+    from lightning_generative_models_tpu_torch.train.trainer import Trainer
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    out, failed = {}, []
+    for name, config_path, run in registry_runs():
+        t0 = time.perf_counter()
+        config = load_config(config_path)
+        model_name = config["model"]["name"]
+        paired = config["dataset"].pop("paired", None)
+        paired = model_name.lower() == "cyclegan" if paired is None else paired
+        label = f"{name} ({Path(config_path).name})"
+        try:
+            model = load_model(config["model"], device="cuda")
+            ckpt = CheckpointManager(EXPERIMENT_DIR / model_name / run / "checkpoints")
+            restored = ckpt.has_checkpoint("last")
+            if restored:
+                ckpt.restore(model, "last")
+            dm = (PairedDataModule if paired else DataModule)(**config["dataset"])
+            trainer = Trainer(model, dm, OUT_DIR / "unrolled" / run, unroll_steps=NAME_UNROLL)
+            trainer.global_step = model.step
+            start = model.step
+            batches = trainer._train_batches(0)
+            zero_counts()
+            for _ in range(NAME_DISPATCHES):
+                metrics = trainer._dispatch(next(batches))
+                trainer.global_step += NAME_UNROLL
+            torch.cuda.synchronize()
+            graphs = trainer._graphs.graphs
+            finite = all(bool(torch.isfinite(v).all()) for v in metrics.values())
+            per_replay = {k: v for e in graphs.values() for k, v in e.launches.items() if v}
+            out[label] = {"captured": bool(graphs), "graphs": len(graphs),
+                          "launches_per_replay": per_replay, "from_step": start,
+                          "restored": restored, "wall_s": time.perf_counter() - t0}
+            print(f"  {label}: from step {start} ({'restored' if restored else 'fresh'}), "
+                  f"{'captured' if graphs else 'NOT captured'}, {len(graphs)} graph(s), "
+                  f"launches per replay {per_replay}, metrics finite {finite}, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if not graphs or not finite or model.step != start + NAME_DISPATCHES * NAME_UNROLL:
+                failed.append(label)
+        except Exception as e:  # noqa: BLE001 - every name is tried, then the phase fails
+            print(f"  {label}: FAILED: {type(e).__name__}: {e}", flush=True)
+            out[label] = {"captured": False, "error": f"{type(e).__name__}: {e}"}
+            failed.append(label)
+        finally:
+            model = trainer = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    if failed:
+        fail(f"[46] unrolled dispatches failed for {failed}")
+    return out
+
+
+def unroll_throughput(torch, card: str, repeats: int = 3) -> dict:
+    """[47]: DDPM (ddpm_cifar10) and DCGAN (dcgan_cifar10) at bs128 bf16 through the
+    trainer's dispatch at --unroll_steps 1 and UNROLL, interleaved, ``repeats`` timings of
+    THROUGHPUT_STEPS steps each (host clock around work that ends in a synchronize); then
+    one dispatch's worth of steps under torch.profiler: device-busy time a step
+    (exclusive_kernel_us), kernel launches and CUDA runtime calls a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for label, path in (("DDPM", DDPM_UNROLL_CONFIG), ("DCGAN", DCGAN_CONFIG)):
+        config = load_config(path)
+        model = load_model(config["model"], device="cuda")
+        dm = DataModule(**config["dataset"])
+        trainers = {k: Trainer(model, dm, OUT_DIR / "throughput", unroll_steps=k)
+                    for k in (1, UNROLL)}
+        if hasattr(model, "ema_update_after_step"):
+            model.step = model.ema_update_after_step  # past the EMA's hard copy
+        stacked = stacked_batches(torch, config, TRAIN_BATCH, UNROLL)
+        single = {n: v[0] for n, v in stacked.items()}
+
+        def run(k, steps):
+            trainer = trainers[k]
+            for _ in range(steps // k):
+                trainer.global_step = model.step
+                trainer._dispatch(stacked if k > 1 else single)
+            torch.cuda.synchronize()
+
+        run(1, UNROLL)  # warm-up: the eager step's
+        run(UNROLL, 40)  # every branch tuple's eager dispatch, then its capture
+        walls = {1: [], UNROLL: []}
+        for _ in range(repeats):
+            for k in (1, UNROLL):
+                t0 = time.perf_counter()
+                run(k, THROUGHPUT_STEPS)
+                walls[k].append(time.perf_counter() - t0)
+        res = {}
+        for k in (1, UNROLL):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(k, UNROLL)
+            kernels = exclusive_kernel_us(torch, prof)
+            busy_us = sum(us for us, _ in kernels.values())
+            launches = sum(c for _, c in kernels.values())
+            host_calls = sum(1 for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CPU
+                             and e.name.startswith("cu"))
+            wall = statistics.median(walls[k])
+            res[k] = {"ms_per_step": 1e3 * wall / THROUGHPUT_STEPS,
+                      "images_per_s": THROUGHPUT_STEPS * TRAIN_BATCH / wall,
+                      "walls_s": [round(w, 4) for w in walls[k]],
+                      "busy_ms_per_step": busy_us / 1e3 / UNROLL,
+                      "launches_per_step": launches / UNROLL,
+                      "host_calls_per_step": host_calls / UNROLL,
+                      "graphs": len(trainers[k]._graphs.graphs) if k > 1 else 0}
+            print(f"  {label} bs{TRAIN_BATCH} bf16, unroll {k}: {res[k]['ms_per_step']:.2f} ms a "
+                  f"step (median of {res[k]['walls_s']} s per {THROUGHPUT_STEPS} steps), "
+                  f"{res[k]['images_per_s']:.1f} images/s, device busy "
+                  f"{res[k]['busy_ms_per_step']:.2f} ms a step, {res[k]['launches_per_step']:.0f}"
+                  f" launches and {res[k]['host_calls_per_step']:.0f} CUDA runtime calls a step"
+                  f" (profiled), {res[k]['graphs']} graph(s), on {card}", flush=True)
+        out[label] = res
+        del trainers, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def interpolation_cases() -> list:
+    """[48]: (label, model name, small-width args) of the four processes, f32."""
+    tiny = {"img_size": 32, "dim": 64, "dim_mults": [1, 2], "use_bf16": False}
+    return [("GaussianDiffusion", "DDPM", {**tiny, "diffusion_timesteps": 20}),
+            ("RectifiedFlow", "FlowMatching", {**tiny, "sampling_steps": 6}),
+            ("EDMProcess", "EDM", {**tiny, "sampling_steps": 5, "s_churn": 10.0}),
+            ("ConsistencyProcess", "ConsistencyModel", tiny)]
+
+
+def interpolation_card_vs_cpu(torch) -> dict:
+    """[48]: each process's interpolate through its model's, card against CPU, the same
+    weights and explicit draws (the two noises, the chain's or the churn's per-step noise),
+    per-sample lambdas: within INTERP_TOL of 1 + |ref|."""
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    out = {}
+    for label, name, args in interpolation_cases():
+        models = {dev: load_model({"name": name, "args": args}, device=dev)
+                  for dev in ("cpu", "cuda")}
+        models["cpu"].init_params(torch.Generator().manual_seed(48))
+        models["cuda"].load_state_dict(models["cpu"].state_dict())
+        gen = torch.Generator().manual_seed(480)
+        shape = (4, 32, 32, 3)
+        x1, x2 = torch.rand(shape, generator=gen), torch.rand(shape, generator=gen)
+        draws = {"noise1": torch.randn(shape, generator=gen),
+                 "noise2": torch.randn(shape, generator=gen)}
+        steps = [torch.randn(shape, generator=gen) for _ in range(20)]
+        if name in ("DDPM", "EDM"):
+            draws["noise_fn"] = lambda i, s: steps[i]
+        lam = torch.linspace(0, 1, 4).reshape(4, 1, 1, 1)
+        res = {dev: m.interpolate(x1, x2, None, lam=lam, **draws).float().cpu()
+               for dev, m in models.items()}
+        err = float(((res["cuda"] - res["cpu"]).abs() / (1 + res["cpu"].abs())).max())
+        print(f"  {label} ({name}, dim 64, dim_mults (1, 2), f32): card against CPU {err:.3e} "
+              f"(tol {INTERP_TOL})", flush=True)
+        if err > INTERP_TOL or not torch.isfinite(res["cuda"]).all():
+            fail(f"[48] {label}'s interpolate differs card against CPU by {err:.3e}")
+        out[label] = err
+    return out
+
+
+def interpolation_paths(torch, card: str) -> dict:
+    """[48]: generate --interpolate INTERP_N on [6]'s DDPM run (ddim_cifar10: the ends by
+    DDIM-50, then 999 ancestral evaluations, #1 counted: 6 an evaluation) and on the
+    FM-DiT flash, EDM and CT runs of [21], [31] and [32]; every grid finite in [0, 1]."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch import generate
+
+    out = {}
+    for label, config, run, want in (
+            ("DDPM", CONFIG, TRAIN_RUN, 6 * (DDIM_STEPS + 999)),
+            ("FlowMatching", FM_CONFIG, FM_RUN, None),
+            ("EDM", EDM_CONFIG, SLICE_PATHS["edm"].run, None),
+            ("ConsistencyModel", CT_CONFIG, SLICE_PATHS["ct"].run, None)):
+        zero_counts()
+        t0 = time.perf_counter()
+        images = generate.main(["--config_path", str(config), "--device", "cuda",
+                                "--experiment_name", run, "--interpolate", str(INTERP_N),
+                                "--out", str(OUT_DIR / "interpolate" / label)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        pngs = sorted((OUT_DIR / "interpolate" / label).glob("interpolation_last_step*.png"))
+        print(f"  {label}: generate --interpolate {INTERP_N} {images.shape} in {wall:.1f} s, "
+              f"launches {counts}, {[p.name for p in pngs]} on {card}", flush=True)
+        if images.shape[0] != INTERP_N or not pngs or not (
+                np.isfinite(images).all() and images.min() >= 0 and images.max() <= 1):
+            fail(f"[48] generate --interpolate on {run} wrote no grid in [0, 1]")
+        if want is not None and counts.get("linear_attention") != want:
+            fail(f"[48] {label}'s interpolation launched #1 {counts} times, not {want}")
+        out[label] = {"wall_s": wall, "launches": counts}
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4124,13 +4759,43 @@ def main() -> None:
     moe_stats = moe_breakdown(torch, card)
     print(f"  [44] took {time.perf_counter() - t0:.1f} s; phases 38-44 took "
           f"{time.perf_counter() - t_metrics:.1f} s", flush=True)
+
+    print(f"[45] {UNROLL}-step CUDA graphs against {UNROLL} eager steps from one state",
+          flush=True)
+    t_unroll = t0 = time.perf_counter()
+    graph_stats = graphs_against_eager(torch)
+    print(f"  [45] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[46] {DDPM_UNROLL_CONFIG.name} through the CLI with {' '.join(DDPM_UNROLL_FLAGS)}; "
+          f"DCGAN --unroll_steps {UNROLL}; every other registry name's unrolled dispatches",
+          flush=True)
+    t0 = time.perf_counter()
+    ddpm_unroll = ddpm_unroll_path(torch, card)
+    dcgan_unroll = dcgan_unroll_path(torch, card)
+    name_unroll = unrolled_dispatches(torch, card)
+    print(f"  [46] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[47] throughput at --unroll_steps 1 and {UNROLL}: DDPM and DCGAN bs{TRAIN_BATCH} "
+          "bf16", flush=True)
+    t0 = time.perf_counter()
+    unroll_stats = unroll_throughput(torch, card)
+    print(f"  [47] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[48] interpolation: the four processes card against CPU; generate --interpolate "
+          f"{INTERP_N}", flush=True)
+    t0 = time.perf_counter()
+    interp_stats = {"card_vs_cpu": interpolation_card_vs_cpu(torch),
+                    "generate": interpolation_paths(torch, card)}
+    print(f"  [48] took {time.perf_counter() - t0:.1f} s; phases 45-48 took "
+          f"{time.perf_counter() - t_unroll:.1f} s", flush=True)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
     slice_counts = {f"{key}_{run}": got for key, res in slice_runs.items()
                     for run, got in res["counts"].items()}
 
+    def per_replay(case: str, counter: str) -> dict:
+        return {f"{case}, {UNROLL} steps": graph_stats[case]["launches_per_replay"][counter]}
+
     kernels = [{
         "name": "linear_attention",
         "route": "cuda",
+        "launches_per_replay": per_replay("DDPM bs128 bf16", "linear_attention"),
         "source": "lightning_generative_models_tpu_torch/csrc/linear_attention.cu",
         "replaces": "lightning_generative_models_tpu/ops/linear_attention.py:173",
         "launches": launches,
@@ -4153,6 +4818,7 @@ def main() -> None:
     }, {
         "name": "linear_attention_bwd",
         "route": "cuda",
+        "launches_per_replay": per_replay("DDPM bs128 bf16", "linear_attention_bwd"),
         "source": "lightning_generative_models_tpu_torch/csrc/linear_attention_bwd.cu",
         "replaces": "lightning_generative_models_tpu/ops/linear_attention.py:302",
         "launches": train_counts["train"]["backward"],
@@ -4175,6 +4841,7 @@ def main() -> None:
     }, {
         "name": "vq_nearest",
         "route": "cuda",
+        "launches_per_replay": per_replay("VQ-VAE bs256 f32", "nearest_codes"),
         "source": "lightning_generative_models_tpu_torch/csrc/vq.cu",
         "replaces": "lightning_generative_models_tpu/ops/vq.py:23",
         "launches": vq_counts["vqvae"],
@@ -4197,6 +4864,7 @@ def main() -> None:
     }, {
         "name": "attention_qkv",
         "route": "cuda",
+        "launches_per_replay": per_replay("DiT-S/2 bs128 bf16", "fused_attention_qkv"),
         "source": "lightning_generative_models_tpu_torch/csrc/attention_qkv.cu",
         "replaces": "lightning_generative_models_tpu/ops/attention.py:212",
         "launches": dit_gen_counts["fused_attention_qkv"],
@@ -4225,6 +4893,7 @@ def main() -> None:
     }, {
         "name": "attention_qkv_bwd",
         "route": "cuda",
+        "launches_per_replay": per_replay("DiT-S/2 bs128 bf16", "fused_attention_qkv_bwd"),
         "source": "lightning_generative_models_tpu_torch/csrc/attention_qkv_bwd.cu",
         "replaces": "lightning_generative_models_tpu/ops/attention.py:231",
         "launches": dit_counts["train"]["fused_attention_qkv_bwd"],
@@ -4258,6 +4927,7 @@ def main() -> None:
     }, {
         "name": "flash_attention",
         "route": "cuda",
+        "launches_per_replay": per_replay("FM-DiT flash bs128 bf16", "flash_attention"),
         "source": "lightning_generative_models_tpu_torch/csrc/flash_attention.cu",
         "replaces": "lightning_generative_models_tpu/ops/attention.py:42",
         "launches": fm_gen_counts["flash_attention"],
@@ -4313,7 +4983,10 @@ def main() -> None:
                       "families": family_stats, "family_walls_s": family_walls,
                       "inception": inception_stats, "dit_moe_card_vs_cpu": moe_card_stats,
                       "dit_moe": moe_stats, "fid": fid_stats,
-                      "gan_metrics": gan_metrics_stats}))
+                      "gan_metrics": gan_metrics_stats, "graphs_against_eager": graph_stats,
+                      "ddpm_unroll": ddpm_unroll, "dcgan_unroll_walls_s": dcgan_unroll,
+                      "unrolled_dispatches": name_unroll, "unroll_throughput": unroll_stats,
+                      "interpolation": interp_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

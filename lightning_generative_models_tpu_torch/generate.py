@@ -15,10 +15,15 @@ its ``sample`` does); each sampling family (diffusion, flow matching, EDM, consi
 refuses the others' sampler names with the JAX package's messages. A latent model's
 ``--weights`` is its whole flattened ``TrainState``, the autoencoder inside it.
 ``--experiment_name`` (with ``--which`` last or best) restores instead a port run's
-checkpoint from ``experiments/<MODEL>/<experiment_name>/``.
+checkpoint from ``experiments/<MODEL>/<experiment_name>/``, its optimizer with the run's
+Adam moment dtypes (the run's ``args.json``).
 
     python -m lightning_generative_models_tpu_torch.generate \
         --config_path configs/diffusion/ddim_cifar10.json --num_samples 64 [--device cuda]
+
+``--interpolate N`` writes instead a one-row grid of N blends of two samples
+(``interpolation_<which>_step<step>.png``, JAX's name; ``--interpolate_t`` the noising
+time), through the model's ``interpolate``; a model without one exits with JAX's message.
 
 ``--fid N`` computes FID@N instead of a grid, as the JAX ``generate.py --fid`` does: the
 real statistics over the full train split (train and validation; a synthetic stand-in is
@@ -52,6 +57,10 @@ from lightning_generative_models_tpu_torch.metrics.generative import (
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.registry import load_model
 from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
+from lightning_generative_models_tpu_torch.train.state import (
+    set_default_mu_dtype,
+    set_default_nu_dtype,
+)
 from lightning_generative_models_tpu_torch.utils.grid import make_grid
 from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
 
@@ -92,7 +101,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "sampling_timesteps or sampling_steps); ancestral ddpm always runs "
                         "the full chain")
     parser.add_argument("--interpolate", type=int, default=0, metavar="N",
-                        help="not ported yet")
+                        help="blend two generated samples at N lambdas in [0, 1] through the "
+                        "model's interpolate (diffusion, flow matching, EDM, consistency "
+                        "and latent models)")
+    parser.add_argument("--interpolate_t", type=float, default=None,
+                        help="noising time of --interpolate: a step for a diffusion model "
+                        "(default T-1, the full chain), a time in (0, 1] for flow "
+                        "matching, EDM and consistency models (default 0.9)")
     parser.add_argument("--fid", type=int, default=0, metavar="N",
                         help="compute FID@N against the train split's statistics and "
                         "write fid_<N>_<which>_step<step>.json")
@@ -180,15 +195,48 @@ def compute_fid(model, config: dict, args: argparse.Namespace, step: int, which:
     return artifact
 
 
+def use_run_moment_dtypes(run_dir: Path) -> None:
+    """Adam's moment dtypes of a port run (its ``args.json``: ``--mu_dtype`` /
+    ``--nu_dtype``), so that its checkpoint restores into the optimizer it was saved from."""
+    path = run_dir / "args.json"
+    saved = json.loads(path.read_text()) if path.exists() else {}
+    for key, setter in (("mu_dtype", set_default_mu_dtype), ("nu_dtype", set_default_nu_dtype)):
+        value = saved.get(key, "float32")
+        setter(None if value == "float32" else value)
+
+
+def interpolate(model, args: argparse.Namespace, generator: torch.Generator, out_dir: Path,
+                which: str, step: int) -> np.ndarray:
+    """``--interpolate N``: two samples, broadcast to N rows each and blended at lambdas
+    ``linspace(0, 1, N)`` by the model's ``interpolate`` (its draws from a second
+    generator), written as a one-row grid ``interpolation_<which>_step<step>.png``."""
+    if not hasattr(model, "interpolate"):
+        raise SystemExit(f"{type(model).__name__} does not support interpolate")
+    n = args.interpolate
+    ends = model.sample(generator, 2).float()
+    x1 = ends[0].expand(n, *ends.shape[1:])
+    x2 = ends[1].expand(n, *ends.shape[1:])
+    lam = torch.linspace(0.0, 1.0, n, device=ends.device).reshape(n, 1, 1, 1)
+    seed = np.random.SeedSequence([args.seed, 2]).generate_state(1)[0]
+    blend_generator = torch.Generator(device=model.device).manual_seed(int(seed))
+    images = model.interpolate(x1, x2, blend_generator, t=args.interpolate_t,
+                               lam=lam).float().cpu().numpy()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"interpolation_{which}_step{step}.png"
+    _write_png(path, make_grid(images, nrow=n))
+    print(f"Wrote {path}")
+    return images
+
+
 def main(argv=None) -> np.ndarray:
     """Run the CLI; returns the sampled images, [N, H, W, C] in [0, 1] (with ``--fid``,
     the FID artifact)."""
     args = parse_args(argv)
-    if args.interpolate:
-        raise NotImplementedError(
-            "--interpolate needs the diffusion interpolation, not yet ported; see ROADMAP.md")
     device = resolve_device(args.device)
     config = load_config(args.config_path)
+    run_dir = EXPERIMENT_DIR / config["model"]["name"] / (args.experiment_name or "")
+    if args.experiment_name:
+        use_run_moment_dtypes(run_dir)
     model = load_model(config["model"], device=device)
     name = type(model).__name__
     if (args.sampler != "auto" or args.sampling_steps) and \
@@ -198,7 +246,6 @@ def main(argv=None) -> np.ndarray:
     if args.label is not None and not hasattr(model, "sample_classes"):
         raise SystemExit(f"{name} does not support --label (conditional models only)")
     step, which = 0, "weights" if args.weights else "seed"
-    run_dir = EXPERIMENT_DIR / config["model"]["name"] / (args.experiment_name or "")
     if args.weights:
         model.load_flax_weights(args.weights)
     else:
@@ -217,6 +264,8 @@ def main(argv=None) -> np.ndarray:
                else EXPERIMENT_DIR / config["model"]["name"] / "generated_torch")
     if args.fid:
         return compute_fid(model, config, args, step, which, out_dir, kwargs)
+    if args.interpolate:
+        return interpolate(model, args, generator, out_dir, which, step)
     if args.label is not None:
         labels = torch.full((args.num_samples,), args.label, dtype=torch.long)
         if args.guidance_scale is not None:

@@ -81,11 +81,22 @@ class LPIPSNet(nn.Module):
         return lpips_distance(self, x, y)
 
 
+_SCALING: dict = {}
+
+
+def _scaling(device: torch.device) -> tuple:
+    """The input scaling's shift and scale on ``device``, made once a device: a copy to
+    the card at every call would stop a CUDA graph from holding the step."""
+    if device not in _SCALING:
+        _SCALING[device] = tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                                 for v in (_SHIFT, _SCALE))
+    return _SCALING[device]
+
+
 def lpips_distance(net: LPIPSNet, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Per-example LPIPS distance [b] between ``x`` and ``y``, [b, h, w, c] in [-1, 1]
     (grayscale is broadcast to RGB). Differentiable in x and y."""
-    shift = torch.tensor(_SHIFT, dtype=torch.float32, device=x.device)
-    scale = torch.tensor(_SCALE, dtype=torch.float32, device=x.device)
+    shift, scale = _scaling(x.device)
 
     def prep(img):
         if img.shape[-1] == 1:

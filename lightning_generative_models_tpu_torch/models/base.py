@@ -99,6 +99,18 @@ class GenerativeModel:
         """Named sample grids logged at every validation: {name: images in [0, 1]}."""
         return {}
 
+    def summary_spec(self) -> dict:
+        """``{name: (module, example_args, kwargs)}`` of the per-layer tables the trainer
+        logs at fit start (``utils/summary.py``); none by default."""
+        return {}
+
+    def host_branch(self, step: int):
+        """What a train step at step count ``step`` (the model's ``step`` before it)
+        decides on the host. A CUDA graph of k steps is captured once per tuple of these
+        (``train/graphs.py``), as the JAX trainer compiles one program per tuple of EMA
+        flags; None when the step takes no such branch."""
+        return None
+
     def state_dict(self) -> dict:
         """Everything a checkpoint holds: weights, optimizer state, counters."""
         raise NotImplementedError

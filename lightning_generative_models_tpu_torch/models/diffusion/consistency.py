@@ -22,7 +22,8 @@ the doubled batch too, with zeros in the target half, as JAX's ``stop_gradient``
 The random draws come from an explicit ``torch.Generator`` or are passed in: the grid
 index itself (``index``, the categorical draw: JAX's ``jax.random.categorical`` cannot be
 replayed from a seed, so a test hands the port the index JAX drew) and the noise;
-``sample``'s start and the re-noising draws. ``interpolate`` is not ported yet.
+``sample``'s start and the re-noising draws; ``interpolate``'s two noises (one
+consistency evaluation at sigma(t)).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from lightning_generative_models_tpu_torch.models.diffusion.edm import batch_vie
 from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
     ApplyFn,
     NoiseFn,
+    normal_draw,
 )
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
@@ -252,10 +254,35 @@ class ConsistencyProcess:
         return self.unnormalize(
             self._multistep(apply_fn, x, self.tau_grid(steps), generator, noise_fn))
 
-    def interpolate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ConsistencyProcess.interpolate is not yet ported to the PyTorch package; see "
-            "ROADMAP.md, Queue 1 #9")
+    def interpolate(
+        self,
+        apply_fn: ApplyFn,
+        x1_01: torch.Tensor,
+        x2_01: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[float] = None,
+        lam=0.5,
+        noise1: Optional[torch.Tensor] = None,
+        noise2: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Noise both [0, 1] batches to sigma(t), the log-lerp of the sigma range
+        (default t 0.9, in (0, 1]), with independent noises ``noise1`` and ``noise2``
+        (drawn from ``generator`` when not given), blend them by ``lam`` (a float or a [N,
+        1, 1, 1] tensor), and map back with one consistency evaluation (JAX
+        ``interpolate``)."""
+        t = 0.9 if t is None else float(t)
+        if not 0.0 < t <= 1.0:
+            raise ValueError(f"consistency interpolation time must be in (0, 1], got {t}")
+        sigma_t = math.exp((1.0 - t) * math.log(self.sigma_min)
+                           + t * math.log(self.sigma_max))
+        shape = tuple(x1_01.shape)
+        noise1 = normal_draw(noise1, shape, generator, self.device)
+        noise2 = normal_draw(noise2, shape, generator, self.device)
+        z1 = self.normalize(x1_01.to(self.device, torch.float32)) + sigma_t * noise1
+        z2 = self.normalize(x2_01.to(self.device, torch.float32)) + sigma_t * noise2
+        x = (1 - lam) * z1 + lam * z2
+        sigma = torch.full((shape[0],), sigma_t, dtype=torch.float32, device=self.device)
+        return self.unnormalize(self.denoise(apply_fn, x, sigma))
 
 
 class ConsistencyModel(DDPM):
@@ -338,6 +365,10 @@ class ConsistencyModel(DDPM):
             device=self.device,
         )
 
+    def host_branch(self, step: int):
+        """The EMA's decay and the curriculum's interval count of the step."""
+        return self.ema_decay_at(step + 1), self.diffusion.n_intervals(step)
+
     def grad_step(
         self,
         batch: Dict,
@@ -363,8 +394,8 @@ class ConsistencyModel(DDPM):
             labels = torch.cat([labels, labels])
         loss = self.diffusion.p_losses(self._apply_fn(self.unet, labels), x01, generator,
                                        step=self.step, index=index, noise=noise)
-        intervals = torch.tensor(float(self.diffusion.n_intervals(self.step)),
-                                 device=self.device)
+        intervals = torch.full((), float(self.diffusion.n_intervals(self.step)),
+                               device=self.device)
         return self._grads(loss, self._trainable()), {"loss": loss.detach(),
                                                       "ct_intervals": intervals}
 

@@ -5,10 +5,10 @@ constructor's UNet and DiT branches with the same argument checks, the apply clo
 (``_apply_fn``, ``_guided_apply_fn`` for classifier-free guidance), the train step as
 ``grad_step`` + ``apply_grad_step`` (Adam, then the EMA: a hard copy up to
 ``ema_update_after_step``, then a decay every ``ema_update_every`` steps), ``eval_step``
-with the EMA weights, ``sample``, ``sample_classes`` and ``sample_raw``, each through the
-diffusion-space hooks ``_to_diffusion_space`` / ``_from_diffusion_space`` (identities here;
-``LatentDiffusion`` runs the same steps in a frozen autoencoder's latent space). The EMA
-weights are a second copy of the denoiser (``ema_unet``, the name the JAX package gives
+with the EMA weights, ``sample``, ``sample_classes``, ``sample_raw`` and ``interpolate``,
+each through the diffusion-space hooks ``_to_diffusion_space`` / ``_from_diffusion_space``
+(identities here; ``LatentDiffusion`` runs the same steps in a frozen autoencoder's
+latent space). The EMA weights are a second copy of the denoiser (``ema_unet``, the name the JAX package gives
 the UNet and the DiT alike); the JAX package keeps them as
 ``TrainState.ema_params``. The model owns its step counter (``step``), as the JAX
 ``TrainState.step``.
@@ -307,6 +307,17 @@ class DDPM(GenerativeModel):
         """True when step ``next_step`` (1-based) changes the EMA weights."""
         return self.ema_decay_at(next_step) != 1.0
 
+    def host_branch(self, step: int):
+        """The EMA's decay after the step: the JAX trainer's EMA flag, and the branch a
+        graph of steps bakes in."""
+        return self.ema_decay_at(step + 1)
+
+    def summary_spec(self) -> dict:
+        """The denoiser's per-layer table (JAX ``ddpm.py:summary_spec``)."""
+        kwargs = {"labels": torch.zeros((1,), dtype=torch.long)} if self.num_classes else {}
+        return {"unet": (self.unet, (torch.zeros((1, *self.image_shape())),
+                                     torch.zeros((1,), dtype=torch.long)), kwargs)}
+
     def apply_grad_step(self, grads, metrics: Dict) -> Dict[str, torch.Tensor]:
         """Adam on ``grads``, then the EMA, then the step counter."""
         params = self._trainable()
@@ -416,6 +427,25 @@ class DDPM(GenerativeModel):
         return self._from_diffusion_space(self.diffusion.sample(
             apply_fn, labels.shape[0], generator, method=method, steps=steps, x_T=x_T
         ))
+
+    @torch.inference_mode()
+    def interpolate(self, x1_01: torch.Tensor, x2_01: torch.Tensor,
+                    generator: Optional[torch.Generator] = None, t=None, lam=0.5,
+                    **draws) -> torch.Tensor:
+        """Blend two [0, 1] image batches through the process's ``interpolate`` with the
+        EMA weights (null labels for a conditional model), in the diffusion space
+        (JAX ``ddpm.py:interpolate``): a latent model blends in its autoencoder's latents.
+        ``lam`` is a float or a per-sample [N, 1, 1, 1] tensor; ``draws`` are the
+        process's explicit draws."""
+        x1 = torch.as_tensor(x1_01).to(self.device, torch.float32)
+        x2 = torch.as_tensor(x2_01).to(self.device, torch.float32)
+        if isinstance(lam, torch.Tensor):
+            lam = lam.to(self.device, torch.float32)
+        labels = self.null_labels(x1.shape[0]) if self.num_classes else None
+        z = self.diffusion.interpolate(
+            self._apply_fn(self.ema_unet, labels), self._to_diffusion_space(x1),
+            self._to_diffusion_space(x2), generator, t=t, lam=lam, **draws)
+        return self._from_diffusion_space(z)
 
     def validation_grids(self, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         """Per-class grid (row r: 4 guided samples of class r), conditional models

@@ -20,7 +20,8 @@ step (``noise_fn``), which JAX draws on every step whether the churn uses it or 
 
 ``EDM`` is the port's ``DDPM`` with this process in place of ``GaussianDiffusion``;
 ``LatentEDM`` runs it in a frozen autoencoder's latent space (``LatentDiffusion``'s
-hooks). ``interpolate`` is not ported yet.
+hooks). ``interpolate`` blends two images at sigma(t) and integrates down the truncated
+grid, its two noises and churn noises passed in or drawn.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
 from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
     ApplyFn,
     NoiseFn,
+    normal_draw,
 )
 from lightning_generative_models_tpu_torch.models.diffusion.latent_diffusion import (
     LatentDiffusion,
@@ -229,10 +231,42 @@ class EDMProcess:
         return self.unnormalize(
             self._integrate(apply_fn, x, self.sigma_grid(steps), generator, method, noise_fn))
 
-    def interpolate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "EDMProcess.interpolate is not yet ported to the PyTorch package; see "
-            "ROADMAP.md, Queue 1 #9")
+    def sigma_at(self, t: float) -> float:
+        """sigma(t) = exp(lerp(ln sigma_min, ln sigma_max, t)), in float64."""
+        return math.exp((1.0 - t) * math.log(self.sigma_min) + t * math.log(self.sigma_max))
+
+    def interpolate(
+        self,
+        apply_fn: ApplyFn,
+        x1_01: torch.Tensor,
+        x2_01: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[float] = None,
+        lam=0.5,
+        noise1: Optional[torch.Tensor] = None,
+        noise2: Optional[torch.Tensor] = None,
+        noise_fn: Optional[NoiseFn] = None,
+    ) -> torch.Tensor:
+        """Push both [0, 1] batches to ``sigma_at(t)`` (default t 0.9, in (0, 1]) with
+        independent noises ``noise1`` and ``noise2``, blend them by ``lam`` (a float or a
+        [N, 1, 1, 1] tensor), and integrate back down the rho grid truncated at that
+        sigma, over ``max(1, round(sampling_steps t))`` steps of the configured solver,
+        step i's churn noise ``noise_fn(i, shape)`` (JAX ``interpolate``). Each draw
+        comes from ``generator`` when not given."""
+        t = 0.9 if t is None else float(t)
+        if not 0.0 < t <= 1.0:
+            raise ValueError(f"EDM interpolation time must be in (0, 1], got {t}")
+        sigma_t = self.sigma_at(t)
+        shape = tuple(x1_01.shape)
+        noise1 = normal_draw(noise1, shape, generator, self.device)
+        noise2 = normal_draw(noise2, shape, generator, self.device)
+        z1 = self.normalize(x1_01.to(self.device, torch.float32)) + sigma_t * noise1
+        z2 = self.normalize(x2_01.to(self.device, torch.float32)) + sigma_t * noise2
+        x = (1 - lam) * z1 + lam * z2
+        steps = max(1, int(round(self.sampling_steps * t)))
+        sigmas = self.sigma_grid(steps, sigma_start=sigma_t)
+        return self.unnormalize(
+            self._integrate(apply_fn, x, sigmas, generator, self.solver, noise_fn))
 
 
 class EDM(DDPM):

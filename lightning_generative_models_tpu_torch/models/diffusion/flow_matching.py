@@ -13,8 +13,8 @@ loop over the same f32 table, with the per-step scalars in f32 as the scan has t
 The random draws come from an explicit ``torch.Generator``, or are passed in (``t`` and
 ``noise`` for ``p_losses``, ``x_T`` for ``sample``), so that a test can hand both
 implementations the same numbers. ``LatentFlowMatching`` runs the flow in a frozen
-autoencoder's latent space (``LatentDiffusion``'s hooks). ``interpolate`` is not ported
-yet.
+autoencoder's latent space (``LatentDiffusion``'s hooks). ``interpolate`` blends two
+images at time t and integrates back, its two noises passed in or drawn.
 """
 
 from __future__ import annotations
@@ -25,7 +25,10 @@ import numpy as np
 import torch
 
 from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
-from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import ApplyFn
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
+    ApplyFn,
+    normal_draw,
+)
 from lightning_generative_models_tpu_torch.models.diffusion.latent_diffusion import (
     LatentDiffusion,
 )
@@ -169,10 +172,33 @@ class RectifiedFlow:
             x = x_T.to(self.device, torch.float32)
         return self.unnormalize(self._integrate(apply_fn, x, 1.0, method, steps))
 
-    def interpolate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RectifiedFlow.interpolate is not yet ported to the PyTorch package; "
-            "see ROADMAP.md")
+    def interpolate(
+        self,
+        apply_fn: ApplyFn,
+        x1_01: torch.Tensor,
+        x2_01: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[float] = None,
+        lam=0.5,
+        noise1: Optional[torch.Tensor] = None,
+        noise2: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Push both [0, 1] batches to time ``t`` (default 0.9, in (0, 1]) along their
+        flow paths with independent noises ``noise1`` and ``noise2`` (drawn from
+        ``generator`` when not given), blend them as ``(1 - lam) z1 + lam z2`` (``lam`` a
+        float or a [N, 1, 1, 1] tensor), and integrate back to t = 0 with the configured
+        solver over ``max(1, round(sampling_steps t))`` steps (JAX ``interpolate``)."""
+        t = 0.9 if t is None else float(t)
+        if not 0.0 < t <= 1.0:
+            raise ValueError(f"flow interpolation time must be in (0, 1], got {t}")
+        shape = tuple(x1_01.shape)
+        noise1 = normal_draw(noise1, shape, generator, self.device)
+        noise2 = normal_draw(noise2, shape, generator, self.device)
+        z1 = (1.0 - t) * self.normalize(x1_01.to(self.device, torch.float32)) + t * noise1
+        z2 = (1.0 - t) * self.normalize(x2_01.to(self.device, torch.float32)) + t * noise2
+        x = (1 - lam) * z1 + lam * z2
+        steps = max(1, int(round(self.sampling_steps * t)))
+        return self.unnormalize(self._integrate(apply_fn, x, t, self.solver, steps))
 
 
 class FlowMatching(DDPM):

@@ -13,7 +13,8 @@ implementations the same random numbers.
 
 The model is an ``apply_fn(x, t, self_cond) -> out`` closure. ``p_losses`` is the
 training objective; its random draws (t, noise, offset noise, the self-conditioning
-coin) can each be passed in. ``interpolate`` is not ported yet.
+coin) can each be passed in. ``interpolate`` blends two images through the chain, its
+draws (the two noises, the chain's per-step noise) passed in or drawn.
 """
 
 from __future__ import annotations
@@ -28,6 +29,14 @@ from lightning_generative_models_tpu_torch.ops.common import resolve_device
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
 NoiseFn = Callable[[int, tuple], torch.Tensor]
+
+
+def normal_draw(given: Optional[torch.Tensor], shape: tuple, generator,
+                device) -> torch.Tensor:
+    """An explicit draw moved to ``device``, or a standard normal one from ``generator``."""
+    if given is not None:
+        return given.to(device, torch.float32)
+    return torch.randn(shape, generator=generator, device=device)
 
 
 def linear_beta_schedule(timesteps: int) -> np.ndarray:
@@ -296,8 +305,14 @@ class GaussianDiffusion:
         x_self_cond = None
         if self.self_condition:
             if sc_coin is None:
-                sc_coin = bool(torch.rand((), generator=generator, device=dev) < 0.5)
-            if sc_coin:
+                # The coin stays on the device and picks between both branches, as JAX's
+                # lax.cond does: no host sync, so a CUDA graph can hold the step.
+                coin = torch.rand((), generator=generator, device=dev) < 0.5
+                with torch.no_grad():
+                    x_self_cond = torch.where(
+                        coin, self.model_predictions(apply_fn, x, t).pred_x_start,
+                        torch.zeros_like(x))
+            elif sc_coin:
                 with torch.no_grad():
                     x_self_cond = self.model_predictions(apply_fn, x, t).pred_x_start
             else:
@@ -444,6 +459,47 @@ class GaussianDiffusion:
                     d = _f32(np.float32(1.0) + inv) * x0 - _f32(inv) * x0_prev
                     img = _f32(ratio) * img - _f32(a_next * phi) * d
             x0_prev, lam_prev = x0, lam_t
+        return self.unnormalize(img)
+
+    def interpolate(
+        self,
+        apply_fn: ApplyFn,
+        x1_01: torch.Tensor,
+        x2_01: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[int] = None,
+        lam=0.5,
+        noise1: Optional[torch.Tensor] = None,
+        noise2: Optional[torch.Tensor] = None,
+        noise_fn: Optional[NoiseFn] = None,
+    ) -> torch.Tensor:
+        """JAX ``interpolate`` (``ddpm.py:847-867`` of the reference): noise both [0, 1]
+        batches to step ``t`` (default T - 1) with independent noises ``noise1`` and
+        ``noise2``, blend them as ``(1 - lam) x1 + lam x2`` (``lam`` a float or a [N, 1,
+        1, 1] tensor), and run the ancestral chain down from step t - 1 with
+        self-conditioning; ``noise_fn(i, shape)`` is step i's noise (none at i = 0).
+        Each draw comes from ``generator`` when not given."""
+        t = self.num_timesteps - 1 if t is None else int(t)
+        b = x1_01.shape[0]
+        shape = tuple(x1_01.shape)
+
+        noise1 = normal_draw(noise1, shape, generator, self.device)
+        noise2 = normal_draw(noise2, shape, generator, self.device)
+        t_b = self._t(b, t)
+        xt1 = self.q_sample(self.normalize(x1_01.to(self.device, torch.float32)), t_b, noise1)
+        xt2 = self.q_sample(self.normalize(x2_01.to(self.device, torch.float32)), t_b, noise2)
+        img = (1 - lam) * xt1 + lam * xt2
+        x_start = torch.zeros_like(img)
+        for i in range(t - 1, -1, -1):
+            self_cond = x_start if self.self_condition else None
+            mean, _, log_var, x_start = self.p_mean_variance(apply_fn, img, self._t(b, i),
+                                                             self_cond)
+            if i > 0:
+                noise = (noise_fn(i, shape).to(self.device) if noise_fn is not None
+                         else torch.randn(shape, generator=generator, device=self.device))
+                img = mean + torch.exp(0.5 * log_var) * noise
+            else:
+                img = mean
         return self.unnormalize(img)
 
     def sample(

@@ -248,6 +248,10 @@ class Glow(AdamModel):
                          GlowNet(img_size, img_channels, levels, depth, width),
                          lr, b1, b2, weight_decay, device)
 
+    def summary_spec(self) -> dict:
+        """The flow's per-layer table (JAX ``glow.py:summary_spec``)."""
+        return {"glow": (self.net, (torch.zeros((1, *self.image_shape())),), {})}
+
     def _prepare(self, images, generator: Optional[torch.Generator] = None,
                  uniform: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         """uint8 (or [0, 1] float) images -> (x01 255 + u) / 256 - 0.5; u is ``uniform``

@@ -206,6 +206,11 @@ class GAN(AdversarialModel):
     def sample_z(self, generator: Optional[torch.Generator], n: int) -> torch.Tensor:
         return torch.randn(n, self.latent_dim, generator=generator, device=self.device)
 
+    def summary_spec(self) -> dict:
+        """G's and D's per-layer tables (JAX ``gan.py:summary_spec``), in eval mode."""
+        return {"G": (self.G, (torch.zeros((1, self.latent_dim)),), {}),
+                "D": (self.D, (torch.zeros((1, *self.image_shape())),), {})}
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """D's real/fake logits [B]."""
         return self.D(x)

@@ -88,6 +88,10 @@ class WGAN(DCGAN):
         step = self.step if step is None else step
         return (step + 1) % (self.n_critic + 1) != 0
 
+    def host_branch(self, step: int):
+        """A D step or a G step."""
+        return self.is_d_step(step)
+
     # -- losses ----------------------------------------------------------------------
     def gradient_penalty(self, x: torch.Tensor, x_hat: torch.Tensor,
                          alpha: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,12 @@ def perplexity_from_counts(counts: torch.Tensor, n: int, eps: float = 1e-10) -> 
 
 
 def _counts(indices: torch.Tensor, num_embeddings: int) -> torch.Tensor:
-    return torch.bincount(indices.long(), minlength=num_embeddings).to(torch.float32)
+    """Each code's count, f32. Summed with ``index_add_`` (ones, so any order gives the
+    same integers): ``bincount`` reads its input's max on the host, which a CUDA graph
+    cannot hold."""
+    ones = torch.ones(indices.shape[0], dtype=torch.float32, device=indices.device)
+    return torch.zeros(num_embeddings, dtype=torch.float32,
+                       device=indices.device).index_add_(0, indices.long(), ones)
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:

@@ -138,6 +138,10 @@ class VQGAN(VQVAE):
         weight = torch.clamp(_norm(g_rec) / (_norm(g_adv_grad) + 1e-4), 0.0, 1e4)
         return weight.detach() * self.disc_weight
 
+    def host_branch(self, step: int):
+        """Whether the discriminator's terms are on (``disc_start``)."""
+        return step >= self.disc_start
+
     def train_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
                    flip: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One generator step (Adam) and one discriminator step (its own Adam) on a

@@ -5,10 +5,12 @@
 
 The flags keep ``train.py``'s names for what is ported, and add ``--device`` (cuda by
 default; cpu only when asked). ``--eval test`` evaluates the test split from the
-``--eval_which`` checkpoint instead of training and returns its ``test_`` metrics. What
-is not ported raises ``NotImplementedError`` naming ROADMAP.md: ``--strategy``
-fsdp/tp/pp (the port trains on one device), ``--unroll_steps`` above 1,
-``--profile_steps``, bf16 ``--mu_dtype`` / ``--nu_dtype``. Runs write to
+``--eval_which`` checkpoint instead of training and returns its ``test_`` metrics.
+``--unroll_steps k`` runs k optimisation steps a dispatch (one CUDA graph of k steps on
+the card, a loop on the CPU), ``--profile_steps start:stop`` writes one profiler trace
+under ``<run>/profile/``, and ``--mu_dtype`` / ``--nu_dtype bfloat16`` keep Adam's
+moments in bf16 (a resume must pass the same dtypes). ``--strategy`` fsdp/tp/pp raises
+``NotImplementedError`` naming ROADMAP.md (the port trains on one device). Runs write to
 ``experiments/<model name>/<experiment_name>/``: ``metrics.jsonl``,
 ``samples/*.png``, ``checkpoints/{last,best}`` and their meta files.
 """
@@ -62,17 +64,23 @@ def setup_arguments(argv=None) -> argparse.Namespace:
                         help="'bf16' forces bfloat16 compute, '32' float32, for models "
                         "with use_bf16")
     parser.add_argument("--mu_dtype", type=str, default="float32",
-                        choices=["float32", "bfloat16"], help="only float32 is ported")
+                        choices=["float32", "bfloat16"],
+                        help="dtype of Adam's first moment; a resume must use the run's")
     parser.add_argument("--nu_dtype", type=str, default="float32",
-                        choices=["float32", "bfloat16"], help="only float32 is ported")
+                        choices=["float32", "bfloat16"],
+                        help="dtype of Adam's second moment; a resume must use the run's")
     parser.add_argument("--ckpt_path", type=str, default=None)
     parser.add_argument("--seed", type=int, default=10)
     parser.add_argument("--debug_nans", action="store_true",
                         help="torch.autograd anomaly detection")
     parser.add_argument("--sample_every_n_steps", type=int, default=1000,
                         help="mid-training sample-grid cadence (0 disables)")
-    parser.add_argument("--unroll_steps", type=int, default=1, help="only 1 is ported")
-    parser.add_argument("--profile_steps", type=str, default=None, help="not ported")
+    parser.add_argument("--unroll_steps", type=int, default=1,
+                        help="optimisation steps a dispatch (one CUDA graph of k steps on "
+                        "the card); global_step advances by k")
+    parser.add_argument("--profile_steps", type=str, default=None,
+                        help="'start:stop' global steps of one torch.profiler window; the "
+                        "chrome trace goes to <run>/profile/")
     parser.add_argument("--grad_accum_mode", type=str, default="auto",
                         choices=("auto", "concat", "scan"))
     parser.add_argument("--eval", type=str, default=None, choices=("test",),
@@ -88,6 +96,9 @@ def setup_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--id", type=str, default=None, help="Run ID to resume from.")
     parser.add_argument("--wandb", action="store_true", help="Mirror logs to W&B.")
     args = parser.parse_args(argv)
+    if args.profile_steps:
+        start, stop = (int(v) for v in args.profile_steps.split(":"))
+        args.profile_steps = (start, stop)
     args.config = load_config(args.config_path)
     args.experiment_dir = os.path.join(
         EXPERIMENT_DIR, args.config["model"]["name"], args.experiment_name)
@@ -101,10 +112,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
 
     if args.strategy in ("fsdp", "tp", "pp"):
         refuse(f"--strategy {args.strategy} (#11, scale-out)")
-    if args.unroll_steps > 1:
-        refuse("--unroll_steps > 1")
-    if args.profile_steps:
-        refuse("--profile_steps")
     resolve_model_class(args.config["model"]["name"])  # raises for an unknown name
     set_default_mu_dtype(None if args.mu_dtype == "float32" else args.mu_dtype)
     set_default_nu_dtype(None if args.nu_dtype == "float32" else args.nu_dtype)
@@ -154,6 +161,8 @@ def main(argv=None):
         sample_every_n_steps=args.sample_every_n_steps,
         grad_accum_mode=args.grad_accum_mode,
         strategy=args.strategy,
+        unroll_steps=args.unroll_steps,
+        profile_steps=args.profile_steps,
     )
     try:
         if args.eval_split == "test":

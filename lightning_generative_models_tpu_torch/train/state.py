@@ -2,8 +2,11 @@
 
 Counterpart of ``lightning_generative_models_tpu/train/state.py``. The JAX package
 threads an immutable ``TrainState`` through pure steps; here the model owns its
-modules and its ``torch.optim`` optimizer, and the EMA update is in place. The opt-in
-bf16 Adam moments (``--mu_dtype`` / ``--nu_dtype bfloat16``) are not ported.
+modules and its optimizer, and the EMA update is in place. ``Adam`` is optax's
+``scale_by_adam`` chain written out with foreach ops, its step count on the device (so
+that a CUDA graph of k steps replays each step's bias correction), and its moments in
+the process-wide dtypes of ``set_default_mu_dtype`` / ``set_default_nu_dtype``
+(``--mu_dtype`` / ``--nu_dtype bfloat16``), rounded where optax rounds them.
 """
 
 from __future__ import annotations
@@ -14,23 +17,154 @@ import numpy as np
 import torch
 from torch import nn
 
-
-def _refuse_bf16(which: str, dtype) -> None:
-    if dtype is not None and str(dtype).split(".")[-1] not in ("float32",):
-        raise NotImplementedError(
-            f"Adam's {which} in {dtype} is not ported to the PyTorch package; the "
-            "moments stay float32 (see ROADMAP.md)"
-        )
+# Process-wide dtypes of Adam's moments, read by ``make_adam`` when a model builds its
+# optimizer: None keeps the parameters' dtype (float32), as optax's default does.
+_MU_DTYPE: Optional[torch.dtype] = None
+_NU_DTYPE: Optional[torch.dtype] = None
 
 
-def set_default_mu_dtype(dtype: Optional[object]) -> None:
-    """Only None / float32 (the moments in the parameters' dtype) is ported."""
-    _refuse_bf16("first moment (mu)", dtype)
+def _as_dtype(dtype) -> Optional[torch.dtype]:
+    """None, a torch dtype, or its name ("bfloat16", "jnp.bfloat16", ...)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype).split(".")[-1]
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"Adam's moments are float32 or bfloat16, got {dtype!r}")
+    return getattr(torch, name)
 
 
-def set_default_nu_dtype(dtype: Optional[object]) -> None:
-    """Only None / float32 (the moments in the parameters' dtype) is ported."""
-    _refuse_bf16("second moment (nu)", dtype)
+def set_default_mu_dtype(dtype) -> None:
+    """Set the process-wide dtype of Adam's first moment (None: the parameters'). Set it
+    before the model is built: a model builds its optimizer in its constructor."""
+    global _MU_DTYPE
+    _MU_DTYPE = _as_dtype(dtype)
+
+
+def set_default_nu_dtype(dtype) -> None:
+    """Set the process-wide dtype of Adam's second moment (None: the parameters')."""
+    global _NU_DTYPE
+    _NU_DTYPE = _as_dtype(dtype)
+
+
+def default_mu_dtype() -> Optional[torch.dtype]:
+    return _MU_DTYPE
+
+
+def default_nu_dtype() -> Optional[torch.dtype]:
+    return _NU_DTYPE
+
+
+class Adam(torch.optim.Optimizer):
+    """``optax.chain(add_decayed_weights(wd), scale_by_adam(b1, b2, eps, mu_dtype),
+    scale(-lr))`` under ``with_nu_dtype(nu_dtype)``, as the JAX package's ``make_adam``
+    builds it (optax 0.2.6), on the parameters that have a gradient:
+
+        g <- g + wd p;  mu <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu
+        p <- p - lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+
+    Where it rounds is optax's under ``jit``: the stored moment enters in its own dtype,
+    times the decay rounded to that dtype (the weak-typed ``b1 * mu``: 0.9 is 0.8984375 in
+    bf16, 0.999 is 1), the product and the sum in f32 with the f32 gradient; the update is
+    computed from the unrounded f32 moments, which are then stored in their dtypes
+    (``mu_dtype``, and ``nu`` cast after the update by ``with_nu_dtype``). The bias
+    corrections are f32 on the device, from ``step``, one 0-dim f32 tensor on the
+    parameters' device that their states share. The state of a parameter is
+    ``{"step", "exp_avg", "exp_avg_sq"}``, as ``torch.optim.Adam``'s; a checkpoint keeps the
+    moments' dtypes, and loading one whose moments are of other dtypes raises."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
+                 mu_dtype=None, nu_dtype=None):
+        super().__init__(params, {"lr": lr, "betas": (b1, b2), "eps": eps,
+                                  "weight_decay": weight_decay})
+        self.mu_dtype, self.nu_dtype = _as_dtype(mu_dtype), _as_dtype(nu_dtype)
+
+    def moment_dtypes(self, param: torch.Tensor):
+        """(first, second) moment dtypes of ``param``."""
+        return self.mu_dtype or param.dtype, self.nu_dtype or param.dtype
+
+    def _shared_step(self, params: list) -> torch.Tensor:
+        """The parameters' step count: one 0-dim f32 tensor on their device that every
+        state holds (made at 0, or from the count that a checkpoint or a JAX state left
+        in the states), and their moments, made at zero where missing."""
+        states = [self.state[p] for p in params]
+        found = [s["step"] for s in states if "step" in s]
+        step = found[0] if found else None
+        if step is None or step.device != params[0].device or step.dtype != torch.float32 \
+                or any(f is not step for f in found):
+            step = torch.full((), float(step) if found else 0.0, dtype=torch.float32,
+                              device=params[0].device)
+        for p, s in zip(params, states):
+            if "exp_avg" not in s:
+                mu_dtype, nu_dtype = self.moment_dtypes(p)
+                s["exp_avg"] = torch.zeros_like(p, dtype=mu_dtype)
+                s["exp_avg_sq"] = torch.zeros_like(p, dtype=nu_dtype)
+            s["step"] = step
+        return step
+
+    @staticmethod
+    def _decayed(moments: list, decay: float, like: list) -> list:
+        """f32 ``decay * moment``, the decay rounded to the moments' dtype."""
+        if moments[0].dtype == torch.float32:
+            return torch._foreach_mul(moments, decay)
+        up = [torch.empty_like(g, dtype=torch.float32) for g in like]
+        torch._foreach_copy_(up, moments)
+        torch._foreach_mul_(up, float(torch.tensor(decay, dtype=moments[0].dtype)))
+        return up
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            step = self._shared_step(params)
+            grads = [p.grad for p in params]
+            b1, b2 = group["betas"]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            for key, decay, power in (("exp_avg", b1, 1), ("exp_avg_sq", b2, 2)):
+                moments = [self.state[p][key] for p in params]
+                new = torch._foreach_mul(grads, grads) if power == 2 else list(grads)
+                new = torch._foreach_mul(new, 1.0 - decay)
+                torch._foreach_add_(new, self._decayed(moments, decay, grads))
+                if key == "exp_avg":
+                    mu = new
+                else:
+                    nu = new
+            step.add_(1.0)
+            update = torch._foreach_div(mu, 1.0 - torch.pow(b1, step))
+            denom = torch._foreach_div(nu, 1.0 - torch.pow(b2, step))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(update, denom)
+            torch._foreach_mul_(update, -group["lr"])
+            torch._foreach_add_(params, update)
+            for key, new in (("exp_avg", mu), ("exp_avg_sq", nu)):
+                torch._foreach_copy_([self.state[p][key] for p in params], new)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """torch's load, after a check that the moments are of this optimizer's dtypes
+        (a resume keeps ``--mu_dtype`` / ``--nu_dtype``); the moments keep them."""
+        params = [p for group in self.param_groups for p in group["params"]]
+        for i, s in state_dict["state"].items():
+            if not 0 <= i < len(params) or "exp_avg" not in s:
+                continue
+            p = params[i]
+            for key, want, flag in zip(("exp_avg", "exp_avg_sq"), self.moment_dtypes(p),
+                                       ("--mu_dtype", "--nu_dtype")):
+                if s[key].dtype != want:
+                    raise ValueError(
+                        f"the checkpoint's Adam {key} is {s[key].dtype} but this optimizer "
+                        f"keeps it in {want}: resume with the run's {flag}")
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            for p in group["params"]:
+                s = self.state.get(p)
+                if s and "exp_avg" in s:
+                    mu_dtype, nu_dtype = self.moment_dtypes(p)
+                    s["exp_avg"] = s["exp_avg"].to(mu_dtype)
+                    s["exp_avg_sq"] = s["exp_avg_sq"].to(nu_dtype)
 
 
 def make_adam(
@@ -39,11 +173,12 @@ def make_adam(
     b1: float = 0.9,
     b2: float = 0.999,
     weight_decay: float = 0.0,
-) -> torch.optim.Adam:
+) -> Adam:
     """Adam with torch semantics: L2 weight decay added to the gradient before the
-    moment update (not AdamW), eps 1e-8, as optax's ``scale_by_adam`` chain."""
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=1e-8,
-                            weight_decay=weight_decay)
+    moment update (not AdamW), eps 1e-8, as optax's ``scale_by_adam`` chain; the moments
+    in the process-wide dtypes (``set_default_mu_dtype``, ``set_default_nu_dtype``)."""
+    return Adam(params, lr, b1, b2, eps=1e-8, weight_decay=weight_decay,
+                mu_dtype=_MU_DTYPE, nu_dtype=_NU_DTYPE)
 
 
 class RMSprop(torch.optim.Optimizer):

@@ -14,11 +14,23 @@ the mean eval metrics and, for a model with ``calculate_metrics``, the FID/KID/I
 names (``metrics``), real batches against fakes sampled per batch and quantised to
 uint8 by truncation, as the reference quantises them.
 
+``unroll_steps`` k > 1 runs k optimisation steps a dispatch on k stacked batches, with
+the JAX trainer's semantics: ``global_step`` advances by k, ``images_per_sec`` counts k
+batches, every cadence (logging, the sample grid, ``max_steps``) is crossed, the logged
+metrics are the last step's, and scan grad-accum is refused. On the CPU a dispatch runs
+its k steps in a loop; on CUDA it is one CUDA graph of the k steps (``train/graphs.py``),
+and a step that cannot be captured raises (there is no eager fallback).
+``profile_steps`` (start, stop) opens one ``torch.profiler`` window a run (CPU and CUDA
+activities) from the first dispatch at or past ``start`` to the first past ``stop``, and
+writes its chrome trace under ``experiment_dir/profile/``. At fit start the trainer logs
+the parameter counts, the parameter table and the per-layer tables of the model's
+``summary_spec`` (``utils/summary.py``); a summary that fails warns and training goes on.
+
 Randomness: where the JAX trainer folds the step into its run key, each step here
 draws from a generator seeded by (seed, stream, step), so a resumed run draws what
-the uninterrupted run would have drawn; each evaluation batch's fakes come from their
-own generator. Not ported: meshes and the fsdp/tp/pp strategies, unrolled steps and
-profiler windows; see ROADMAP.md.
+the uninterrupted run would have drawn, and an unrolled dispatch what its k single steps
+would have drawn; each evaluation batch's fakes come from their own generator. Not
+ported: meshes and the fsdp/tp/pp strategies; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -27,7 +39,7 @@ import logging
 import signal
 import time
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +55,8 @@ from lightning_generative_models_tpu_torch.metrics.generative import (
 )
 from lightning_generative_models_tpu_torch.models.base import GenerativeModel
 from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
+from lightning_generative_models_tpu_torch.train.graphs import StepGraphs
+from lightning_generative_models_tpu_torch.utils import summary
 from lightning_generative_models_tpu_torch.utils.grid import make_grid
 from lightning_generative_models_tpu_torch.utils.seed import seed_everything
 
@@ -72,6 +86,8 @@ class Trainer:
         seed: int = 10,
         grad_accum_mode: str = "auto",
         strategy: str = "data_parallel",
+        unroll_steps: int = 1,
+        profile_steps: Optional[Tuple[int, int]] = None,
     ):
         if strategy in NOT_PORTED_STRATEGIES:
             raise NotImplementedError(
@@ -100,6 +116,15 @@ class Trainer:
             )
             self.accumulate_grad_batches = 1
         self.grad_accum_mode = self._resolve_accum_mode(grad_accum_mode)
+        self.unroll_steps = max(int(unroll_steps), 1)
+        if self.grad_accum_mode == "scan" and self.unroll_steps > 1:
+            raise ValueError("unroll_steps>1 is incompatible with scan grad-accum")
+        self._graphs: Optional[StepGraphs] = None
+        if self.unroll_steps > 1 and self.device.type == "cuda":
+            self._graphs = StepGraphs(model, self.unroll_steps, model.train_step, self.device)
+        self.profile_steps = profile_steps
+        self._profiler: Optional[torch.profiler.profile] = None
+        self._profiled = False
         self.ckpt = CheckpointManager(self.experiment_dir / "checkpoints",
                                       monitor=model.monitor)
         self.global_step = 0
@@ -120,14 +145,14 @@ class Trainer:
         elif ckpt_path is not None:
             mgr = CheckpointManager(Path(ckpt_path).parent, monitor=self.model.monitor)
             self.global_step, start_epoch = mgr.restore(self.model, Path(ckpt_path).name)
-        logger.info("%s parameters: %s", type(self.model).__name__, ", ".join(
-            f"{name} {n:,}" for name, n in self.model.param_counts().items()))
+        self._log_model_summary()
 
         prev_handler = signal.getsignal(signal.SIGTERM)
         signal.signal(signal.SIGTERM, self._handle_sigterm)
         try:
             self._fit_loop(start_epoch)
         finally:
+            self._stop_profile()
             signal.signal(signal.SIGTERM, prev_handler)
             # Interrupt or crash: save with the current epoch, so it is retried.
             if self._last_saved_step != self.global_step:
@@ -135,9 +160,29 @@ class Trainer:
         return self.model
 
     # -- internals -------------------------------------------------------------------
+    def _seed(self, stream: int, index: int = 0) -> int:
+        return int(np.random.SeedSequence([self.seed, stream, index]).generate_state(1)[0])
+
     def _generator(self, stream: int, index: int = 0) -> torch.Generator:
-        seed = np.random.SeedSequence([self.seed, stream, index]).generate_state(1)[0]
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+        return torch.Generator(device=self.device).manual_seed(self._seed(stream, index))
+
+    def _log_model_summary(self) -> None:
+        """Per-module parameter counts, then the parameter table and the per-layer tables
+        of the model's ``summary_spec`` (JAX ``trainer.py:_log_model_summary``), when INFO
+        is logged (the tables run the model once); a table that fails is a warning, never
+        a stop."""
+        if not logger.isEnabledFor(logging.INFO):
+            return
+        logger.info("%s parameters: %s", type(self.model).__name__, ", ".join(
+            f"{name} {n:,}" for name, n in self.model.param_counts().items()))
+        try:
+            logger.info("parameter table:\n%s", summary.param_table(self.model))
+            spec = getattr(self.model, "summary_spec", lambda: {})()
+            for name, (module, args, kwargs) in spec.items():
+                logger.info("%s summary:\n%s", name, summary.module_table(
+                    module, args, compute_flops=self.device.type == "cpu", **kwargs))
+        except Exception as e:  # summaries must never stop training
+            logger.warning("model summary failed: %s", e)
 
     def _resolve_accum_mode(self, mode: str) -> str:
         if mode not in ("auto", "concat", "scan"):
@@ -183,13 +228,54 @@ class Trainer:
         scan mode, or the k micro-batches merged into one in concat mode."""
         it = prefetch_to_device(self.datamodule.train_batches(epoch), self.device)
         k = self.accumulate_grad_batches
-        if k <= 1:
-            return it
-        grouped = _group(it, k)
-        if self.grad_accum_mode == "scan":
-            return grouped
-        return ({key: torch.cat([b[key] for b in group]) for key in group[0]}
-                for group in grouped)
+        if k > 1:
+            grouped = _group(it, k)
+            if self.grad_accum_mode == "scan":
+                return grouped
+            it = ({key: torch.cat([b[key] for b in group]) for key in group[0]}
+                  for group in grouped)
+        if self.unroll_steps > 1:
+            # [k, B, ...] stacks of k steps' batches (JAX ``_stack_batches``).
+            return ({key: torch.stack([b[key] for b in group]) for key in group[0]}
+                    for group in _group(it, self.unroll_steps))
+        return it
+
+    def _dispatch(self, batch: Any) -> Dict[str, torch.Tensor]:
+        """One dispatch: a step, or ``unroll_steps`` steps on a stacked batch (a CUDA
+        graph on the card, a loop on the CPU); the last step's metrics."""
+        if self.unroll_steps <= 1:
+            return self._train_step(batch)
+        seeds = [self._seed(_TRAIN, self.global_step + i) for i in range(self.unroll_steps)]
+        if self._graphs is not None:
+            return self._graphs(batch, seeds)
+        metrics = None
+        for i, seed in enumerate(seeds):
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+            metrics = self.model.train_step({key: v[i] for key, v in batch.items()},
+                                            generator)
+        return metrics
+
+    def _start_profile(self) -> None:
+        if self.profile_steps and self._profiler is None and not self._profiled \
+                and self.global_step >= self.profile_steps[0]:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+
+    def _stop_profile(self) -> None:
+        """Close the window and write its trace (one a run)."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out = self.experiment_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        start, stop = self.profile_steps
+        self._profiler.export_chrome_trace(str(out / f"trace_steps_{start}_{stop}.json"))
+        self._profiler, self._profiled = None, True
 
     def _train_step(self, batch: Any) -> Dict[str, torch.Tensor]:
         generator = self._generator(_TRAIN, self.global_step)
@@ -208,7 +294,9 @@ class Trainer:
 
     def _fit_loop(self, start_epoch: int) -> None:
         self.epoch = start_epoch - 1
-        images_per_step = self.datamodule.batch_size * self.accumulate_grad_batches
+        # A dispatch takes unroll_steps batches of accumulate_grad_batches micro-batches.
+        images_per_step = (self.datamodule.batch_size * self.accumulate_grad_batches
+                           * self.unroll_steps)
 
         def crossed(n: int, prev: int, cur: int) -> bool:
             return n > 0 and prev // n != cur // n
@@ -216,10 +304,11 @@ class Trainer:
         for epoch in range(start_epoch, self._max_epochs()):
             self.epoch = epoch
             for batch in self._train_batches(epoch):
+                self._start_profile()
                 t0 = time.perf_counter()
-                metrics = self._train_step(batch)
+                metrics = self._dispatch(batch)
                 prev_step = self.global_step
-                self.global_step += 1
+                self.global_step += self.unroll_steps
                 is_last = self.max_steps > 0 and self.global_step >= self.max_steps
                 if crossed(self.log_every_n_steps, prev_step, self.global_step) \
                         or prev_step == 0 or is_last:
@@ -229,6 +318,8 @@ class Trainer:
                     metrics["images_per_sec"] = images_per_step / max(dt, 1e-9)
                     metrics["epoch"] = epoch
                     self.logger.log_metrics(metrics, prev_step)
+                if self._profiler is not None and self.global_step > self.profile_steps[1]:
+                    self._stop_profile()
                 if crossed(self.sample_every_n_steps, prev_step, self.global_step):
                     self._log_samples()
                 if is_last:

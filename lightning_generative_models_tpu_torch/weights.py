@@ -130,7 +130,8 @@ def _adam_path(flat: Dict[str, np.ndarray], opt_prefix: str) -> str:
 @torch.no_grad()
 def load_flax_adam(optimizer: torch.optim.Optimizer, flat: Dict[str, np.ndarray],
                    opt_prefix: str, modules: Dict[str, nn.Module]) -> None:
-    """Fill a torch Adam's state from optax's ``{count, mu, nu}`` at ``opt_prefix``:
+    """Fill the port's Adam state (its moments in the optimizer's dtypes) from optax's
+    ``{count, mu, nu}`` at ``opt_prefix``:
     ``modules`` maps a subtree of the moments ("" for the whole) to the module whose
     parameters it covers."""
     adam = _adam_path(flat, opt_prefix)
@@ -141,10 +142,13 @@ def load_flax_adam(optimizer: torch.optim.Optimizer, flat: Dict[str, np.ndarray]
             if not param.requires_grad:
                 continue
             key = f"{sub}/{path}" if sub else path
+            mu_dtype, nu_dtype = optimizer.moment_dtypes(param)
             optimizer.state[param] = {
                 "step": torch.tensor(count, dtype=torch.float32),
-                "exp_avg": _converted(key, mu[key], transform, param).to(param),
-                "exp_avg_sq": _converted(key, nu[key], transform, param).to(param),
+                "exp_avg": _converted(key, mu[key], transform, param).to(param.device,
+                                                                         mu_dtype),
+                "exp_avg_sq": _converted(key, nu[key], transform, param).to(param.device,
+                                                                            nu_dtype),
             }
 
 

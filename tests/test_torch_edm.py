@@ -173,7 +173,5 @@ def test_errors_are_jax_messages():
         with pytest.raises(ValueError) as port_err:
             TEDM.EDMProcess(8, device="cpu", **kw)
         assert str(port_err.value) == str(jax_err.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 #9"):
-        TEDM.EDMProcess(8, device="cpu").interpolate(None, None, None, None)
     assert registry.resolve_model_class("edm") is TEDM.EDM
     assert registry.resolve_model_class("LatentEDM") is TEDM.LatentEDM

@@ -171,8 +171,6 @@ def test_solver_name_errors_are_jax_messages():
             with pytest.raises(ValueError) as port_err:
                 port_process.sample(None, 1, method=method)
             assert str(port_err.value) == str(jax_err.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFM.RectifiedFlow(8, device="cpu").interpolate(None, None, None, None)
     assert registry.resolve_model_class("flowmatching") is TFM.FlowMatching
     assert registry.resolve_model_class("LatentFlowMatching") is TFM.LatentFlowMatching
     assert registry.resolve_model_class("NICE").__module__.endswith("models.flow.nice")

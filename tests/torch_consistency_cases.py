@@ -179,6 +179,4 @@ def test_errors_are_jax_messages():
     with pytest.raises(ValueError) as port_err:
         TCT.ConsistencyModel(img_size=8, num_experts=4, device="cpu")
     assert str(port_err.value) == str(jax_err.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 #9"):
-        TCT.ConsistencyProcess(8, device="cpu").interpolate(None, None, None, None)
     assert registry.resolve_model_class("consistencymodel") is TCT.ConsistencyModel

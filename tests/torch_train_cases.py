@@ -364,8 +364,7 @@ def test_sigterm_saves_first_and_skips_validation(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--strategy", "fsdp"], ["--strategy", "tp"], ["--strategy", "pp"],
-    ["--unroll_steps", "2"], ["--profile_steps", "1:2"], ["--eval", "test", "--strategy", "fsdp"],
-    ["--mu_dtype", "bfloat16"], ["--nu_dtype", "bfloat16"],
+    ["--eval", "test", "--strategy", "fsdp"],
     ["--config_path", str(ROOT / "configs" / "diffusion" / "dit_cifar10_pp.json")],
 ])
 def test_refused_flags_raise_not_implemented(tmp_path, monkeypatch, flags):
