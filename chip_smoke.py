@@ -200,9 +200,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      at bs128 bf16 (ms a step, images/s; a dispatch's worth of steps profiled: device
      busy, kernel launches and CUDA runtime calls a step);
  48. interpolation: the four processes card against CPU (f32, dim 64, explicit draws,
-     1e-4 of 1 + |ref|); generate --interpolate 8 on [6]'s DDPM run (999 ancestral
-     evaluations, #1 counted) and on the FM-DiT flash, EDM and CT runs;
- 49. a JSON line of the kernels, the card's line, and the last line
+     1e-4 of 1 + |ref|); generate --interpolate 8 on [6]'s DDPM run (99 ancestral
+     evaluations from step 99, #1 counted) and on the FM-DiT flash, EDM and CT runs;
+ 49. the native loader (data/native.py over csrc/host_preprocess.cpp) built with g++ on
+     the card's host: 1,024 x 218 x 178 x 3 -> 64 (a CelebA-shaped, non-integer resize)
+     held within 1 uint8 level of a float64 area-resize reference, and an integer factor
+     (1,024 x 64 x 64 x 3 -> 32) against the numpy mean-pool (equal but at exact .5
+     ties, which numpy rounds to even); its host time beside the numpy/PIL path's;
+ 50. torch.library.opcheck on the card of the eight op entries (kernels #1, #2, #3, #4,
+     #5, #5's backward route, #6, #7) at main-path shapes;
+ 51. serving: [6]'s DDPM run exported by the export CLI (--sampler ddim
+     --sampling_steps 50, bs64, --smoke), loaded and called twice, each call equal to the
+     live sample from the same seed (cudnn.deterministic) with #1 at 300 a batch; the
+     same run's ancestral 1,000-step chain at bs16 as one scan (#1 at 6,000); [15]'s
+     DiT run guided DDIM-50 at bs64 (#3 at 600); [32]'s consistency run multistep (#1
+     at 12); [33]'s LatentDiffusion run DDIM-50 (#1 and #6 from its UNet and decode);
+     [27]'s CGAN run with --label through the CLI (the CLI cases saved and loaded, the
+     others run as exported); a CPU-exported artifact refused on the card; export
+     seconds, artifact MB, artifact against live samples/s;
+ 52. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -322,7 +338,7 @@ WGAN_CONFIG = GAN_FAMILY[0]  # [28]: WGAN-GP on CIFAR-10, bs64, f32
 GAN_TOL = 1e-3  # f32 GAN-family steps, card against CPU: metrics, gradient and update norms
 GAN_BN_TOL = 1e-4  # their BatchNorm buffers (of 1 + |ref|) and samples (abs)
 GAN_NOISE_SHARE = 5e-2  # most of the stepped elements left out of the update norms as noise
-GAN_STEPS = 24  # [27]: WGAN's n_critic 5 makes 4 critic cycles
+GAN_STEPS = 12  # [27]: WGAN's n_critic 5 makes 2 critic cycles
 GAN_RESUME_STEPS = 6
 GAN_SYNTHETIC = 1024  # [27]: synthetic images a config stages
 
@@ -647,8 +663,8 @@ def check_linear_attention_bwd(torch, la, cases=None, timed=("bfloat16",)) -> di
 
 
 def check_autograd(torch, la) -> None:
-    """FusedLinearAttention (forward kernel + backward kernel) against torch autograd
-    through the plain version, f32."""
+    """The op lgm_torch::linear_attention (forward kernel + backward kernel) against torch
+    autograd through the plain version, f32."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     base = la_inputs(16, 256, 128, torch.float32, gen)
     dout = torch.randn(16, 256, 128, device="cuda", generator=gen)
@@ -664,7 +680,7 @@ def check_autograd(torch, la) -> None:
           f"rel_err {err:.2e} tol {BWD_TOL['float32']:.0e} {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
-        fail("FusedLinearAttention's gradients disagree with autograd through the plain "
+        fail("the linear-attention op's gradients disagree with autograd through the plain "
              "version")
 
 
@@ -3902,6 +3918,7 @@ GRAPH_MOMENT_TOL = 1e-6  # [45] if not bit-identical: Adam's moments, of 1 + |re
 GRAPH_UPDATE_TOL = 1e-3  # [45] if not bit-identical: each parameter's update, by its norm
 ADAM_CARD_TOL = 1e-5  # [46]: a bf16-moment Adam step, card against CPU (f32 weights)
 INTERP_TOL = 1e-4  # [48]: the four processes' interpolate, card against CPU, of 1 + |ref|
+INTERP_DDPM_T = 99  # [48]: DDPM's chain from step 99 ([51] runs the 1,000-step chain)
 INTERP_N = 8  # [48]: generate --interpolate
 THROUGHPUT_STEPS = 20  # [47]: steps a timing (5 dispatches of 4)
 LA_COUNTERS = ("linear_attention", "linear_attention_bwd")
@@ -4466,23 +4483,25 @@ def interpolation_card_vs_cpu(torch) -> dict:
 
 def interpolation_paths(torch, card: str) -> dict:
     """[48]: generate --interpolate INTERP_N on [6]'s DDPM run (ddim_cifar10: the ends by
-    DDIM-50, then 999 ancestral evaluations, #1 counted: 6 an evaluation) and on the
-    FM-DiT flash, EDM and CT runs of [21], [31] and [32]; every grid finite in [0, 1]."""
+    DDIM-50, then the ancestral chain from step INTERP_DDPM_T, #1 counted: 6 an
+    evaluation) and on the FM-DiT flash, EDM and CT runs of [21], [31] and [32]; every grid
+    finite in [0, 1]."""
     import numpy as np
 
     from lightning_generative_models_tpu_torch import generate
 
     out = {}
-    for label, config, run, want in (
-            ("DDPM", CONFIG, TRAIN_RUN, 6 * (DDIM_STEPS + 999)),
-            ("FlowMatching", FM_CONFIG, FM_RUN, None),
-            ("EDM", EDM_CONFIG, SLICE_PATHS["edm"].run, None),
-            ("ConsistencyModel", CT_CONFIG, SLICE_PATHS["ct"].run, None)):
+    for label, config, run, want, extra in (
+            ("DDPM", CONFIG, TRAIN_RUN, 6 * (DDIM_STEPS + INTERP_DDPM_T),
+             ["--interpolate_t", str(INTERP_DDPM_T)]),
+            ("FlowMatching", FM_CONFIG, FM_RUN, None, []),
+            ("EDM", EDM_CONFIG, SLICE_PATHS["edm"].run, None, []),
+            ("ConsistencyModel", CT_CONFIG, SLICE_PATHS["ct"].run, None, [])):
         zero_counts()
         t0 = time.perf_counter()
         images = generate.main(["--config_path", str(config), "--device", "cuda",
                                 "--experiment_name", run, "--interpolate", str(INTERP_N),
-                                "--out", str(OUT_DIR / "interpolate" / label)])
+                                "--out", str(OUT_DIR / "interpolate" / label)] + extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: v for k, v in read_counts().items() if v}
@@ -4495,6 +4514,311 @@ def interpolation_paths(torch, card: str) -> dict:
         if want is not None and counts.get("linear_attention") != want:
             fail(f"[48] {label}'s interpolation launched #1 {counts} times, not {want}")
         out[label] = {"wall_s": wall, "launches": counts}
+    return out
+
+
+NATIVE_SHAPE = ((1024, 218, 178, 3), 64)  # [49]: CelebA's aligned images to 64 px
+NATIVE_INT_SHAPE = ((1024, 64, 64, 3), 32)  # [49]: an integer factor
+SERVE_BATCH = 64  # [51]: DDIM-50 and the DiT's guided DDIM-50
+SERVE_ANCESTRAL_BATCH = 16  # [51]: the ancestral 1,000-step chain
+SERVE_TIMED_CALLS = 3  # [51]: calls timed for samples/s, artifact and live in turns
+SERVE_DIR = ROOT / "experiments" / "chip_smoke_serving"  # [51]: the CPU-exported artifact
+
+
+def area_resize_reference(np, images, size: int):
+    """The native loader's function in float64 numpy: a centered min(H, W) crop, then
+    each output pixel the overlap-weighted mean of the source pixels it covers (the
+    weights separable, per axis), rounded half up."""
+    n, h, w, c = images.shape
+    side = min(h, w)
+    top, left = (h - side) // 2, (w - side) // 2
+    x = images[:, top:top + side, left:left + side].astype(np.float64)
+    edges = np.arange(size + 1) * (side / size)
+    lo, hi = edges[:-1, None], np.minimum(edges[1:, None], side)
+    src = np.arange(side)[None, :]
+    weights = np.clip(np.minimum(src + 1, hi) - np.maximum(src, lo), 0.0, None)
+    weights /= weights.sum(axis=1, keepdims=True)
+    out = np.einsum("ys,nsxc->nyxc", weights, x)
+    out = np.einsum("xs,nysc->nyxc", weights, out)
+    return np.floor(out + 0.5).astype(np.uint8)
+
+
+def native_loader(card: str) -> dict:
+    """[49]: build the native library on this host, hold it against the float64
+    reference (non-integer resize) and the numpy mean-pool (integer factor), and time it
+    beside the numpy/PIL path."""
+    import numpy as np
+
+    from lightning_generative_models_tpu_torch.data import datamodule, native
+
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    rs = np.random.RandomState(49)
+    stats = {"build_s": build_s}
+    for label, (shape, size) in (("non_integer", NATIVE_SHAPE), ("integer", NATIVE_INT_SHAPE)):
+        images = rs.randint(0, 256, shape).astype(np.uint8)
+        native.center_crop_resize_batch(images[:8], size)  # warm: threads, pages
+        t0 = time.perf_counter()
+        out = native.center_crop_resize_batch(images, size)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numpy_path = datamodule._resize_batch(datamodule._center_crop_square(images), size)
+        numpy_s = time.perf_counter() - t0
+        diff_numpy = np.abs(out.astype(int) - numpy_path.astype(int))
+        entry = {"shape": list(shape), "size": size, "native_s": native_s,
+                 "numpy_path_s": numpy_s,
+                 "max_level_diff_vs_numpy_path": int(diff_numpy.max()),
+                 "share_diff_vs_numpy_path": float((diff_numpy > 0).mean())}
+        if label == "non_integer":
+            diff = np.abs(out.astype(int) - area_resize_reference(np, images, size).astype(int))
+            entry["max_level_diff_vs_reference"] = int(diff.max())
+            ok = diff.max() <= 1
+            what = "the float64 area-resize reference"
+        else:
+            side = shape[1] // size
+            means = images.reshape(shape[0], size, side, size, side, 3).astype(np.float64)
+            means = means.mean(axis=(2, 4))
+            ties = np.abs(means - np.floor(means) - 0.5) < 1e-9
+            entry["share_ties"] = float(ties.mean())
+            ok = diff_numpy.max() <= 1 and not (diff_numpy[~ties] > 0).any()
+            what = "the numpy mean-pool off exact .5 ties"
+        stats[label] = entry
+        print(f"  [49] {label} {shape} -> {size}: native {native_s:.3f} s, numpy/PIL path "
+              f"{numpy_s:.3f} s (host), levels vs {what}: "
+              f"{entry.get('max_level_diff_vs_reference', int(diff_numpy.max()))}, vs the "
+              f"numpy path: max {entry['max_level_diff_vs_numpy_path']} on "
+              f"{entry['share_diff_vs_numpy_path']:.4f} of values "
+              f"{'ok' if ok else 'FAIL'} on {card}", flush=True)
+        if not ok:
+            fail(f"[49] the native loader disagrees with {what} at {shape} -> {size}")
+    return stats
+
+
+def opcheck_ops(torch) -> dict:
+    """[50]: torch.library.opcheck of each lgm_torch op on the card, at a main-path shape
+    (the UNet's #1/#2 at b 16 n 256 c 128 f32, the DiT's #3/#4 and #5 views at b 8 n 256 h 6
+    d 64 bf16, #6 at the VQ-VAE's N 4,096, #7 at a train batch)."""
+    from lightning_generative_models_tpu_torch.ops.common import register_ops
+
+    register_ops()
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    x, *params = la_inputs(16, 256, 128, torch.float32, gen)
+    dout = torch.randn(x.shape, device="cuda", generator=gen)
+    qkv = (torch.randn(8, 256, 3 * 6 * 64, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
+    g = torch.randn(8, 256, 6 * 64, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = (t.detach() for t in sdpa_views(qkv, 6, "s3hd"))
+    gq = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    cases = {
+        "linear_attention": (x.clone().requires_grad_(),
+                             *[p.clone().requires_grad_() for p in params], 4, 32,
+                             torch.float32, True),
+        "linear_attention_bwd": (x, *params, dout, 4, 32, torch.float32, True),
+        "attention_qkv": (qkv.clone().requires_grad_(), 6, "s3hd"),
+        "attention_qkv_bwd": (qkv, g, 6, "s3hd"),
+        "flash_attention": tuple(t.clone().requires_grad_() for t in (q, k, v)),
+        "flash_attention_bwd": (q, k, v, gq),
+        "nearest_codes": (torch.randn(4096, 64, device="cuda", generator=gen),
+                          torch.randn(512, 64, device="cuda", generator=gen)),
+        "normalize_flip": (torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8,
+                                         device="cuda", generator=gen),
+                           torch.rand(128, device="cuda", generator=gen) < 0.5,
+                           torch.float32),
+    }
+    results = {}
+    for name, args in cases.items():
+        t0 = time.perf_counter()
+        result = torch.library.opcheck(getattr(torch.ops.lgm_torch, name).default, args,
+                                       raise_exception=False)
+        ok = all(v == "SUCCESS" for v in result.values())
+        results[name] = {"ok": ok, "s": time.perf_counter() - t0}
+        print(f"  [50] opcheck lgm_torch::{name}: {'ok' if ok else result} "
+              f"({results[name]['s']:.1f} s)", flush=True)
+        if not ok:
+            fail(f"[50] torch.library.opcheck of lgm_torch::{name} failed on the card: {result}")
+    return results
+
+
+def serving_case(torch, label: str, model, batch: int, expected: dict, card: str,
+                 labels=None, path: Optional[Path] = None, timed: bool = False,
+                 calls: int = 1, **kwargs) -> dict:
+    """Load the artifact at ``path`` that the export CLI wrote, or export ``model``'s
+    sampler and run the program as exported (the save and load round trip is the CLI
+    cases'), call it ``calls`` times (seeds 0, 1, ...), each with every launch count set
+    to 0 just before and held to ``expected`` ({counter: launches a batch}; the others 0)
+    just after, and each against the live sampler from the same seed: bit for bit under
+    cudnn.deterministic. With ``timed``, samples/s of the artifact and the live sampler in
+    turns (SERVE_TIMED_CALLS each)."""
+    from lightning_generative_models_tpu_torch.serving import (
+        ServingArtifact,
+        export_sampler,
+        load_artifact,
+    )
+
+    stats = {}
+    t_case = time.perf_counter()
+    if path is None:
+        t0 = time.perf_counter()
+        exported = export_sampler(model, batch, labels=labels, **kwargs)
+        stats["export_s"] = time.perf_counter() - t0
+        artifact = ServingArtifact(exported.program, {"draw_plan": exported.draw_plan},
+                                   torch.device(exported.device), exported.program.module())
+    else:
+        t0 = time.perf_counter()
+        artifact = load_artifact(path)
+        stats["load_s"] = time.perf_counter() - t0
+        stats["artifact_mb"] = path.stat().st_size / 1e6
+        stats["export_s"] = artifact.meta["export_seconds"]
+
+    def live(seed):
+        generator = torch.Generator(device="cuda").manual_seed(seed)
+        if labels is not None:
+            return model.sample_classes(generator, torch.tensor(labels), **kwargs)
+        return model.sample(generator, batch, **kwargs)
+
+    for seed in range(calls):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = artifact(seed)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = {name: expected.get(name, 0) for name in counts}
+        t0 = time.perf_counter()
+        ref = live(seed)
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+        err = float((out.float() - ref.float()).abs().max())
+        print(f"  [51] {label} call {seed}: {tuple(out.shape)} in {call_s:.2f} s (live "
+              f"{live_s:.2f} s), max |artifact - live| {err:.3e}, launches "
+              f"{({k: v for k, v in counts.items() if v})}", flush=True)
+        if counts != want:
+            fail(f"[51] {label}: the artifact launched {counts}, expected {want} a batch")
+        if err != 0.0 or not bool(torch.isfinite(out).all()):
+            fail(f"[51] {label}: the artifact differs from the live sampler by {err:.3e}")
+        stats.setdefault("launches_per_batch", counts)
+        stats["max_abs_err"] = max(err, stats.get("max_abs_err", 0.0))
+    if timed:
+        walls = {"artifact": [], "live": []}
+        for _ in range(SERVE_TIMED_CALLS):
+            for which, fn in (("artifact", artifact), ("live", live)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(7)
+                torch.cuda.synchronize()
+                walls[which].append(time.perf_counter() - t0)
+        stats["samples_per_s"] = {k: batch / statistics.median(v) for k, v in walls.items()}
+        stats["walls_s"] = walls
+        print(f"  [51] {label}: artifact {stats['samples_per_s']['artifact']:.2f} samples/s, "
+              f"live sample {stats['samples_per_s']['live']:.2f} samples/s (median of "
+              f"{SERVE_TIMED_CALLS} in turns) on {card}", flush=True)
+    stats["case_s"] = time.perf_counter() - t_case
+    saved = (f", load {stats['load_s']:.1f} s, artifact {stats['artifact_mb']:.1f} MB"
+             if "load_s" in stats else "")
+    print(f"  [51] {label}: export {stats['export_s']:.1f} s{saved}; the case took "
+          f"{stats['case_s']:.1f} s", flush=True)
+    return stats
+
+
+def restored(torch, config_path: Path, run: str):
+    """The model of ``config_path`` restored from its port run's last checkpoint."""
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.generate import use_run_moment_dtypes
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    config = load_config(config_path)
+    run_dir = EXPERIMENT_DIR / config["model"]["name"] / run
+    use_run_moment_dtypes(run_dir)
+    model = load_model(config["model"], device="cuda")
+    CheckpointManager(run_dir / "checkpoints").restore(model, "last")
+    return model
+
+
+def attention_blocks(model) -> int:
+    """Linear-attention blocks of a diffusion model's denoiser: #1's launches an eval."""
+    from lightning_generative_models_tpu_torch.models.modules.attention import LinearAttention
+
+    return sum(isinstance(m, LinearAttention) for m in model.ema_unet.modules())
+
+
+def serving_paths(torch, card: str, latent_config: Path) -> dict:
+    """[51]: the frozen samplers of the runs the earlier phases trained (module doc)."""
+    from lightning_generative_models_tpu_torch import export
+    from lightning_generative_models_tpu_torch.registry import load_model
+    from lightning_generative_models_tpu_torch.serving import (
+        export_sampler,
+        load_artifact,
+        save_artifact,
+    )
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        ddim_path = export.main(["--config_path", str(CONFIG), "--experiment_name", TRAIN_RUN,
+                                 "--batch", str(SERVE_BATCH), "--sampler", "ddim",
+                                 "--sampling_steps", str(DDIM_STEPS), "--smoke"])
+        cli_s = time.perf_counter() - t0
+        model = restored(torch, CONFIG, TRAIN_RUN)
+        blocks = attention_blocks(model)
+        out["ddim50_bs64"] = serving_case(
+            torch, "ddim50_bs64", model, SERVE_BATCH, {"linear_attention": blocks * DDIM_STEPS},
+            card, path=ddim_path, timed=True, calls=2, method="ddim", steps=DDIM_STEPS)
+        out["ddim50_bs64"]["cli_s"] = cli_s
+        steps = model.diffusion.num_timesteps
+        out["ancestral_bs16"] = serving_case(
+            torch, "ancestral_bs16", model, SERVE_ANCESTRAL_BATCH,
+            {"linear_attention": blocks * steps}, card, method="ddpm")
+        del model
+
+        dit = restored(torch, DIT_CONFIG, DIT_RUN)
+        out["dit_guided_ddim50_bs64"] = serving_case(
+            torch, "dit_guided_ddim50_bs64", dit, SERVE_BATCH,
+            {"fused_attention_qkv": len(dit.ema_unet.blocks) * DDIM_STEPS}, card)
+        del dit
+
+        ct = restored(torch, CT_CONFIG, "chip_smoke_ct")
+        out["ct_multistep_bs64"] = serving_case(
+            torch, "ct_multistep_bs64", ct, SERVE_BATCH,
+            {"linear_attention": attention_blocks(ct) * ct.diffusion.sampling_steps}, card,
+            method="multistep")
+        del ct
+
+        ldm = restored(torch, latent_config, "chip_smoke_ldm")
+        evals = ldm.diffusion.sampling_timesteps
+        out["ldm_ddim50_bs64"] = serving_case(
+            torch, "ldm_ddim50_bs64", ldm, SERVE_BATCH,
+            {"linear_attention": attention_blocks(ldm) * evals, "nearest_codes": 1}, card)
+        del ldm
+
+        cgan_config = OUT_DIR / "gan" / "cgan.json"
+        cgan_path = export.main(["--config_path", str(cgan_config), "--experiment_name",
+                                 "chip_smoke_cgan", "--batch", str(SERVE_BATCH), "--label",
+                                 "3", "--smoke"])
+        cgan = restored(torch, cgan_config, "chip_smoke_cgan")
+        out["cgan_label3_bs64"] = serving_case(
+            torch, "cgan_label3_bs64", cgan, SERVE_BATCH, {}, card, path=cgan_path,
+            labels=[3] * SERVE_BATCH)
+        del cgan
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    cpu_gan = load_model(json.loads((OUT_DIR / "gan" / "cgan.json").read_text())["model"],
+                         device="cpu")
+    save_artifact(export_sampler(cpu_gan, 2), SERVE_DIR / "cpu_cgan.pt2")
+    try:
+        load_artifact(SERVE_DIR / "cpu_cgan.pt2", device="cuda")
+    except ValueError as e:
+        print(f"  [51] a CPU-exported artifact on the card: refused ({e})", flush=True)
+    else:
+        fail("[51] a CPU-exported artifact was not refused on the card")
+    out["cpu_artifact_refused_on_cuda"] = True
     return out
 
 
@@ -4785,12 +5109,32 @@ def main() -> None:
                     "generate": interpolation_paths(torch, card)}
     print(f"  [48] took {time.perf_counter() - t0:.1f} s; phases 45-48 took "
           f"{time.perf_counter() - t_unroll:.1f} s", flush=True)
+    print(f"[49] the native loader: {NATIVE_SHAPE[0]} -> {NATIVE_SHAPE[1]} and "
+          f"{NATIVE_INT_SHAPE[0]} -> {NATIVE_INT_SHAPE[1]}", flush=True)
+    t_serving = t0 = time.perf_counter()
+    native_stats = native_loader(card)
+    print(f"  [49] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[50] torch.library.opcheck of kernels #1-#7's ops on the card", flush=True)
+    t0 = time.perf_counter()
+    opcheck_stats = opcheck_ops(torch)
+    print(f"  [50] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[51] serving: frozen samplers of the runs above through torch.export", flush=True)
+    t0 = time.perf_counter()
+    serving_stats = serving_paths(torch, card, latent_configs["ldm"][0])
+    print(f"  [51] took {time.perf_counter() - t0:.1f} s; phases 49-51 took "
+          f"{time.perf_counter() - t_serving:.1f} s", flush=True)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
     slice_counts = {f"{key}_{run}": got for key, res in slice_runs.items()
                     for run, got in res["counts"].items()}
 
     def per_replay(case: str, counter: str) -> dict:
         return {f"{case}, {UNROLL} steps": graph_stats[case]["launches_per_replay"][counter]}
+
+    def per_artifact(counter: str) -> dict:
+        """Launches a batch of each [51] artifact that launches ``counter``."""
+        return {f"serve_{case}": res["launches_per_batch"][counter]
+                for case, res in serving_stats.items()
+                if isinstance(res, dict) and res["launches_per_batch"][counter]}
 
     kernels = [{
         "name": "linear_attention",
@@ -4802,7 +5146,8 @@ def main() -> None:
         "launches_by_path": {"generate": launches,
                              "train": train_counts["train"]["forward"],
                              "resume": train_counts["resume"]["forward"]}
-                            | {k: v["linear_attention"] for k, v in slice_counts.items()},
+                            | {k: v["linear_attention"] for k, v in slice_counts.items()}
+                            | per_artifact("linear_attention"),
         "max_abs_err": la_stats["max_abs_err"],
         "ms": la_stats["ms"],
         "plain_ms": la_stats["plain_ms"],
@@ -4847,7 +5192,8 @@ def main() -> None:
         "launches": vq_counts["vqvae"],
         "launches_by_path": {**vq_counts, "generate": 0}
                             | {k: v["nearest_codes"] for k, v in slice_counts.items()
-                               if v["nearest_codes"]},
+                               if v["nearest_codes"]}
+                            | per_artifact("nearest_codes"),
         "max_abs_err": vq_stats["max_abs_err"],
         "ms": vq_stats["ms"],
         "plain_ms": vq_stats["plain_ms"],
@@ -4875,7 +5221,8 @@ def main() -> None:
                              "fm_flash_train": fm_counts["train"]["fused_attention_qkv"],
                              "dit_moe_generate": moe_counts["generate"]["fused_attention_qkv"],
                              "dit_moe_train": moe_counts["train"]["fused_attention_qkv"],
-                             "dit_moe_resume": moe_counts["resume"]["fused_attention_qkv"]},
+                             "dit_moe_resume": moe_counts["resume"]["fused_attention_qkv"]}
+                            | per_artifact("fused_attention_qkv"),
         "max_abs_err": attn_stats["max_abs_err"],
         "ms": attn_stats["ms"],
         "plain_ms": attn_stats["plain_ms"],
@@ -4986,7 +5333,8 @@ def main() -> None:
                       "gan_metrics": gan_metrics_stats, "graphs_against_eager": graph_stats,
                       "ddpm_unroll": ddpm_unroll, "dcgan_unroll_walls_s": dcgan_unroll,
                       "unrolled_dispatches": name_unroll, "unroll_throughput": unroll_stats,
-                      "interpolation": interp_stats}))
+                      "interpolation": interp_stats, "native_loader": native_stats,
+                      "opcheck": opcheck_stats, "serving": serving_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Counterpart of ``lightning_generative_models_tpu/data/datamodule.py``, with the same
 seeded train/val split, the same seeded per-epoch order and the same batches: uint8
 numpy arrays, scaled and flipped on the device by ``ops/preprocess.py``. The one-time
-crop and resize take the numpy path only (the JAX package's native C++ loader is not
-ported). ``PairedDataModule`` gives CycleGAN its two-domain batches.
+crop and resize take the native C++ library (``data/native.py``) when a real resize is
+needed, as the JAX package does, and the numpy path otherwise. ``PairedDataModule``
+gives CycleGAN its two-domain batches.
 """
 
 from __future__ import annotations
@@ -53,7 +54,13 @@ def _center_crop_square(images: np.ndarray) -> np.ndarray:
 
 
 def _prep_images(images: np.ndarray, size: int) -> np.ndarray:
-    """One-time dataset staging: center-crop + resize."""
+    """One-time dataset staging: center-crop + resize, through the native library
+    (``data/native.py``) when a real resize is needed, else the numpy path."""
+    _, h, w, _ = images.shape
+    if min(h, w) != size:
+        from lightning_generative_models_tpu_torch.data import native  # noqa: PLC0415
+
+        return native.center_crop_resize_batch(images, size)
     return _resize_batch(_center_crop_square(images), size)
 
 

@@ -72,6 +72,14 @@ class GenerativeModel:
     def sample(self, generator: torch.Generator, num_samples: int) -> torch.Tensor:
         raise NotImplementedError
 
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, modules)``: the sampler as a ``Chain`` of step functions over explicit
+        draws, and the networks it reads, for ``serving.export_sampler``. A family whose
+        sampler does not export yet raises."""
+        raise NotImplementedError(
+            f"{type(self).__name__}'s sampler does not export to a serving artifact yet "
+            "(ROADMAP.md, Queue 1)")
+
     def param_counts(self) -> Dict[str, int]:
         raise NotImplementedError
 

@@ -38,8 +38,12 @@ from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
 from lightning_generative_models_tpu_torch.models.diffusion.edm import batch_view
 from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
     ApplyFn,
+    Chain,
     NoiseFn,
+    Segment,
     normal_draw,
+    rows_on,
+    run_chain,
 )
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
@@ -204,25 +208,25 @@ class ConsistencyProcess:
         i = np.arange(steps, dtype=np.float64)
         return (hi**inv + i / (steps - 1) * (self.sigma_min**inv - hi**inv)) ** self.rho
 
-    def _multistep(self, apply_fn: ApplyFn, x: torch.Tensor, taus: np.ndarray,
-                   generator: Optional[torch.Generator],
-                   noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
-        """arXiv:2303.01469 Alg. 1: f at the start level, then per extra level tau_j
-        re-noise (``noise_fn(j - 1, shape)``, or a draw from ``generator``) and map back:
-        one network evaluation a level."""
-        b = x.shape[0]
+    def multistep_chain(self, apply_fn: ApplyFn, shape: tuple, taus: np.ndarray) -> Chain:
+        """arXiv:2303.01469 Alg. 1 from x = sigma_max x_T: f at the start level (the
+        chain's init), then per extra level tau_j a step that re-noises (draw key j - 1)
+        and maps back: one network evaluation a level."""
+        b = shape[0]
+        taus = np.asarray(taus, np.float32)
+        std = np.sqrt(np.maximum(taus[1:] * taus[1:] - np.float32(self.sigma_min**2),
+                                 np.float32(0.0)))
+        tau0 = torch.tensor(taus[0], device=self.device)
 
-        def full(tau):
-            return torch.full((b,), float(tau), dtype=torch.float32, device=x.device)
+        def init(x_T):
+            return self.denoise(apply_fn, self.sigma_max * x_T, tau0.expand(b))
 
-        x = self.denoise(apply_fn, x, full(np.float32(taus[0])))
-        for j, tau in enumerate(np.asarray(taus[1:], np.float32)):
-            std = float(np.sqrt(np.maximum(np.float32(tau * tau - np.float32(
-                self.sigma_min**2)), np.float32(0.0))))
-            eps = (noise_fn(j, tuple(x.shape)) if noise_fn is not None
-                   else torch.randn(x.shape, generator=generator, device=x.device))
-            x = self.denoise(apply_fn, x + std * eps.to(x.device, torch.float32), full(tau))
-        return x
+        def step(x, row):
+            return self.denoise(apply_fn, x + row["std"] * row["noise"], row["tau"].expand(b))
+
+        rows = rows_on(self.device, tau=taus[1:], std=std.astype(np.float32))
+        segments = [Segment(step, rows, list(range(len(taus) - 1)))] if len(taus) > 1 else []
+        return Chain(init, segments, self.unnormalize, shape)
 
     def sample(
         self,
@@ -235,8 +239,19 @@ class ConsistencyProcess:
         noise_fn: Optional[NoiseFn] = None,
     ) -> torch.Tensor:
         """Sample from x = sigma_max x_T (``x_T`` the standard normal draw, from
-        ``generator`` when None). ``onestep`` is one evaluation of f, ``multistep`` (the
-        default when ``sampling_steps`` > 1) ``steps`` levels. Other samplers' names are
+        ``generator`` when None), step j's re-noising draw ``noise_fn(j, shape)`` or from
+        ``generator`` (``chain``)."""
+        chain = self.chain(apply_fn, batch_size, method, steps)
+        if x_T is None:
+            x_T = torch.randn(chain.shape, generator=generator, device=self.device)
+        elif tuple(x_T.shape) != chain.shape:
+            raise ValueError(f"x_T has shape {tuple(x_T.shape)}, expected {chain.shape}")
+        return run_chain(chain, x_T.to(self.device, torch.float32), generator, noise_fn)
+
+    def chain(self, apply_fn: ApplyFn, batch_size: int, method: Optional[str] = None,
+              steps: Optional[int] = None) -> Chain:
+        """``onestep`` is one evaluation of f, ``multistep`` (the default when
+        ``sampling_steps`` > 1) ``steps`` levels, as a ``Chain``. Other samplers' names are
         refused with JAX's message."""
         method = method or ("onestep" if self.sampling_steps <= 1 else "multistep")
         if method not in SOLVERS:
@@ -246,13 +261,7 @@ class ConsistencyProcess:
             )
         steps = 1 if method == "onestep" else (steps or self.sampling_steps)
         shape = (batch_size, self.img_size, self.img_size, self.channels)
-        if x_T is None:
-            x_T = torch.randn(shape, generator=generator, device=self.device)
-        elif tuple(x_T.shape) != shape:
-            raise ValueError(f"x_T has shape {tuple(x_T.shape)}, expected {shape}")
-        x = self.sigma_max * x_T.to(self.device, torch.float32)
-        return self.unnormalize(
-            self._multistep(apply_fn, x, self.tau_grid(steps), generator, noise_fn))
+        return self.multistep_chain(apply_fn, shape, self.tau_grid(steps))
 
     def interpolate(
         self,

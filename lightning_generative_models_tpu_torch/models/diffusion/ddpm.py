@@ -34,6 +34,24 @@ from lightning_generative_models_tpu_torch.train.state import count_params, ema_
 from lightning_generative_models_tpu_torch.weights import load_flax_params
 
 
+class GuidedApply:
+    """The classifier-free-guided apply closure on the doubled labels ``lab2`` [cond;
+    null]. An object, not a closure, so that a serving export can hand the labels in as a
+    tensor of the program (``serving.py``'s holders)."""
+
+    def __init__(self, net: torch.nn.Module, lab2: torch.Tensor, w: float):
+        self.net = net
+        self.lab2 = lab2
+        self.w = w
+
+    def __call__(self, x, t, x_self_cond=None):
+        b = x.shape[0]
+        sc2 = None if x_self_cond is None else torch.cat([x_self_cond, x_self_cond])
+        out = self.net(torch.cat([x, x]), torch.cat([t, t]), sc2, labels=self.lab2)
+        c, u = out[:b], out[b:]
+        return u + self.w * (c - u)
+
+
 class DDPM(GenerativeModel):
     def __init__(
         self,
@@ -220,16 +238,8 @@ class DDPM(GenerativeModel):
     def _guided_apply_fn(self, net: torch.nn.Module, labels: torch.Tensor, w: float):
         """Classifier-free-guided closure: one network eval on the doubled batch
         [cond; uncond], combined as u + w*(c - u) on the raw network output."""
-        b = labels.shape[0]
-        lab2 = torch.cat([labels.long(), self.null_labels(b)])
-
-        def apply(x, t, x_self_cond=None):
-            sc2 = None if x_self_cond is None else torch.cat([x_self_cond, x_self_cond])
-            out = net(torch.cat([x, x]), torch.cat([t, t]), sc2, labels=lab2)
-            c, u = out[:b], out[b:]
-            return u + w * (c - u)
-
-        return apply
+        return GuidedApply(net, torch.cat([labels.long(), self.null_labels(labels.shape[0])]),
+                           w)
 
     # -- steps ---------------------------------------------------------------------
     def _on_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -454,6 +464,32 @@ class DDPM(GenerativeModel):
             return {}
         labels = torch.arange(self.num_classes, device=self.device).repeat_interleave(4)
         return {"per_class_generation": self.sample_classes(generator, labels)}
+
+    def serving_chain(self, batch_size: int, method: Optional[str] = None,
+                      steps: Optional[int] = None, labels=None):
+        """``(chain, parts)`` of ``sample`` (``sample_classes`` on ``labels``) for
+        ``serving.export_sampler``: the process's chain on the EMA network and the
+        diffusion-space hook on its output; the parts are the network, the process (its
+        schedule's tensors) and ``serving_modules``."""
+        if labels is not None and not self.num_classes:
+            raise ValueError("sample_classes requires DDPM(num_classes=...)")
+        if self.num_classes:
+            labels = (torch.arange(batch_size, device=self.device) % self.num_classes
+                      if labels is None else torch.as_tensor(labels, device=self.device))
+            apply_fn = self._guided_apply_fn(self.ema_unet, labels.long(), self.guidance_scale)
+        else:
+            apply_fn = self._apply_fn(self.ema_unet)
+        chain = self.diffusion.chain(apply_fn, batch_size, method, steps)
+        out = chain.out
+        parts = {"ema_unet": self.ema_unet, "diffusion": self.diffusion,
+                 **self.serving_modules()}
+        if isinstance(apply_fn, GuidedApply):
+            parts["guidance"] = apply_fn
+        return chain._replace(out=lambda carry: self._from_diffusion_space(out(carry))), parts
+
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """Networks besides the denoiser that the serving chain reads (none here)."""
+        return {}
 
     @torch.inference_mode()
     def sample_raw(self, generator: Optional[torch.Generator], num_samples: int,

@@ -28,7 +28,7 @@ one device, as the JAX package's ``seq_shard`` off a tensor-parallel mesh.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -203,7 +203,6 @@ class DiT(nn.Module):
         self.final_modulation = Dense(hidden, 2 * hidden, zero_init=True)
         self.final_norm = LayerNorm()
         self.head = Dense(hidden, p * p * self.output_channels, zero_init=True)
-        self._pos: Dict[Tuple, torch.Tensor] = {}
 
     @property
     def null_class(self) -> int:
@@ -213,10 +212,15 @@ class DiT(nn.Module):
         return self.num_classes
 
     def _positions(self, gh: int, gw: int, device: torch.device) -> torch.Tensor:
-        key = (gh, gw, device)
-        if key not in self._pos:
-            self._pos[key] = torch.from_numpy(posemb_sincos_2d(gh, gw, self.hidden)).to(device)
-        return self._pos[key]
+        """The [gh * gw, hidden] sin-cos table, made at first use and kept as a
+        non-persistent buffer (so that ``torch.export`` lifts it as it lifts the
+        weights, and ``.to`` moves it)."""
+        name = f"pos_{gh}x{gw}"
+        if not hasattr(self, name):
+            self.register_buffer(
+                name, torch.from_numpy(posemb_sincos_2d(gh, gw, self.hidden)).to(device),
+                persistent=False)
+        return getattr(self, name)
 
     def forward(
         self,

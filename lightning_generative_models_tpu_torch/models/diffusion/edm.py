@@ -10,10 +10,11 @@ down the rho-warped sigma grid, with optional stochastic churn. The network sees
 ``c_noise * time_scale``.
 
 The JAX sampler is one ``lax.scan`` over a host-computed f32 node table (sigma,
-sigma_next, gamma, is_last); here a Python loop over the same table, with the per-step
-scalars in f32 as the scan has them. JAX's scan evaluates Heun's corrector on the last
-step too (at a clamped sigma) and drops it through a ``where``; the port skips it, so
-Heun-N runs 2N - 1 network evaluations and gives the same result. The random draws come
+sigma_next, gamma, is_last); here a ``Chain`` (``gaussian_diffusion.py``) over the same
+table, with the per-step scalars in f32 as the scan has them, run in a Python loop or as
+scan bodies. JAX's scan evaluates Heun's corrector on the last step too (at a clamped
+sigma) and drops it through a ``where``; the port's chain ends in an Euler segment of
+one step instead, so Heun-N runs 2N - 1 network evaluations and gives the same result. The random draws come
 from an explicit ``torch.Generator`` or are passed in: ``p_losses``' normal behind the
 log-normal sigma and its noise, ``sample``'s start ``x_T`` and the churn noise of every
 step (``noise_fn``), which JAX draws on every step whether the churn uses it or not.
@@ -35,8 +36,12 @@ import torch
 from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
 from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
     ApplyFn,
+    Chain,
     NoiseFn,
+    Segment,
     normal_draw,
+    rows_on,
+    run_chain,
 )
 from lightning_generative_models_tpu_torch.models.diffusion.latent_diffusion import (
     LatentDiffusion,
@@ -163,14 +168,13 @@ class EDMProcess:
         sig = (hi**inv + i / (steps - 1) * (self.sigma_min**inv - hi**inv)) ** self.rho
         return np.append(sig, 0.0)
 
-    def _integrate(self, apply_fn: ApplyFn, x: torch.Tensor, sigmas: np.ndarray,
-                   generator: Optional[torch.Generator], method: str,
-                   noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
-        """Algorithm 2 over the node table: ``method='euler'`` one evaluation a step,
-        'heun' two but on the last step (2N - 1). Step i's churn noise is
-        ``noise_fn(i, shape)``, or a draw from ``generator``; it is drawn on every step,
-        and at gamma = 0 (no churn) it adds exactly 0."""
-        b = x.shape[0]
+    def integrate_chain(self, apply_fn: ApplyFn, shape: tuple, sigmas: np.ndarray,
+                        method: str, scale: Optional[float] = None) -> Chain:
+        """Algorithm 2 over the node table, from x = ``scale`` x_T (x_T itself when
+        ``scale`` is None): ``method='euler'`` one
+        evaluation a step, 'heun' two but on the last step (2N - 1). Step i draws its
+        churn noise (key i) on every step; at gamma = 0 (no churn) it adds exactly 0."""
+        b = shape[0]
         n = len(sigmas) - 1
         gammas = np.where(
             (sigmas[:-1] >= self.s_tmin) & (sigmas[:-1] <= self.s_tmax),
@@ -179,27 +183,40 @@ class EDMProcess:
         )
         rows = np.stack([sigmas[:-1], sigmas[1:], gammas], axis=1).astype(np.float32)
         one, half = np.float32(1.0), np.float32(0.5)
+        cols = {"sig_hat": [], "lift": [], "dt": [], "half_dt": [], "sig_next": []}
+        for sig, sig_next, gamma in rows:
+            sig_hat = np.float32(sig * (one + gamma))
+            dt = np.float32(sig_next - sig_hat)
+            for name, v in (("sig_hat", sig_hat), ("sig_next", sig_next), ("dt", dt),
+                            ("lift", np.sqrt(np.maximum(np.float32(sig_hat * sig_hat - sig * sig),
+                                                        np.float32(0.0)))),
+                            ("half_dt", np.float32(dt * half))):
+                cols[name].append(v)
 
         def denoise(xi, sig):
-            return self._denoise(apply_fn, xi, torch.full((b,), float(sig),
-                                                          dtype=torch.float32,
-                                                          device=xi.device))
+            return self._denoise(apply_fn, xi, sig.expand(b))
 
-        for i, (sig, sig_next, gamma) in enumerate(rows):
-            sig_hat = np.float32(sig * (one + gamma))
-            lift = float(np.sqrt(np.maximum(np.float32(sig_hat * sig_hat - sig * sig),
-                                            np.float32(0.0))))
-            eps = (noise_fn(i, tuple(x.shape)) if noise_fn is not None
-                   else torch.randn(x.shape, generator=generator, device=x.device))
-            x_hat = x + lift * (self.s_noise * eps.to(x.device, torch.float32))
-            d = (x_hat - denoise(x_hat, sig_hat)) / float(sig_hat)
-            x_e = x_hat + float(np.float32(sig_next - sig_hat)) * d
-            if method == "euler" or i == n - 1:
-                x = x_e
-                continue
-            d2 = (x_e - denoise(x_e, sig_next)) / float(sig_next)
-            x = x_hat + float(np.float32(np.float32(sig_next - sig_hat) * half)) * (d + d2)
-        return x
+        def euler(x, row):
+            x_hat = x + row["lift"] * (self.s_noise * row["noise"])
+            d = (x_hat - denoise(x_hat, row["sig_hat"])) / row["sig_hat"]
+            return x_hat, d, x_hat + row["dt"] * d
+
+        def euler_step(x, row):
+            return euler(x, row)[2]
+
+        def heun_step(x, row):
+            x_hat, d, x_e = euler(x, row)
+            d2 = (x_e - denoise(x_e, row["sig_next"])) / row["sig_next"]
+            return x_hat + row["half_dt"] * (d + d2)
+
+        # Heun's last step is Euler's: its corrector would need D at sigma = 0.
+        split = n - 1 if method == "heun" else 0
+        segments = [Segment(step, rows_on(self.device, **{k: v[lo:hi] for k, v in cols.items()}),
+                            list(range(lo, hi)))
+                    for step, lo, hi in ((heun_step, 0, split), (euler_step, split, n))
+                    if hi > lo]
+        return Chain((lambda x_T: x_T) if scale is None else (lambda x_T: scale * x_T),
+                     segments, self.unnormalize, shape)
 
     def sample(
         self,
@@ -213,23 +230,28 @@ class EDMProcess:
     ) -> torch.Tensor:
         """Sample from x = sigma_max x_T down the sigma grid. ``x_T`` is the standard
         normal draw (drawn from ``generator`` when None), ``noise_fn`` the churn noise
-        (see ``_integrate``). The diffusion and flow samplers' names are refused with
-        JAX's message."""
+        (see ``integrate_chain``)."""
+        chain = self.chain(apply_fn, batch_size, method, steps)
+        if x_T is None:
+            x_T = torch.randn(chain.shape, generator=generator, device=self.device)
+        elif tuple(x_T.shape) != chain.shape:
+            raise ValueError(f"x_T has shape {tuple(x_T.shape)}, expected {chain.shape}")
+        return run_chain(chain, x_T.to(self.device, torch.float32), generator, noise_fn)
+
+    def chain(self, apply_fn: ApplyFn, batch_size: int, method: Optional[str] = None,
+              steps: Optional[int] = None) -> Chain:
+        """The solver ``method`` (default: the configured one) down the sigma grid from x =
+        sigma_max x_T, as a ``Chain``. The diffusion and flow samplers' names are refused
+        with JAX's message."""
         method = method or self.solver
         if method not in SOLVERS:
             raise ValueError(
                 f"unknown EDM sampling method {method!r}; EDM models use "
                 f"{SOLVERS} (not ddpm/ddim/dpmpp/midpoint)"
             )
-        steps = steps or self.sampling_steps
         shape = (batch_size, self.img_size, self.img_size, self.channels)
-        if x_T is None:
-            x_T = torch.randn(shape, generator=generator, device=self.device)
-        elif tuple(x_T.shape) != shape:
-            raise ValueError(f"x_T has shape {tuple(x_T.shape)}, expected {shape}")
-        x = self.sigma_max * x_T.to(self.device, torch.float32)
-        return self.unnormalize(
-            self._integrate(apply_fn, x, self.sigma_grid(steps), generator, method, noise_fn))
+        return self.integrate_chain(apply_fn, shape, self.sigma_grid(steps or self.sampling_steps),
+                                    method, self.sigma_max)
 
     def sigma_at(self, t: float) -> float:
         """sigma(t) = exp(lerp(ln sigma_min, ln sigma_max, t)), in float64."""
@@ -264,9 +286,9 @@ class EDMProcess:
         z2 = self.normalize(x2_01.to(self.device, torch.float32)) + sigma_t * noise2
         x = (1 - lam) * z1 + lam * z2
         steps = max(1, int(round(self.sampling_steps * t)))
-        sigmas = self.sigma_grid(steps, sigma_start=sigma_t)
-        return self.unnormalize(
-            self._integrate(apply_fn, x, sigmas, generator, self.solver, noise_fn))
+        chain = self.integrate_chain(apply_fn, shape, self.sigma_grid(steps, sigma_start=sigma_t),
+                                     self.solver)
+        return run_chain(chain, x, generator, noise_fn)
 
 
 class EDM(DDPM):

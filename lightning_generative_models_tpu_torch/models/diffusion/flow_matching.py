@@ -8,8 +8,9 @@ euler, midpoint and heun (Euler on the final node) integrating dx/dt = v from t 
 this process in place of ``GaussianDiffusion``: the backbone (UNet or DiT), Adam, the
 EMA, classifier-free guidance, the trainer protocol and the parameter tree are DDPM's.
 
-The JAX samplers are one ``lax.scan`` over a host-computed node table; here a Python
-loop over the same f32 table, with the per-step scalars in f32 as the scan has them.
+The JAX samplers are one ``lax.scan`` over a host-computed node table; here a ``Chain``
+(``gaussian_diffusion.py``) over the same f32 table, with the per-step scalars in f32 as
+the scan has them, run in a Python loop or as scan bodies.
 The random draws come from an explicit ``torch.Generator``, or are passed in (``t`` and
 ``noise`` for ``p_losses``, ``x_T`` for ``sample``), so that a test can hand both
 implementations the same numbers. ``LatentFlowMatching`` runs the flow in a frozen
@@ -27,7 +28,11 @@ import torch
 from lightning_generative_models_tpu_torch.models.diffusion.ddpm import DDPM
 from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
     ApplyFn,
+    Chain,
+    Segment,
     normal_draw,
+    rows_on,
+    run_chain,
 )
 from lightning_generative_models_tpu_torch.models.diffusion.latent_diffusion import (
     LatentDiffusion,
@@ -112,37 +117,39 @@ class RectifiedFlow:
         return torch.mean((out - (noise - x0)) ** 2)
 
     # -- sampling ---------------------------------------------------------------
-    def _integrate(self, apply_fn: ApplyFn, x: torch.Tensor, t_start: float, method: str,
-                   steps: int) -> torch.Tensor:
+    def integrate_chain(self, apply_fn: ApplyFn, shape: tuple, t_start: float, method: str,
+                        steps: int) -> Chain:
         """Integrate dx/dt = v from ``t_start`` to 0 over ``steps`` uniform nodes. Heun's
-        last step is Euler's (its corrector would need v at t = 0); the JAX scan still
-        evaluates that corrector and discards it, the port skips it."""
-        b = x.shape[0]
+        last step is Euler's (its corrector would need v at t = 0): a segment of its own.
+        The JAX scan still evaluates that corrector and discards it, the port skips it."""
+        b = shape[0]
         ts = np.linspace(float(t_start), 0.0, steps + 1).astype(np.float32)
         half = np.float32(0.5)
+        dt = (ts[1:] - ts[:-1]).astype(np.float32)
+        cols = {"t": ts[:-1], "t_next": ts[1:], "dt": dt, "half_dt": (half * dt).astype(np.float32)}
+        cols["t_mid"] = (cols["t"] + cols["half_dt"]).astype(np.float32)
 
         def eval_v(xi, t):
-            tt = torch.full((b,), float(t), dtype=torch.float32, device=xi.device)
-            return apply_fn(xi, tt * self.time_scale, None)
+            return apply_fn(xi, t.expand(b) * self.time_scale, None)
 
-        for i in range(steps):
-            t, t_next = ts[i], ts[i + 1]
-            dt = np.float32(t_next - t)
-            v1 = eval_v(x, t)
-            if method == "euler":
-                x = x + float(dt) * v1
-            elif method == "midpoint":
-                half_dt = np.float32(half * dt)
-                x_mid = x + float(half_dt) * v1
-                x = x + float(dt) * eval_v(x_mid, np.float32(t + half_dt))
-            else:  # heun
-                x_e = x + float(dt) * v1
-                if i == steps - 1:
-                    x = x_e
-                else:
-                    v2 = eval_v(x_e, t_next)
-                    x = x + float(np.float32(half * dt)) * (v1 + v2)
-        return x
+        def euler_step(x, row):
+            return x + row["dt"] * eval_v(x, row["t"])
+
+        def midpoint_step(x, row):
+            x_mid = x + row["half_dt"] * eval_v(x, row["t"])
+            return x + row["dt"] * eval_v(x_mid, row["t_mid"])
+
+        def heun_step(x, row):
+            v1 = eval_v(x, row["t"])
+            v2 = eval_v(x + row["dt"] * v1, row["t_next"])
+            return x + row["half_dt"] * (v1 + v2)
+
+        split = {"euler": 0, "midpoint": steps, "heun": steps - 1}[method]
+        body = midpoint_step if method == "midpoint" else heun_step
+        segments = [Segment(step, rows_on(self.device, **{k: v[lo:hi] for k, v in cols.items()}))
+                    for step, lo, hi in ((body, 0, split), (euler_step, split, steps))
+                    if hi > lo]
+        return Chain(lambda x: x, segments, self.unnormalize, shape)
 
     def sample(
         self,
@@ -156,21 +163,28 @@ class RectifiedFlow:
         """Deterministic ODE sampling from x(1) = ``x_T`` (drawn from ``generator``
         when None). ``method`` picks the solver (default: the configured one); the
         diffusion samplers' names are refused with JAX's message."""
-        method = method or self.solver
-        if method not in SOLVERS:
-            raise ValueError(
-                f"unknown flow sampling method {method!r}; flow-matching "
-                f"models use {SOLVERS} (not ddpm/ddim/dpmpp)"
-            )
-        steps = steps or self.sampling_steps
-        shape = (batch_size, self.img_size, self.img_size, self.channels)
+        chain = self.chain(apply_fn, batch_size, method, steps)
+        shape = chain.shape
         if x_T is None:
             x = torch.randn(shape, generator=generator, device=self.device)
         elif tuple(x_T.shape) != shape:
             raise ValueError(f"x_T has shape {tuple(x_T.shape)}, expected {shape}")
         else:
             x = x_T.to(self.device, torch.float32)
-        return self.unnormalize(self._integrate(apply_fn, x, 1.0, method, steps))
+        return run_chain(chain, x)
+
+    def chain(self, apply_fn: ApplyFn, batch_size: int, method: Optional[str] = None,
+              steps: Optional[int] = None) -> Chain:
+        """The ODE solver ``method`` (default: the configured one) from x(1) = x_T as a
+        ``Chain``; the diffusion samplers' names are refused with JAX's message."""
+        method = method or self.solver
+        if method not in SOLVERS:
+            raise ValueError(
+                f"unknown flow sampling method {method!r}; flow-matching "
+                f"models use {SOLVERS} (not ddpm/ddim/dpmpp)"
+            )
+        shape = (batch_size, self.img_size, self.img_size, self.channels)
+        return self.integrate_chain(apply_fn, shape, 1.0, method, steps or self.sampling_steps)
 
     def interpolate(
         self,
@@ -198,7 +212,7 @@ class RectifiedFlow:
         z2 = (1.0 - t) * self.normalize(x2_01.to(self.device, torch.float32)) + t * noise2
         x = (1 - lam) * z1 + lam * z2
         steps = max(1, int(round(self.sampling_steps * t)))
-        return self.unnormalize(self._integrate(apply_fn, x, t, self.solver, steps))
+        return run_chain(self.integrate_chain(apply_fn, shape, t, self.solver, steps), x)
 
 
 class FlowMatching(DDPM):

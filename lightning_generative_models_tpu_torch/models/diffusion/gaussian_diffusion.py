@@ -5,11 +5,15 @@ linear/cosine/sigmoid beta schedules computed in float64 and stored as f32 buffe
 objectives pred_noise / pred_x0 / pred_v; ancestral DDPM sampling over all T steps;
 strided DDIM sampling with eta-scaled noise and clip + rederive; DPM-Solver++(2M).
 
-The JAX samplers are one ``lax.scan`` program each; here each is a Python loop over
-the steps, with the per-step scalars computed on the host in f32 as the scan computes
-them. Randomness comes from an explicit ``torch.Generator``; every sampler also takes
-``x_T``, and ``p_sample_loop`` a per-step ``noise_fn``, so that a test can hand both
-implementations the same random numbers.
+The JAX samplers are one ``lax.scan`` program each; here each is a ``Chain``: step
+functions ``(carry, row) -> carry`` over a table of per-step rows, the per-step scalars
+computed on the host in f32 as the scan computes them, and the step's draw in the row.
+``run_chain`` drives a chain in Python, drawing each step's noise from a
+``torch.Generator``; ``serving.py`` runs the same steps from explicit draws as the bodies
+of ``scan`` ops, which is what it exports. A branch on the step index is a ``torch.where`` on a row's flag,
+and no step reads a value back to the host. Every sampler also takes ``x_T``, and
+``p_sample_loop`` a per-step ``noise_fn``, so that a test can hand both implementations
+the same random numbers.
 
 The model is an ``apply_fn(x, t, self_cond) -> out`` closure. ``p_losses`` is the
 training objective; its random draws (t, noise, offset noise, the self-conditioning
@@ -20,7 +24,7 @@ draws (the two noises, the chain's per-step noise) passed in or drawn.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,6 +41,76 @@ def normal_draw(given: Optional[torch.Tensor], shape: tuple, generator,
     if given is not None:
         return given.to(device, torch.float32)
     return torch.randn(shape, generator=generator, device=device)
+
+
+class Segment(NamedTuple):
+    """Steps of one kind: ``step(carry, row) -> carry`` over ``rows`` ({name: [T, ...]
+    tensor}; a row is each one's slice at a step). ``draws`` holds, per step, the key of
+    the normal draw of the sample's shape that the step takes as ``row["noise"]`` (the
+    argument a ``noise_fn`` gets) or None for a step that takes none; None for a segment
+    whose steps draw nothing."""
+
+    step: Callable
+    rows: Dict[str, torch.Tensor]
+    draws: Optional[List[Optional[int]]] = None
+
+
+class Chain(NamedTuple):
+    """A sampler as data: ``init(x_T) -> carry``, its segments in order, and
+    ``out(carry) -> sample``. ``shape`` is x_T's, and that of every per-step draw;
+    ``start`` names x_T in a serving artifact's draw plan."""
+
+    init: Callable
+    segments: List[Segment]
+    out: Callable
+    shape: tuple
+    start: str = "x_T"
+
+    def steps(self) -> int:
+        return sum(len(next(iter(seg.rows.values()))) for seg in self.segments)
+
+    def draw_steps(self) -> List[int]:
+        """The indices, over all segments' steps in order, of the steps that draw."""
+        found, i = [], 0
+        for seg in self.segments:
+            for j in range(len(next(iter(seg.rows.values())))):
+                if seg.draws is not None and seg.draws[j] is not None:
+                    found.append(i)
+                i += 1
+        return found
+
+
+def rows_on(device, **columns) -> Dict[str, torch.Tensor]:
+    """Host columns (numpy or lists) as a segment's device rows: floats f32, ints int64,
+    bools bool."""
+    out = {}
+    for name, col in columns.items():
+        arr = np.asarray(col)
+        dtype = (torch.bool if arr.dtype == np.bool_ else torch.long
+                 if np.issubdtype(arr.dtype, np.integer) else torch.float32)
+        out[name] = torch.as_tensor(arr, dtype=dtype, device=device)
+    return out
+
+
+def run_chain(chain: Chain, x_T: torch.Tensor, generator: Optional[torch.Generator] = None,
+              noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
+    """The chain's steps in a Python loop: step i's draw is ``noise_fn(key, shape)`` or a
+    standard normal from ``generator``, drawn just before the step."""
+    carry = chain.init(x_T)
+    for seg in chain.segments:
+        for j in range(len(next(iter(seg.rows.values())))):
+            row = {name: col[j] for name, col in seg.rows.items()}
+            if seg.draws is not None:
+                key = seg.draws[j]
+                if key is None:
+                    row["noise"] = torch.zeros(chain.shape, device=x_T.device)
+                elif noise_fn is not None:
+                    row["noise"] = noise_fn(key, chain.shape).to(x_T.device, torch.float32)
+                else:
+                    row["noise"] = torch.randn(chain.shape, generator=generator,
+                                               device=x_T.device)
+            carry = seg.step(carry, row)
+    return chain.out(carry)
 
 
 def linear_beta_schedule(timesteps: int) -> np.ndarray:
@@ -85,12 +159,6 @@ class ModelPrediction(NamedTuple):
 def _extract(a: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """a[t] broadcast to an image batch: [B] -> [B, 1, 1, 1]."""
     return a[t].reshape(t.shape[0], *((1,) * (ndim - 1)))
-
-
-def _f32(v) -> float:
-    """v rounded to float32, as a Python float (exact, so it multiplies f32 tensors
-    without further rounding)."""
-    return float(np.float32(v))
 
 
 def ddim_times(num_timesteps: int, steps: int) -> list:
@@ -346,78 +414,71 @@ class GaussianDiffusion:
     def _t(self, batch_size: int, t: int) -> torch.Tensor:
         return torch.full((batch_size,), t, dtype=torch.long, device=self.device)
 
-    def p_sample_loop(
-        self,
-        apply_fn: ApplyFn,
-        batch_size: int,
-        generator: Optional[torch.Generator] = None,
-        x_T: Optional[torch.Tensor] = None,
-        noise_fn: Optional[NoiseFn] = None,
-    ) -> torch.Tensor:
-        """Ancestral sampling over all T steps. ``noise_fn(t, shape)`` supplies the
-        noise of step t (default: normal draws from ``generator``)."""
+    def ancestral_chain(self, apply_fn: ApplyFn, batch_size: int,
+                        start: Optional[int] = None) -> Chain:
+        """Ancestral sampling down from step ``start`` (default T - 1) to 0; every step
+        but t = 0 draws its noise (key t)."""
         shape = self._shape(batch_size)
-        img = self._x_T(batch_size, generator, x_T)
-        x_start = torch.zeros_like(img)
-        for t in range(self.num_timesteps - 1, -1, -1):
+        ts = np.arange(self.num_timesteps - 1 if start is None else start, -1, -1)
+
+        def step(carry, row):
+            img, x_start = carry
             self_cond = x_start if self.self_condition else None
             mean, _, log_var, x_start = self.p_mean_variance(
-                apply_fn, img, self._t(batch_size, t), self_cond
-            )
-            if t > 0:
-                noise = (noise_fn(t, shape).to(self.device) if noise_fn is not None
-                         else torch.randn(shape, generator=generator, device=self.device))
-                img = mean + torch.exp(0.5 * log_var) * noise
-            else:
-                img = mean
-        return self.unnormalize(img)
+                apply_fn, img, row["t"].expand(batch_size), self_cond)
+            img = torch.where(row["nonzero"], mean + torch.exp(0.5 * log_var) * row["noise"],
+                              mean)
+            return img, x_start
 
-    def ddim_sample(
-        self,
-        apply_fn: ApplyFn,
-        batch_size: int,
-        generator: Optional[torch.Generator] = None,
-        steps: Optional[int] = None,
-        x_T: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        rows = rows_on(self.device, t=ts, nonzero=ts > 0)
+        draws = [int(t) if t > 0 else None for t in ts]
+        return Chain(lambda x: (x, torch.zeros_like(x)), [Segment(step, rows, draws)],
+                     lambda carry: self.unnormalize(carry[0]), shape)
+
+    def ddim_chain(self, apply_fn: ApplyFn, batch_size: int,
+                   steps: Optional[int] = None) -> Chain:
+        """Strided DDIM with eta-scaled noise (a draw on a step whose sigma > 0) and clip +
+        rederive; the final node (t = -1) returns the x0 prediction."""
         shape = self._shape(batch_size)
         eta = np.float32(self.ddim_sampling_eta)
         times = ddim_times(self.num_timesteps, steps or self.sampling_timesteps)
         ac = self._alphas_cumprod_host
-        one = np.float32(1.0)
-
-        img = self._x_T(batch_size, generator, x_T)
-        x_start = torch.zeros_like(img)
+        one, zero = np.float32(1.0), np.float32(0.0)
+        cols = {"t": [], "last": [], "a": [], "c": [], "sigma": []}
         for t, t_next in zip(times[:-1], times[1:]):
+            alpha = ac[t]
+            alpha_next = ac[t_next] if t_next >= 0 else one  # the last step's is unread
+            sigma = eta * np.sqrt(np.maximum(
+                (one - alpha / alpha_next) * (one - alpha_next) / (one - alpha), zero))
+            c = np.sqrt(np.maximum(one - alpha_next - sigma * sigma, zero))
+            for name, v in (("t", t), ("last", t_next < 0), ("a", np.sqrt(alpha_next)),
+                            ("c", c), ("sigma", sigma if t_next >= 0 else zero)):
+                cols[name].append(v)
+        draws = [i if sg > 0 else None for i, sg in enumerate(cols["sigma"])]
+        noisy = any(d is not None for d in draws)
+
+        def step(carry, row):
+            img, x_start = carry
             self_cond = x_start if self.self_condition else None
             pred_noise, x_start = self.model_predictions(
-                apply_fn, img, self._t(batch_size, t), self_cond,
+                apply_fn, img, row["t"].expand(batch_size), self_cond,
                 clip_x_start=True, rederive_pred_noise=True,
             )
-            if t_next < 0:  # final step: the prediction itself
-                img = x_start
-                continue
-            alpha, alpha_next = ac[t], ac[t_next]
-            sigma = eta * np.sqrt(np.maximum(
-                (one - alpha / alpha_next) * (one - alpha_next) / (one - alpha),
-                np.float32(0.0)))
-            c = np.sqrt(np.maximum(one - alpha_next - sigma * sigma, np.float32(0.0)))
-            img = x_start * _f32(np.sqrt(alpha_next)) + _f32(c) * pred_noise
-            if sigma > 0:
-                noise = torch.randn(shape, generator=generator, device=self.device)
-                img = img + _f32(sigma) * noise
-        return self.unnormalize(img)
+            nxt = x_start * row["a"] + row["c"] * pred_noise
+            if noisy:
+                nxt = torch.where(row["sigma"] > 0, nxt + row["sigma"] * row["noise"], nxt)
+            return torch.where(row["last"], x_start, nxt), x_start
 
-    def dpmpp_sample(
-        self,
-        apply_fn: ApplyFn,
-        batch_size: int,
-        generator: Optional[torch.Generator] = None,
-        steps: Optional[int] = None,
-        x_T: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        rows = rows_on(self.device, **cols)
+        return Chain(lambda x: (x, torch.zeros_like(x)),
+                     [Segment(step, rows, draws if noisy else None)],
+                     lambda carry: self.unnormalize(carry[0]), shape)
+
+    def dpmpp_chain(self, apply_fn: ApplyFn, batch_size: int,
+                    steps: Optional[int] = None) -> Chain:
         """DPM-Solver++(2M) (Lu et al. 2022, arXiv:2211.01095) on the DDIM nodes;
-        deterministic; the final node (t = -1) returns the x0 prediction."""
+        deterministic; first order on the first step, the final node (t = -1) returns
+        the x0 prediction."""
         times = ddim_times(self.num_timesteps, steps or self.sampling_timesteps)
         ab = np.asarray(self._alphas_cumprod_host, np.float64)
         ab_nodes = np.array([ab[t] if t >= 0 else 1.0 for t in times])
@@ -435,31 +496,85 @@ class GaussianDiffusion:
             np.nan_to_num(lam_nodes[1:], posinf=0.0),
         ], axis=1).astype(np.float32)
 
-        img = self._x_T(batch_size, generator, x_T)
-        x0_prev = torch.zeros_like(img)
+        cols = {"t": [], "first": [], "last": [], "ratio": [], "aphi": [], "c0": [], "c1": []}
         lam_prev = np.float32(0.0)
         for i, row in enumerate(per_step):
-            t, t_next = int(row[0]), int(row[1])
             a_next, s_t, s_next, lam_t, lam_next = row[2:7]
+            h = lam_next - lam_t
+            inv = np.float32(0.0)
+            if i > 0 and row[1] >= 0:
+                r = (lam_t - lam_prev) / h
+                inv = np.float32(1.0) / (np.float32(2.0) * r)
+            for name, v in (("t", int(row[0])), ("first", i == 0), ("last", row[1] < 0),
+                            ("ratio", s_next / s_t), ("aphi", a_next * np.expm1(-h)),
+                            ("c0", np.float32(1.0) + inv), ("c1", inv)):
+                cols[name].append(v)
+            lam_prev = lam_t
+
+        def step(carry, row):
+            img, x0_prev = carry
             self_cond = x0_prev if self.self_condition else None
             _, x0 = self.model_predictions(
-                apply_fn, img, self._t(batch_size, t), self_cond, clip_x_start=True
-            )
-            if t_next < 0:  # final node: the x0 prediction itself
-                img = x0
-            else:
-                h = lam_next - lam_t
-                ratio = s_next / s_t
-                phi = np.expm1(-h)
-                if i == 0:  # first order: DPM-Solver++(1), DDIM with eta 0
-                    img = _f32(ratio) * img - _f32(a_next * phi) * x0
-                else:  # second-order multistep through the previous node
-                    r = (lam_t - lam_prev) / h
-                    inv = np.float32(1.0) / (np.float32(2.0) * r)
-                    d = _f32(np.float32(1.0) + inv) * x0 - _f32(inv) * x0_prev
-                    img = _f32(ratio) * img - _f32(a_next * phi) * d
-            x0_prev, lam_prev = x0, lam_t
-        return self.unnormalize(img)
+                apply_fn, img, row["t"].expand(batch_size), self_cond, clip_x_start=True)
+            # first order on the first step (DPM-Solver++(1), DDIM with eta 0), else the
+            # second-order multistep through the previous node
+            d = torch.where(row["first"], x0, row["c0"] * x0 - row["c1"] * x0_prev)
+            img = torch.where(row["last"], x0, row["ratio"] * img - row["aphi"] * d)
+            return img, x0
+
+        return Chain(lambda x: (x, torch.zeros_like(x)),
+                     [Segment(step, rows_on(self.device, **cols))],
+                     lambda carry: self.unnormalize(carry[0]), self._shape(batch_size))
+
+    def chain(self, apply_fn: ApplyFn, batch_size: int, method: Optional[str] = None,
+              steps: Optional[int] = None) -> Chain:
+        """The sampler ``method`` as a ``Chain``: None keeps the reference convention,
+        DDIM iff sampling_timesteps < timesteps, ancestral otherwise."""
+        if method is None:
+            method = "ddim" if self.is_ddim_sampling else "ddpm"
+        if method == "dpmpp":
+            return self.dpmpp_chain(apply_fn, batch_size, steps)
+        if method == "ddim":
+            return self.ddim_chain(apply_fn, batch_size, steps)
+        if method == "ddpm":
+            return self.ancestral_chain(apply_fn, batch_size)
+        raise ValueError(f"unknown sampling method {method!r}")
+
+    def p_sample_loop(
+        self,
+        apply_fn: ApplyFn,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        x_T: Optional[torch.Tensor] = None,
+        noise_fn: Optional[NoiseFn] = None,
+    ) -> torch.Tensor:
+        """Ancestral sampling over all T steps. ``noise_fn(t, shape)`` supplies the
+        noise of step t (default: normal draws from ``generator``)."""
+        x = self._x_T(batch_size, generator, x_T)
+        return run_chain(self.ancestral_chain(apply_fn, batch_size), x, generator, noise_fn)
+
+    def ddim_sample(
+        self,
+        apply_fn: ApplyFn,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        steps: Optional[int] = None,
+        x_T: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        x = self._x_T(batch_size, generator, x_T)
+        return run_chain(self.ddim_chain(apply_fn, batch_size, steps), x, generator)
+
+    def dpmpp_sample(
+        self,
+        apply_fn: ApplyFn,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        steps: Optional[int] = None,
+        x_T: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """DPM-Solver++(2M) sampling (``dpmpp_chain``)."""
+        x = self._x_T(batch_size, generator, x_T)
+        return run_chain(self.dpmpp_chain(apply_fn, batch_size, steps), x, generator)
 
     def interpolate(
         self,
@@ -489,18 +604,8 @@ class GaussianDiffusion:
         xt1 = self.q_sample(self.normalize(x1_01.to(self.device, torch.float32)), t_b, noise1)
         xt2 = self.q_sample(self.normalize(x2_01.to(self.device, torch.float32)), t_b, noise2)
         img = (1 - lam) * xt1 + lam * xt2
-        x_start = torch.zeros_like(img)
-        for i in range(t - 1, -1, -1):
-            self_cond = x_start if self.self_condition else None
-            mean, _, log_var, x_start = self.p_mean_variance(apply_fn, img, self._t(b, i),
-                                                             self_cond)
-            if i > 0:
-                noise = (noise_fn(i, shape).to(self.device) if noise_fn is not None
-                         else torch.randn(shape, generator=generator, device=self.device))
-                img = mean + torch.exp(0.5 * log_var) * noise
-            else:
-                img = mean
-        return self.unnormalize(img)
+        return run_chain(self.ancestral_chain(apply_fn, b, start=t - 1), img, generator,
+                         noise_fn)
 
     def sample(
         self,
@@ -513,12 +618,5 @@ class GaussianDiffusion:
     ) -> torch.Tensor:
         """Dispatch: method None keeps the reference convention, DDIM iff
         sampling_timesteps < timesteps, ancestral otherwise."""
-        if method is None:
-            method = "ddim" if self.is_ddim_sampling else "ddpm"
-        if method == "dpmpp":
-            return self.dpmpp_sample(apply_fn, batch_size, generator, steps=steps, x_T=x_T)
-        if method == "ddim":
-            return self.ddim_sample(apply_fn, batch_size, generator, steps=steps, x_T=x_T)
-        if method == "ddpm":
-            return self.p_sample_loop(apply_fn, batch_size, generator, x_T=x_T)
-        raise ValueError(f"unknown sampling method {method!r}")
+        chain = self.chain(apply_fn, batch_size, method, steps)
+        return run_chain(chain, self._x_T(batch_size, generator, x_T), generator)

@@ -157,6 +157,10 @@ class LatentDiffusion(DDPM):
         q, _, _ = self.ae._apply_vq(z / self.latent_scale, False)
         return self.to_image_space(self.ae.decoder(q))
 
+    def serving_modules(self) -> Dict[str, torch.nn.Module]:
+        """The frozen autoencoder, whose quantizer and decoder the serving chain runs."""
+        return {"autoencoder": self.ae.net}
+
     # -- steps ---------------------------------------------------------------------
     @torch.inference_mode()
     def eval_step(self, batch: Dict, generator: Optional[torch.Generator] = None,

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lightning_generative_models_tpu_torch.models.base import GenerativeModel, bce_with_logits
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import Chain
 from lightning_generative_models_tpu_torch.models.modules.layers import (
     BatchNorm,
     Dense,
@@ -268,6 +269,17 @@ class GAN(AdversarialModel):
         _, g_metrics = self._g_loss(x_hat)
         return self.prefix_metrics({**d_metrics, **g_metrics}, "val")
 
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, modules)`` of ``sample`` for ``serving.export_sampler``: ``z`` (the
+        draw ``sample_z`` makes) as the chain's start, G in eval mode, no steps."""
+        if method is not None or steps:
+            raise TypeError(f"{type(self).__name__} samples in one G call: no method or steps")
+        if labels is not None:
+            raise ValueError(f"{type(self).__name__} has no sample_classes")
+        self.G.eval()
+        return (Chain(lambda z: z, [], lambda z: self.to_image_space(self.G(z)),
+                      (batch_size, self.latent_dim), "z"), {"G": self.G})
+
     @torch.inference_mode()
     def sample(self, generator: Optional[torch.Generator], num_samples: int,
                z: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -297,6 +309,20 @@ class ClassConditional:
                z: Optional[torch.Tensor] = None) -> torch.Tensor:
         labels = torch.arange(num_samples, device=self.device) % self.num_classes
         return self.sample_classes(generator, labels, z=z)
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, modules)`` of ``sample_classes`` on ``labels`` (``sample``'s cycling
+        labels when None) for ``serving.export_sampler``: ``z`` as the chain's start."""
+        if method is not None or steps:
+            raise TypeError(f"{type(self).__name__} samples in one G call: no method or steps")
+        self.G.eval()
+
+        def out(z):
+            lab = (torch.arange(batch_size, device=self.device) % self.num_classes
+                   if labels is None else torch.as_tensor(labels, device=self.device))
+            return self.to_image_space(self._generate(z, lab.long()))
+
+        return Chain(lambda z: z, [], out, (batch_size, self.latent_dim), "z"), {"G": self.G}
 
     def validation_grids(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         labels = torch.arange(self.num_classes, device=self.device).repeat_interleave(8)

@@ -180,6 +180,12 @@ class InfoGAN(GAN):
         return self.prefix_metrics({**d_metrics, **g_metrics, "mi_loss": mi,
                                     "loss": g_metrics["g_loss"]}, "val")
 
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """InfoGAN samples its structured code grid (``sample``): not exported yet."""
+        raise NotImplementedError(
+            "InfoGAN's sampler (the structured code grid) does not export to a serving "
+            "artifact yet (ROADMAP.md, Queue 1)")
+
     @torch.inference_mode()
     def sample(self, generator: Optional[torch.Generator], num_samples: int,
                codes: Optional[Codes] = None) -> torch.Tensor:

@@ -29,7 +29,10 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple:
     """lax's "SAME" padding (low, high) of one spatial axis: the output has
     ceil(size / stride) positions; the odd pad, if any, goes at the high end."""
     out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
+    total = (out - 1) * stride + kernel - size
+    # A comparison, not max(): inside a scan body torch.export traces the sizes as
+    # symbols, and max() of a symbolic size gives a wrong padding there.
+    total = total if total > 0 else 0
     return total // 2, total - total // 2
 
 

@@ -9,9 +9,10 @@ each), "h3d" the ``[b, n, h, 3, d]`` order (each head's q, k, v together). The o
 
 ``fused_attention_qkv`` dispatches on the tensor's device: a CPU tensor takes
 ``attention_qkv_plain`` (the math of the JAX package's ``_einsum_attention_qkv``, its own
-path off a TPU), differentiated by torch autograd; a CUDA tensor takes
-``FusedAttentionQKV``, whose forward is the kernel in ``csrc/attention_qkv.cu`` and whose
-backward is the kernel in ``csrc/attention_qkv_bwd.cu``, or raises. There is no fallback
+path off a TPU), differentiated by torch autograd; a CUDA tensor takes the custom op
+``lgm_torch::attention_qkv``, the kernel in ``csrc/attention_qkv.cu``, whose autograd
+formula is the op ``lgm_torch::attention_qkv_bwd``, the kernel in
+``csrc/attention_qkv_bwd.cu``; or it raises. There is no fallback
 from one to the other, and no size gate: the kernels stream keys through shared memory,
 so they take any n. ``attention_qkv_bwd_plain`` is the backward kernel's yardstick: the
 math of ``_vmem_attn_bwd_kernel``, in f32.
@@ -20,12 +21,19 @@ The flash attention of the same JAX module (``scaled_dot_product_attention``,
 ``_flash_kernel``) takes separate ``[b, h, n, d]`` q, k and v, with n_q and n_kv free.
 ``scaled_dot_product_attention(use_pallas=True)`` keeps JAX's shape gate (n_kv >= 256
 and d a multiple of 8) and then dispatches on the device: a CPU tensor takes
-``flash_attention_plain`` (``_xla_attention``, cast for cast), a CUDA tensor
-``FlashAttention``, whose forward is the kernel in ``csrc/flash_attention.cu`` in bf16 and
-the forward kernel of ``csrc/attention_qkv.cu`` on the same strides in f32, and whose
-backward is the gradient of ``_xla_attention`` as JAX's custom VJP takes it, computed in
-f32 by the backward kernel of ``csrc/attention_qkv_bwd.cu`` on ``[b, h, n, d]`` strides
+``flash_attention_plain`` (``_xla_attention``, cast for cast), a CUDA tensor the op
+``lgm_torch::flash_attention``, the kernel in ``csrc/flash_attention.cu`` in bf16 and
+the forward kernel of ``csrc/attention_qkv.cu`` on the same strides in f32, whose
+autograd formula (the op ``lgm_torch::flash_attention_bwd``) is the gradient of
+``_xla_attention`` as JAX's custom VJP takes it, computed in f32 by the backward kernel
+of ``csrc/attention_qkv_bwd.cu`` on ``[b, h, n, d]`` strides
 (``flash_attention_bwd_cuda``; ``flash_attention_bwd_plain`` is its yardstick).
+
+The ops (``torch.library``) hold every pointer read (the ``ctypes`` calls, the strides
+arrays, the alignment copies) in their CUDA implementations; their fake implementations
+give shapes, dtypes and strides only, so that ``torch.export`` traces through them, and
+their CPU implementations are the plain versions (``torch.library.opcheck``). The
+wrappers check shapes before they call an op.
 """
 
 from __future__ import annotations
@@ -100,20 +108,27 @@ def attention_qkv_bwd_plain(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     d = w3 // (3 * heads)
     if tuple(g.shape) != (b, n, heads * d):
         raise ValueError(f"g of shape {tuple(g.shape)} does not fit qkv of shape {tuple(qkv.shape)}")
-    scale = d**-0.5
-    q, k, v = (t.float() for t in _split(qkv, heads, layout))
-    gh = g.float().reshape(b, n, heads, d)
-    s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    q, k, v = (t.transpose(1, 2) for t in _split(qkv, heads, layout))
+    grads = _attention_bwd_f32(q, k, v, g.reshape(b, n, heads, d).transpose(1, 2))
+    dqkv = torch.stack([t.transpose(1, 2) for t in grads], dim=3 if layout == "h3d" else 2)
+    return dqkv.reshape(b, n, w3).to(qkv.dtype)
+
+
+def _attention_bwd_f32(q, k, v, g):
+    """(dq, dk, dv) in f32 of softmax attention on [b, h, n, d] q, k, v with output
+    gradient g, P recomputed from q and k: ``attention_qkv_bwd_plain``'s math."""
+    scale = q.shape[-1] ** -0.5
+    q, k, v, g = (t.float() for t in (q, k, v, g))
+    s = torch.einsum("bhqd,bhkd->bhqk", q * scale, k)
     s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp(s)
     p = p / p.sum(dim=-1, keepdim=True)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, gh)
-    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
     ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
-    dqkv = torch.stack([dq, dk, dv], dim=3 if layout == "h3d" else 2)
-    return dqkv.reshape(b, n, w3).to(qkv.dtype)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return dq, dk, dv
 
 
 # Pointers, the strides array and the stream as c_void_p: as plain ints ctypes would cut
@@ -132,6 +147,12 @@ def _library(name: str, fn_name: str, argtypes: list) -> ctypes.CDLL:
 
 def _kernel_args(qkv: torch.Tensor, heads: int, layout: str, what: str):
     """Check what the kernels take; returns (b, n, d) and the contiguous qkv."""
+    return _check_kernel_shapes(qkv, heads, layout, what), _aligned_contiguous(qkv)
+
+
+def _check_kernel_shapes(qkv: torch.Tensor, heads: int, layout: str, what: str):
+    """Raise ValueError for what the kernels do not take, from the shape, dtype and
+    device alone; returns (b, n, d)."""
     _check_args(qkv, heads, layout)
     if qkv.device.type != "cuda":
         raise ValueError(f"{what} needs a CUDA tensor, got {qkv.device}")
@@ -146,7 +167,7 @@ def _kernel_args(qkv: torch.Tensor, heads: int, layout: str, what: str):
     if not (1 <= b <= KERNEL_MAX_BATCH and n >= 1):
         raise ValueError(f"the CUDA kernels take 1 <= b <= {KERNEL_MAX_BATCH} and n >= 1; "
                          f"got qkv of shape {tuple(qkv.shape)}")
-    return (b, n, d), _aligned_contiguous(qkv)
+    return b, n, d
 
 
 def _aligned_contiguous(t: torch.Tensor) -> torch.Tensor:
@@ -188,15 +209,20 @@ def attention_qkv_cuda(qkv: torch.Tensor, heads: int, layout: str = "s3hd") -> t
     return out
 
 
+def _check_bwd_shapes(qkv, g, heads, layout, what):
+    b, n, d = _check_kernel_shapes(qkv, heads, layout, what)
+    if tuple(g.shape) != (b, n, heads * d) or g.device != qkv.device:
+        raise ValueError(f"g of shape {tuple(g.shape)} on {g.device} does not fit qkv of "
+                         f"shape {tuple(qkv.shape)} on {qkv.device}")
+
+
 def attention_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, heads: int,
                            layout: str = "s3hd") -> torch.Tensor:
     """dqkv through the backward CUDA kernel (``csrc/attention_qkv_bwd.cu``), as
     ``attention_qkv_bwd_plain`` returns it. Raises ValueError for what the kernel does
     not take. Counts its launches in ``fused_attention_qkv_bwd.launches``."""
+    _check_bwd_shapes(qkv, g, heads, layout, "attention_qkv_bwd_cuda")
     (b, n, d), qkv = _kernel_args(qkv, heads, layout, "attention_qkv_bwd_cuda")
-    if tuple(g.shape) != (b, n, heads * d) or g.device != qkv.device:
-        raise ValueError(f"g of shape {tuple(g.shape)} on {g.device} does not fit qkv of "
-                         f"shape {tuple(qkv.shape)} on {qkv.device}")
     g = _aligned_contiguous(g.to(qkv.dtype))
     dqkv = torch.empty_like(qkv)
     stats = _bwd_stats(b, heads, n, qkv.device)
@@ -221,32 +247,65 @@ def _bwd_stats(b: int, heads: int, n_q: int, device) -> torch.Tensor:
     return torch.empty((3, b, heads, -(-n_q // 64) * 64), dtype=torch.float32, device=device)
 
 
-class FusedAttentionQKV(torch.autograd.Function):
-    """The attention on the card with its gradient: the forward kernel, then the backward
-    kernel, which recomputes the softmax from the saved qkv as the JAX package's custom
-    VJP does. Nothing of the forward's intermediates is kept."""
+@torch.library.custom_op("lgm_torch::attention_qkv", mutates_args=(), device_types="cuda")
+def _attention_qkv_op(qkv: torch.Tensor, heads: int, layout: str) -> torch.Tensor:
+    """Kernel #3: the forward kernel on the card."""
+    return attention_qkv_cuda(qkv, heads, layout)
 
-    @staticmethod
-    def forward(ctx, qkv, heads, layout):
-        out = attention_qkv_cuda(qkv, heads, layout)
-        ctx.save_for_backward(qkv)
-        ctx.config = (heads, layout)
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        return attention_qkv_bwd_cuda(qkv, g, *ctx.config), None, None
+@_attention_qkv_op.register_kernel("cpu")
+def _(qkv, heads, layout):
+    return attention_qkv_plain(qkv, heads, layout)
+
+
+@_attention_qkv_op.register_fake
+def _(qkv, heads, layout):
+    b, n, w3 = qkv.shape
+    return qkv.new_empty((b, n, w3 // 3))
+
+
+@torch.library.custom_op("lgm_torch::attention_qkv_bwd", mutates_args=(), device_types="cuda")
+def _attention_qkv_bwd_op(qkv: torch.Tensor, g: torch.Tensor, heads: int,
+                          layout: str) -> torch.Tensor:
+    """Kernel #4: the backward kernel on the card."""
+    return attention_qkv_bwd_cuda(qkv, g, heads, layout)
+
+
+@_attention_qkv_bwd_op.register_kernel("cpu")
+def _(qkv, g, heads, layout):
+    return attention_qkv_bwd_plain(qkv, g, heads, layout)
+
+
+@_attention_qkv_bwd_op.register_fake
+def _(qkv, g, heads, layout):
+    return qkv.new_empty(qkv.shape)
+
+
+def _qkv_setup_context(ctx, inputs, output):
+    qkv, heads, layout = inputs
+    ctx.save_for_backward(qkv)
+    ctx.config = (heads, layout)
+
+
+def _qkv_backward(ctx, g):
+    """The backward kernel recomputes the softmax from the saved qkv, as the JAX
+    package's custom VJP does. Nothing of the forward's intermediates is kept."""
+    (qkv,) = ctx.saved_tensors
+    return torch.ops.lgm_torch.attention_qkv_bwd(qkv, g, *ctx.config), None, None
+
+
+_attention_qkv_op.register_autograd(_qkv_backward, setup_context=_qkv_setup_context)
 
 
 def fused_attention_qkv(qkv: torch.Tensor, heads: int, layout: str = "s3hd") -> torch.Tensor:
-    """The attention on qkv's device: on a CUDA tensor the kernels, through
-    ``FusedAttentionQKV``; on a CPU tensor the plain version, differentiated by torch
-    autograd. ``fused_attention_qkv.launches`` counts the forward kernel's launches,
+    """The attention on qkv's device: on a CUDA tensor the kernels, through the op
+    ``lgm_torch::attention_qkv``; on a CPU tensor the plain version, differentiated by
+    torch autograd. ``fused_attention_qkv.launches`` counts the forward kernel's launches,
     ``fused_attention_qkv_bwd.launches`` the backward kernel's."""
     _check_args(qkv, heads, layout)
     if qkv.device.type == "cuda":
-        return FusedAttentionQKV.apply(qkv, heads, layout)
+        _check_kernel_shapes(qkv, heads, layout, "fused_attention_qkv")
+        return torch.ops.lgm_torch.attention_qkv(qkv, heads, layout)
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, heads, layout)
     raise ValueError(f"fused_attention_qkv runs on cuda or cpu, got {qkv.device}")
@@ -254,12 +313,14 @@ def fused_attention_qkv(qkv: torch.Tensor, heads: int, layout: str = "s3hd") -> 
 
 def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
                             layout: str = "s3hd") -> torch.Tensor:
-    """dqkv on qkv's device: the backward kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
-    fn = {"cuda": attention_qkv_bwd_cuda, "cpu": attention_qkv_bwd_plain}.get(qkv.device.type)
-    if fn is None:
-        raise ValueError(f"fused_attention_qkv_bwd runs on cuda or cpu, got {qkv.device}")
-    return fn(qkv, g, heads, layout)
+    """dqkv on qkv's device: the backward kernel on a CUDA tensor (the op
+    ``lgm_torch::attention_qkv_bwd``), the plain version on a CPU tensor."""
+    if qkv.device.type == "cuda":
+        _check_bwd_shapes(qkv, g, heads, layout, "fused_attention_qkv_bwd")
+        return torch.ops.lgm_torch.attention_qkv_bwd(qkv, g, heads, layout)
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_plain(qkv, g, heads, layout)
+    raise ValueError(f"fused_attention_qkv_bwd runs on cuda or cpu, got {qkv.device}")
 
 
 fused_attention_qkv.launches = 0
@@ -302,8 +363,16 @@ def _bhnd_strides(t: torch.Tensor) -> list:
 
 def _flash_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str):
     """Check what the flash kernels take; returns q, k and v, each as it is where the
-    kernels read it in place (``_rows_aligned``, ``_no_zero_stride``), else as a contiguous
-    copy."""
+    kernels read it in place (``_rows_aligned``, ``_no_zero_stride``), else as a copy: at
+    its own strides where only its first element is misaligned (``_in_place_strides``),
+    contiguous otherwise."""
+    _check_flash_shapes(q, k, v, what)
+    return [_kernel_operand(t) for t in (q, k, v)]
+
+
+def _check_flash_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str):
+    """Raise ValueError for what the flash kernels do not take, from shapes, dtypes and
+    devices alone."""
     _check_bhnd(q, k, v)
     if not (q.device.type == k.device.type == v.device.type == "cuda"):
         raise ValueError(f"{what} needs CUDA tensors, got {q.device}, {k.device}, {v.device}")
@@ -319,8 +388,32 @@ def _flash_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: 
             and k.shape[2] >= 1):
         raise ValueError(f"{what} takes 1 <= b, h <= {KERNEL_MAX_BATCH} and n >= 1; got q "
                          f"of shape {tuple(q.shape)} and k of shape {tuple(k.shape)}")
-    return [t.detach() if _rows_aligned(t) and _no_zero_stride(t)
-            else t.detach().clone(memory_format=torch.contiguous_format) for t in (q, k, v)]
+
+
+def _in_place_strides(t: torch.Tensor) -> bool:
+    """Whether t's strides let the kernels read it in place (``_rows_aligned`` but the
+    pointer, and ``_no_zero_stride``): a rule on strides alone, which the ops' fake
+    implementations follow for the backward's gradient layout."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and all(s * size % 16 == 0 for s in t.stride()[:-1])
+            and _no_zero_stride(t))
+
+
+def _strided_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of t's shape and dtype, at t's strides where the kernels read them
+    in place (``_in_place_strides``), contiguous otherwise."""
+    if _in_place_strides(t):
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernels read it: itself when ``_rows_aligned`` and ``_no_zero_stride``,
+    else a copy laid out by ``_strided_like``."""
+    t = t.detach()
+    if _in_place_strides(t) and _rows_aligned(t):
+        return t
+    return _strided_like(t).copy_(t)
 
 
 def _no_zero_stride(t: torch.Tensor) -> bool:
@@ -383,13 +476,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounded once to the inputs' dtype. q, k, v and g are read in place through their
     strides, and the kernel writes each gradient at its input's strides, so dq, dk and dv
     are allocated with q's, k's and v's (for the DiT's views of the packed qkv, strided
-    [b, h, n, d] tensors). Counts its launches in ``flash_attention_bwd_cuda.launches``."""
-    q, k, v = _flash_kernel_args(q, k, v, "flash_attention_bwd_cuda")
-    b, h, n_q, d = q.shape
-    n_kv = k.shape[2]
+    [b, h, n, d] tensors; ``_strided_like``). Counts its launches in
+    ``flash_attention_bwd_cuda.launches``."""
     if tuple(g.shape) != tuple(q.shape) or g.device != q.device:
         raise ValueError(f"g of shape {tuple(g.shape)} on {g.device} does not fit q of shape "
                          f"{tuple(q.shape)} on {q.device}")
+    q, k, v = _flash_kernel_args(q, k, v, "flash_attention_bwd_cuda")
+    b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
     g = g.detach().to(q.dtype)
     if not _rows_aligned(g):
         g = g.clone(memory_format=torch.contiguous_format)
@@ -413,29 +507,73 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """Flash attention on the card with its gradient: the flash kernel forward, saving
-    only q, k and v; the backward recomputes the softmax from them, as the JAX package's
-    custom VJP (``_flash_attention_bwd``: the VJP of ``_xla_attention``) does."""
+@torch.library.custom_op("lgm_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel #5 (in f32 #3's forward entry on the same strides): the forward on the card."""
+    return flash_attention_cuda(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return flash_attention_cuda(q, k, v)
 
-    @staticmethod
-    def backward(ctx, g):
-        return flash_attention_bwd_cuda(*ctx.saved_tensors, g)
+def _flash_out(q: torch.Tensor) -> torch.Tensor:
+    """The forward's output layout: a [b, h, n_q, d] view of a [b, n_q, h, d] tensor."""
+    b, h, n_q, d = q.shape
+    return q.new_empty((b, n_q, h, d), dtype=q.dtype).transpose(1, 2)
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _(q, k, v):
+    return _flash_out(q).copy_(flash_attention_plain(q, k, v))
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v):
+    return _flash_out(q)
+
+
+@torch.library.custom_op("lgm_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel #5's backward route, #4's entry on [b, h, n, d] strides, on the card."""
+    return flash_attention_bwd_cuda(q, k, v, g)
+
+
+@_flash_attention_bwd_op.register_kernel("cpu")
+def _(q, k, v, g):
+    """The backward route's math in plain ops, in f32, each gradient rounded once to its
+    input's dtype (written out: an op's CPU implementation runs below autograd)."""
+    _check_bhnd(q, k, v)
+    return tuple(_strided_like(t).copy_(d)
+                 for t, d in zip((q, k, v), _attention_bwd_f32(q, k, v, g)))
+
+
+@_flash_attention_bwd_op.register_fake
+def _(q, k, v, g):
+    return tuple(_strided_like(t) for t in (q, k, v))
+
+
+def _flash_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _flash_backward(ctx, g):
+    """Only q, k and v are saved; the backward recomputes the softmax from them, as the
+    JAX package's custom VJP (``_flash_attention_bwd``: the VJP of ``_xla_attention``)
+    does."""
+    return torch.ops.lgm_torch.flash_attention_bwd(*ctx.saved_tensors, g)
+
+
+_flash_attention_op.register_autograd(_flash_backward, setup_context=_flash_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """[b, h, n_q, d] attention on q's device: on CUDA tensors the flash kernel, through
-    ``FlashAttention``; on CPU tensors ``flash_attention_plain``, differentiated by torch
-    autograd. ``flash_attention.launches`` counts the forward kernel's launches,
-    ``flash_attention_bwd_cuda.launches`` the backward's."""
+    the op ``lgm_torch::flash_attention``; on CPU tensors ``flash_attention_plain``,
+    differentiated by torch autograd. ``flash_attention.launches`` counts the forward
+    kernel's launches, ``flash_attention_bwd_cuda.launches`` the backward's."""
     _check_bhnd(q, k, v)
     if q.device.type == "cuda":
-        return FlashAttention.apply(q, k, v)
+        _check_flash_shapes(q, k, v, "flash_attention")
+        return torch.ops.lgm_torch.flash_attention(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")

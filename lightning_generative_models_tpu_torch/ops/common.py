@@ -1,4 +1,4 @@
-"""Device resolution shared by the package's entry points."""
+"""Device resolution shared by the package's entry points, and the kernels' registry."""
 
 from __future__ import annotations
 
@@ -21,10 +21,19 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
 
 
+def register_ops() -> tuple:
+    """Import the kernel modules, which register kernels #1-#7 as ``lgm_torch::`` custom
+    ops (``torch.library``) at import: what an exported program that calls them needs
+    before it loads. Returns the modules."""
+    from lightning_generative_models_tpu_torch.ops import attention, linear_attention, preprocess, vq
+
+    return attention, linear_attention, preprocess, vq
+
+
 def launch_counters() -> dict:
     """{name: wrapper} of every CUDA kernel wrapper that counts its launches in its
     ``launches`` attribute (kernels #1-#7)."""
-    from lightning_generative_models_tpu_torch.ops import attention, linear_attention, preprocess, vq
+    attention, linear_attention, preprocess, vq = register_ops()
 
     return {
         "linear_attention": linear_attention.linear_attention,

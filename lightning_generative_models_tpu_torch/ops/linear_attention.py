@@ -7,11 +7,17 @@ output projection + bias -> RMSNorm -> optional residual.
 
 ``linear_attention`` dispatches on the tensor's device: a CPU tensor takes
 ``linear_attention_plain`` (the math of the JAX package's ``linear_attention_xla``),
-whose gradient comes from torch autograd; a CUDA tensor takes ``FusedLinearAttention``,
-the forward kernel in ``csrc/linear_attention.cu`` and the backward kernel in
-``csrc/linear_attention_bwd.cu``, or raises. There is no fallback from one to the
-other. ``linear_attention_bwd_plain`` is the backward kernel's yardstick: the math of
-the JAX package's ``_bwd_kernel``.
+whose gradient comes from torch autograd; a CUDA tensor takes the custom op
+``lgm_torch::linear_attention``, the forward kernel in ``csrc/linear_attention.cu``,
+whose autograd formula is the op ``lgm_torch::linear_attention_bwd``, the backward
+kernel in ``csrc/linear_attention_bwd.cu``; or it raises. There is no fallback from one
+to the other. ``linear_attention_bwd_plain`` is the backward kernel's yardstick: the
+math of the JAX package's ``_bwd_kernel``.
+
+The ops (``torch.library``) hold every pointer read in their CUDA implementations; their
+fake implementations give shapes and dtypes only, so ``torch.export`` traces through
+them, and their CPU implementations are the plain versions (``torch.library.opcheck``).
+The wrappers check shapes before they call an op.
 """
 
 from __future__ import annotations
@@ -224,6 +230,13 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 def _kernel_args(x, params, heads, dim_head, dtype, what):
     """Check what the kernels take; returns (b, n, c, m) and the f32 parameters."""
+    shape = _check_kernel_shapes(x, params, heads, dim_head, dtype, what)
+    return shape, [t.detach().to(torch.float32).contiguous() for t in params]
+
+
+def _check_kernel_shapes(x, params, heads, dim_head, dtype, what):
+    """Raise ValueError for what the kernels do not take, from shapes, dtypes and devices
+    alone; returns (b, n, c, m)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
     if x.dim() != 3:
@@ -253,7 +266,7 @@ def _kernel_args(x, params, heads, dim_head, dtype, what):
                 f"parameter of shape {tuple(t.shape)} on {t.device} does not fit "
                 f"{shape} on {x.device}"
             )
-    return (b, n, c, m), [t.detach().to(torch.float32).contiguous() for t in params]
+    return b, n, c, m
 
 
 def linear_attention_cuda(
@@ -261,7 +274,7 @@ def linear_attention_cuda(
     heads: int, dim_head: int, dtype: torch.dtype, residual: bool = False,
 ) -> torch.Tensor:
     """The block through the forward CUDA kernel, with no autograd graph (use
-    ``linear_attention`` for that). Raises ValueError for what the kernel does not
+    ``linear_attention`` for that; this is the op's CUDA implementation). Raises ValueError for what the kernel does not
     take. Counts its launches in ``linear_attention.launches``."""
     (b, n, c, m), params = _kernel_args(
         x, (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1), heads, dim_head, dtype,
@@ -283,6 +296,17 @@ def linear_attention_cuda(
     return out
 
 
+def _check_bwd_shapes(x, params, dout, heads, dim_head, dtype, what):
+    _check_kernel_shapes(x, params, heads, dim_head, dtype, what)
+    m = params[2].shape[-1]
+    if m > KERNEL_BWD_MAX_MEM:
+        raise ValueError(f"the backward kernel takes at most {KERNEL_BWD_MAX_MEM} memory "
+                         f"tokens, got {m}")
+    if tuple(dout.shape) != tuple(x.shape) or dout.device != x.device:
+        raise ValueError(f"dout of shape {tuple(dout.shape)} on {dout.device} does not fit "
+                         f"x of shape {tuple(x.shape)} on {x.device}")
+
+
 def linear_attention_bwd_cuda(
     x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout,
     heads: int, dim_head: int, dtype: torch.dtype, residual: bool = False,
@@ -292,15 +316,10 @@ def linear_attention_bwd_cuda(
     dout_kernel, dout_bias, dg1)`` as ``linear_attention_bwd_plain`` returns them.
     Raises ValueError for what the kernel does not take. Counts its launches in
     ``linear_attention_bwd.launches``."""
-    (b, n, c, m), params = _kernel_args(
-        x, (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1), heads, dim_head, dtype,
-        "linear_attention_bwd_cuda")
-    if m > KERNEL_BWD_MAX_MEM:
-        raise ValueError(f"the backward kernel takes at most {KERNEL_BWD_MAX_MEM} memory "
-                         f"tokens, got {m}")
-    if tuple(dout.shape) != tuple(x.shape) or dout.device != x.device:
-        raise ValueError(f"dout of shape {tuple(dout.shape)} on {dout.device} does not fit "
-                         f"x of shape {tuple(x.shape)} on {x.device}")
+    params = (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1)
+    _check_bwd_shapes(x, params, dout, heads, dim_head, dtype, "linear_attention_bwd_cuda")
+    (b, n, c, m), params = _kernel_args(x, params, heads, dim_head, dtype,
+                                        "linear_attention_bwd_cuda")
     x = x.detach().contiguous()
     dout = dout.detach().to(x.dtype).contiguous()
     bf16 = int(x.dtype == torch.bfloat16)
@@ -320,27 +339,75 @@ def linear_attention_bwd_cuda(
     return tuple(grads)
 
 
-class FusedLinearAttention(torch.autograd.Function):
-    """The block on the card with its gradient: forward through the forward kernel,
-    backward through the backward kernel. The backward recomputes what it needs from
-    the saved inputs, as the JAX package's custom VJP does; nothing of the forward's
-    intermediates is kept."""
+# -- the kernels as torch.library custom ops ------------------------------------------
 
-    @staticmethod
-    def forward(ctx, x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
-                heads, dim_head, dtype, residual):
-        out = linear_attention_cuda(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
-                                    heads, dim_head, dtype, residual)
-        ctx.save_for_backward(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1)
-        ctx.config = (heads, dim_head, dtype, residual)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        inputs = ctx.saved_tensors
-        grads = linear_attention_bwd_cuda(*inputs, dout, *ctx.config)
-        grads = [g.to(t.dtype) for g, t in zip(grads, inputs)]
-        return (*grads, None, None, None, None)
+@torch.library.custom_op("lgm_torch::linear_attention", mutates_args=(), device_types="cuda")
+def _linear_attention_op(x: torch.Tensor, g0: torch.Tensor, qkv_kernel: torch.Tensor,
+                         mem_kv: torch.Tensor, out_kernel: torch.Tensor,
+                         out_bias: torch.Tensor, g1: torch.Tensor, heads: int,
+                         dim_head: int, dtype: torch.dtype, residual: bool) -> torch.Tensor:
+    """Kernel #1: the forward kernel on the card."""
+    return linear_attention_cuda(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
+                                 heads, dim_head, dtype, residual)
+
+
+@_linear_attention_op.register_kernel("cpu")
+def _(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, heads, dim_head, dtype, residual):
+    return linear_attention_plain(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
+                                  heads, dim_head, dtype, residual)
+
+
+@_linear_attention_op.register_fake
+def _(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, heads, dim_head, dtype, residual):
+    return x.new_empty(x.shape, dtype=dtype)
+
+
+_GRADS = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+               torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op("lgm_torch::linear_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _linear_attention_bwd_op(x: torch.Tensor, g0: torch.Tensor, qkv_kernel: torch.Tensor,
+                             mem_kv: torch.Tensor, out_kernel: torch.Tensor,
+                             out_bias: torch.Tensor, g1: torch.Tensor, dout: torch.Tensor,
+                             heads: int, dim_head: int, dtype: torch.dtype,
+                             residual: bool) -> _GRADS:
+    """Kernel #2: the backward kernel on the card."""
+    return linear_attention_bwd_cuda(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
+                                     dout, heads, dim_head, dtype, residual)
+
+
+@_linear_attention_bwd_op.register_kernel("cpu")
+def _(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout, heads, dim_head, dtype,
+      residual):
+    return linear_attention_bwd_plain(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
+                                      dout, heads, dim_head, dtype, residual)
+
+
+@_linear_attention_bwd_op.register_fake
+def _(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout, heads, dim_head, dtype,
+      residual):
+    return (x.new_empty(x.shape),
+            *(t.new_empty(t.shape, dtype=torch.float32)
+              for t in (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1)))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:7])
+    ctx.config = inputs[7:]
+
+
+def _backward(ctx, dout):
+    """The backward kernel recomputes what it needs from the saved inputs, as the JAX
+    package's custom VJP does; nothing of the forward's intermediates is kept."""
+    inputs = ctx.saved_tensors
+    grads = torch.ops.lgm_torch.linear_attention_bwd(*inputs, dout, *ctx.config)
+    return (*(g.to(t.dtype) for g, t in zip(grads, inputs)), None, None, None, None)
+
+
+_linear_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def linear_attention(
@@ -348,15 +415,15 @@ def linear_attention(
     heads: int, dim_head: int, dtype: torch.dtype = torch.float32,
     residual: bool = False,
 ) -> torch.Tensor:
-    """The block on x's device: on a CUDA tensor the kernels, through
-    ``FusedLinearAttention``; on a CPU tensor the plain version, differentiated by
-    torch autograd. ``linear_attention.launches`` counts the forward kernel's
-    launches, ``linear_attention_bwd.launches`` the backward kernel's."""
+    """The block on x's device: on a CUDA tensor the kernels, through the op
+    ``lgm_torch::linear_attention``; on a CPU tensor the plain version, differentiated by
+    torch autograd. ``linear_attention.launches`` counts the forward kernel's launches,
+    ``linear_attention_bwd.launches`` the backward kernel's."""
     if x.device.type == "cuda":
-        return FusedLinearAttention.apply(
-            x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
-            heads, dim_head, dtype, residual,
-        )
+        params = (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1)
+        _check_kernel_shapes(x, params, heads, dim_head, dtype, "linear_attention")
+        return torch.ops.lgm_torch.linear_attention(x, *params, heads, dim_head, dtype,
+                                                    residual)
     if x.device.type == "cpu":
         return linear_attention_plain(
             x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1,
@@ -370,14 +437,16 @@ def linear_attention_bwd(
     heads: int, dim_head: int, dtype: torch.dtype = torch.float32,
     residual: bool = False,
 ):
-    """The block's gradient on x's device: the backward kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    fn = {"cuda": linear_attention_bwd_cuda, "cpu": linear_attention_bwd_plain}.get(
-        x.device.type)
-    if fn is None:
-        raise ValueError(f"linear_attention_bwd runs on cuda or cpu, got {x.device}")
-    return fn(x, g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1, dout,
-              heads, dim_head, dtype, residual)
+    """The block's gradient on x's device: the backward kernel on a CUDA tensor (the op
+    ``lgm_torch::linear_attention_bwd``), the plain version on a CPU tensor."""
+    params = (g0, qkv_kernel, mem_kv, out_kernel, out_bias, g1)
+    if x.device.type == "cuda":
+        _check_bwd_shapes(x, params, dout, heads, dim_head, dtype, "linear_attention_bwd")
+        return torch.ops.lgm_torch.linear_attention_bwd(x, *params, dout, heads, dim_head,
+                                                        dtype, residual)
+    if x.device.type == "cpu":
+        return linear_attention_bwd_plain(x, *params, dout, heads, dim_head, dtype, residual)
+    raise ValueError(f"linear_attention_bwd runs on cuda or cpu, got {x.device}")
 
 
 linear_attention.launches = 0

@@ -9,9 +9,11 @@ Two backends, as in the JAX package. ``backend="xla"`` (the default, the trainer
 plain torch: ``to_float01`` casts to the target dtype and then scales, so in bf16 the
 product is rounded in bf16. ``backend="pallas"`` is the fused pass of the TPU kernel
 (``fused_normalize_flip_pallas``), ``fused_normalize_flip``: scaled in f32 and rounded
-once to the target dtype. It dispatches on the batch's device: a CUDA batch launches the
-kernel in ``csrc/preprocess.cu`` (or raises), a CPU batch takes
-``fused_normalize_flip_plain``, the same math in plain ops.
+once to the target dtype. It dispatches on the batch's device: a CUDA batch calls the
+custom op ``lgm_torch::normalize_flip``, which launches the kernel in
+``csrc/preprocess.cu`` (or raises), a CPU batch takes ``fused_normalize_flip_plain``,
+the same math in plain ops (the op's CPU implementation too; its fake one gives the
+output's shape and dtype).
 """
 
 from __future__ import annotations
@@ -68,17 +70,25 @@ def fused_normalize_flip_plain(images_u8: torch.Tensor, flip: torch.Tensor,
     return x.to(dtype)
 
 
-def fused_normalize_flip_cuda(images_u8: torch.Tensor, flip: torch.Tensor,
-                              dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The pass through the CUDA kernel. Raises ValueError for what it does not take.
-    Counts its launches in ``fused_normalize_flip.launches``."""
+def _check_kernel_shapes(images_u8: torch.Tensor, flip: torch.Tensor, dtype: torch.dtype,
+                         what: str):
+    """Raise ValueError for what the kernel does not take, from shapes, dtypes and the
+    device alone; returns (B, H, W, C)."""
     _check_fused_args(images_u8, flip, dtype)
     if images_u8.device.type != "cuda":
-        raise ValueError(f"fused_normalize_flip_cuda needs a CUDA tensor, got {images_u8.device}")
+        raise ValueError(f"{what} needs a CUDA tensor, got {images_u8.device}")
     b, h, w, c = images_u8.shape
     if b * h >= 2**31 or w * c >= 2**31:
         raise ValueError(f"the CUDA kernel takes B*H and W*C below 2^31, got "
                          f"{tuple(images_u8.shape)}")
+    return b, h, w, c
+
+
+def fused_normalize_flip_cuda(images_u8: torch.Tensor, flip: torch.Tensor,
+                              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The pass through the CUDA kernel. Raises ValueError for what it does not take.
+    Counts its launches in ``fused_normalize_flip.launches``."""
+    b, h, w, c = _check_kernel_shapes(images_u8, flip, dtype, "fused_normalize_flip_cuda")
     images_u8 = images_u8.contiguous()
     # The kernel reads one byte a flag, non-zero to flip: a bool mask as it is, with no
     # conversion launched.
@@ -97,13 +107,32 @@ def fused_normalize_flip_cuda(images_u8: torch.Tensor, flip: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("lgm_torch::normalize_flip", mutates_args=(), device_types="cuda")
+def _normalize_flip_op(images_u8: torch.Tensor, flip: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Kernel #7 on the card."""
+    return fused_normalize_flip_cuda(images_u8, flip, dtype)
+
+
+@_normalize_flip_op.register_kernel("cpu")
+def _(images_u8, flip, dtype):
+    return fused_normalize_flip_plain(images_u8, flip, dtype)
+
+
+@_normalize_flip_op.register_fake
+def _(images_u8, flip, dtype):
+    return images_u8.new_empty(images_u8.shape, dtype=dtype)
+
+
 def fused_normalize_flip(images_u8: torch.Tensor, flip: torch.Tensor,
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 [B, H, W, C] and a [B] flip mask -> ``dtype`` [B, H, W, C] in [0, 1], on the
-    images' device: the kernel on a CUDA tensor, the plain version on a CPU tensor.
-    ``fused_normalize_flip.launches`` counts the kernel's launches."""
+    images' device: the kernel on a CUDA tensor (the op ``lgm_torch::normalize_flip``),
+    the plain version on a CPU tensor. ``fused_normalize_flip.launches`` counts the
+    kernel's launches."""
     if images_u8.device.type == "cuda":
-        return fused_normalize_flip_cuda(images_u8, flip, dtype)
+        _check_kernel_shapes(images_u8, flip, dtype, "fused_normalize_flip")
+        return torch.ops.lgm_torch.normalize_flip(images_u8, flip, dtype)
     if images_u8.device.type == "cpu":
         return fused_normalize_flip_plain(images_u8, flip, dtype)
     raise ValueError(f"fused_normalize_flip runs on cuda or cpu, got {images_u8.device}")

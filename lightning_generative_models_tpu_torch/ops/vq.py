@@ -6,7 +6,10 @@ latent matrix, in f32, with the first index on ties; the row-constant ``||z||^2`
 dropped, as the TPU kernel drops it.
 
 ``nearest_codes`` dispatches on the tensor's device: a CPU tensor takes
-``nearest_codes_plain``; a CUDA tensor launches the kernel in ``csrc/vq.cu`` at every N
+``nearest_codes_plain``; a CUDA tensor calls the custom op ``lgm_torch::nearest_codes``
+(``torch.library``: its CUDA implementation holds the pointer reads, its fake one gives
+the [N] int32 shape, its CPU one is the plain version), which launches the kernel in
+``csrc/vq.cu`` at every N
 (the JAX package's XLA branch below N = 1,024 computes the same argmin) or raises
 ``ValueError`` for a shape it does not take. Inputs are cast to f32 first, as
 ``nearest_codes_pallas`` casts them. The indices carry no gradient: the caller cuts it,
@@ -50,12 +53,12 @@ def nearest_codes_plain(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Ten
     return torch.argmin(scores, dim=1).to(torch.int32)  # first index on ties
 
 
-def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """[N, D] x [K, D] -> [N] int32 through the CUDA kernel. Raises ValueError for what
-    the kernel does not take. Counts its launches in ``nearest_codes.launches``."""
+def _check_kernel_shapes(flat: torch.Tensor, codebook: torch.Tensor, what: str):
+    """Raise ValueError for what the kernel does not take, from shapes and devices alone;
+    returns (N, K, D)."""
     _check_shapes(flat, codebook)
     if flat.device.type != "cuda" or codebook.device != flat.device:
-        raise ValueError(f"nearest_codes_cuda needs both inputs on one CUDA device; got "
+        raise ValueError(f"{what} needs both inputs on one CUDA device; got "
                          f"{flat.device} and {codebook.device}")
     n, d = flat.shape
     k = codebook.shape[0]
@@ -63,6 +66,13 @@ def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tens
         raise ValueError(f"the CUDA kernel takes D in {KERNEL_DIMS}; got D={d}")
     if n >= 2**31 or k >= 2**31:
         raise ValueError(f"the CUDA kernel takes N, K < 2^31; got N={n}, K={k}")
+    return n, k, d
+
+
+def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """[N, D] x [K, D] -> [N] int32 through the CUDA kernel. Raises ValueError for what
+    the kernel does not take. Counts its launches in ``nearest_codes.launches``."""
+    n, k, d = _check_kernel_shapes(flat, codebook, "nearest_codes_cuda")
     flat = flat.detach().to(torch.float32).contiguous()
     codebook = codebook.detach().to(torch.float32).contiguous()
     # The kernel copies rows in 16-byte chunks.
@@ -81,11 +91,29 @@ def nearest_codes_cuda(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tens
     return out
 
 
+@torch.library.custom_op("lgm_torch::nearest_codes", mutates_args=(), device_types="cuda")
+def _nearest_codes_op(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Kernel #6 on the card."""
+    return nearest_codes_cuda(flat, codebook)
+
+
+@_nearest_codes_op.register_kernel("cpu")
+def _(flat, codebook):
+    return nearest_codes_plain(flat, codebook)
+
+
+@_nearest_codes_op.register_fake
+def _(flat, codebook):
+    return flat.new_empty((flat.shape[0],), dtype=torch.int32)
+
+
 def nearest_codes(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Nearest-code indices on flat's device: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor. ``nearest_codes.launches`` counts the kernel's launches."""
+    """Nearest-code indices on flat's device: the kernel on a CUDA tensor (the op
+    ``lgm_torch::nearest_codes``), the plain version on a CPU tensor.
+    ``nearest_codes.launches`` counts the kernel's launches."""
     if flat.device.type == "cuda":
-        return nearest_codes_cuda(flat, codebook)
+        _check_kernel_shapes(flat, codebook, "nearest_codes")
+        return torch.ops.lgm_torch.nearest_codes(flat, codebook)
     if flat.device.type == "cpu":
         return nearest_codes_plain(flat, codebook)
     raise ValueError(f"nearest_codes runs on cuda or cpu, got {flat.device}")

@@ -32,5 +32,6 @@ def test_port_has_modules():
                    "metrics/lpips.py", "models/autoencoder/dae.py",
                    "models/autoencoder/unet.py", "models/autoregressive/pixelcnn.py",
                    "models/flow/nice.py", "models/flow/glow.py", "metrics/inception.py",
-                   "metrics/generative.py", "metrics/verify.py", "models/modules/moe.py"):
+                   "metrics/generative.py", "metrics/verify.py", "models/modules/moe.py",
+                   "serving.py", "export.py", "data/native.py"):
         assert PORT / module in FILES, module
