@@ -22,7 +22,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      bf16 from configs/diffusion/ddim_cifar10.json, with every launch count set to
      0 just before and read just after;
   5. DDIM-50 samples/s at batch 64 and 128 with the model built, and one batch-64
-     run under torch.profiler (full table in chiprun_out/chip_smoke/profile.txt);
+     DDIM-PROFILE_SAMPLE_STEPS run under torch.profiler (full table in
+     chiprun_out/chip_smoke/profile.txt);
   6. training path: the port's train entry point trains the full-width DDPM (batch
      128, bf16, synthetic CIFAR-10) for 120 steps, validates with the EMA weights
      and samples a DDIM-50 grid, with every launch count set to 0 just before and
@@ -64,7 +65,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      the per-class grid), launch counts held to the counts worked out from the run;
  16. DiT train images/s at bs128 (median of 3 timings of 20 steps) with one step under
      torch.profiler (chiprun_out/chip_smoke/dit_train_profile.txt), and DDIM-50 guided
-     samples/s at bs64 with one batch under torch.profiler (dit_sample_profile.txt);
+     samples/s at bs64 with one batch of PROFILE_SAMPLE_STEPS steps under torch.profiler
+     (dit_sample_profile.txt);
  17. flash attention (kernel #5) against its plain version on [b, h, n, d] operands: the
      views of DiT-S/2's packed qkv at bs128 in both layouts, the UNet's flash shape
      (n_q 256, n_kv 260, d 32), a ragged n = 300 and a long n = 1024, bf16 and f32
@@ -86,8 +88,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      backward, no packed-qkv launch), the grid in chiprun_out/chip_smoke/fm_dit/;
  21. FM-DiT flash training path: train FM_TRAIN_STEPS steps at bs128 bf16 with
      validation, then a --resume of FM_RESUME_STEPS, launch counts held as in 15;
- 22. FM-DiT flash train images/s and Euler-50 samples/s with profiles
-     (fm_dit_{train,sample}_profile.txt);
+ 22. FM-DiT flash train images/s and Euler-50 samples/s with profiles (the sampling one
+     of PROFILE_SAMPLE_STEPS steps; fm_dit_{train,sample}_profile.txt);
  23. card against CPU, f32 (TF32 off), bs8, the full-width DCGAN of
      configs/gan/dcgan_cifar10.json: three train steps, each from the CPU model's state,
      on the same batch, flips and z (every loss, D's gradients, each weight's gradient
@@ -136,8 +138,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      config (its checkpoint restores the AE, checked), generate; 2 #1 an evaluation, one
      #6 a decode; then the VAE (vae.json) and VQGAN with LPIPS (vqgan_lpips.json): train,
      resume, generate, every counter at its worked-out count;
- 34. throughput with a profile: EDM train bs128 bf16, Heun-18 samples/s at bs64, CT train
-     bs128, LDM train bs128 (busy share, top kernels);
+ 34. throughput with a profile: EDM train bs128 bf16, Heun-18 samples/s at bs64 (a Heun
+     batch of PROFILE_SAMPLE_STEPS steps profiled), CT train bs128, LDM train bs128 (busy
+     share, top kernels);
  35. card against CPU, f32 (TF32 off), batch 8, DAE, the UNet autoencoder, PixelCNN, NICE
      and Glow at their configs' widths (dae, unet, pixelcnn, nice, glow_cifar10; every zero
      leaf drawn off zero): one train step on the same batch and draws (metrics, gradient
@@ -150,8 +153,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      kernel counter set to 0 before each run and held to 0 after: no TPU kernel runs here;
  37. Glow CIFAR-10 train bs128 f32 (ms a step, images/s, busy share, launches a step, the
      top device operations from a one-step profile),
-     Glow's sample at bs64, PixelCNN train bs64 and PixelCNN sampling at bs64 (784
-     forwards) with profiles, and the host syncs of NICE's and Glow's steps;
+     Glow's sample at bs64, PixelCNN train bs64 with profiles, PixelCNN sampling at bs64
+     (its first PIXELCNN_PROFILE_STEPS raster steps profiled; [52] times whole batches),
+     and the host syncs of NICE's and Glow's steps;
  38. InceptionV3 (the FID/KID/IS extractor) at 299 x 299, bs8, f32 (TF32 off), card
      against CPU on the same He-scaled random weights (BatchNorms drawn off their
      defaults): the ingestion of uint8 32 px images and the features and logits, within
@@ -180,7 +184,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
  44. throughput: DiT-MoE train bs128 bf16 (images/s, a step under torch.profiler: busy
      share, launches), the MoE layers' share of a step's device time (a MoE layer's
      forward and backward at the step's shape by CUDA events, times six), guided DDIM-50
-     samples/s at bs64, InceptionV3 images/s at bs256 (f32, TF32 off);
+     samples/s at bs64 (a batch of PROFILE_SAMPLE_STEPS steps profiled), InceptionV3
+     images/s at bs256 (f32, TF32 off);
  45. UNROLL-step CUDA graphs (train/graphs.py) against UNROLL eager steps from one state
      with the same draws, cuDNN deterministic: DDPM (ddpm_cifar10) at bs128 bf16 and at
      bs8 f32, DiT-S/2, FM-DiT flash, DCGAN, WGAN-GP (a whole critic cycle of 6) and VQ-VAE,
@@ -212,13 +217,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
  51. serving: [6]'s DDPM run exported by the export CLI (--sampler ddim
      --sampling_steps 50, bs64, --smoke), loaded and called twice, each call equal to the
      live sample from the same seed (cudnn.deterministic) with #1 at 300 a batch; the
-     same run's ancestral 1,000-step chain at bs16 as one scan (#1 at 6,000); [15]'s
+     same run's weights in an ancestral chain of SERVE_ANCESTRAL_T steps at bs16 as one
+     scan (#1 at 6 a step); [15]'s
      DiT run guided DDIM-50 at bs64 (#3 at 600); [32]'s consistency run multistep (#1
      at 12); [33]'s LatentDiffusion run DDIM-50 (#1 and #6 from its UNet and decode);
      [27]'s CGAN run with --label through the CLI (the CLI cases saved and loaded, the
      others run as exported); a CPU-exported artifact refused on the card; export
      seconds, artifact MB, artifact against live samples/s;
- 52. a JSON line of the kernels, the card's line, and the last line
+ 52. serving of the eight samplers with other draws than one normal start, at their
+     configs' widths from the runs above, bs64: [33]'s VAE, [10]'s VQ-VAE and VQGAN,
+     [36]'s DAE, NICE, Glow and PixelCNN (784 raster steps as one scan, a Gumbel draw a
+     step), [27]'s InfoGAN (z and the code ends): each artifact equal to the live sampler
+     from the same seed (cudnn.deterministic) with every kernel counter 0, its export
+     seconds and MB; Glow through the export CLI (saved, loaded, --smoke); artifact
+     against live samples/s of Glow (median of 3 in turns) and PixelCNN (one batch each);
+ 53. --debug_nans: a DCGAN run (dcgan_cifar10, bs128 bf16) with --unroll_steps 4
+     completes, its graph captured and every kernel counter 0 as without the flag; its
+     checkpoint with one weight of G set to NaN raises FloatingPointError in the resumed
+     train step and in the trainer's sample grid;
+ 54. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -366,6 +383,11 @@ PRE_PATH_BATCHES = 8  # prepare_batch(backend="pallas") over the FM config's tra
 LA_SHAPES = [(1024, 64), (256, 64), (256, 128), (64, 128), (64, 256), (1024, 64)]
 MAIN_BATCH = 64
 DDIM_STEPS = 50
+# [5], [16], [22], [34], [44]: the sampler steps of a profiled sampling batch (DDIM-50,
+# Euler-50 and Heun-18 before the run needed room for [52], [53]): every step evaluates
+# the same network, so the shorter batch shows its busy share and kernel mix, and reading
+# the trace of a 50-step batch took 20-25 s on the host (PERF.md, Findings).
+PROFILE_SAMPLE_STEPS = 10
 
 # Device kernels grouped by a mark in their names, for the profile's summary.
 # The two linear-attention libraries share their first four kernels: those carry the
@@ -781,9 +803,9 @@ def profile_summary(torch, prof, wall_us: float, what: str, out_name: str,
 
 def sampling_breakdown(torch, card: str, repeats: int = 3) -> None:
     """DDIM-50 samples/s with the model already built (host clock around work that
-    ends in a synchronize, median of ``repeats``), then one bs64 run under
-    torch.profiler: the device's busy share of the wall time and the kernels that
-    take the most of it."""
+    ends in a synchronize, median of ``repeats``), then one bs64 DDIM-PROFILE_SAMPLE_STEPS
+    run under torch.profiler: the device's busy share of the wall time and the kernels
+    that take the most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightning_generative_models_tpu_torch.config import load_config
@@ -811,10 +833,11 @@ def sampling_breakdown(torch, card: str, repeats: int = 3) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(MAIN_BATCH)
+        model.sample(gen, MAIN_BATCH, steps=PROFILE_SAMPLE_STEPS)
+        torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    profile_summary(torch, prof, wall_us, f"DDIM-{DDIM_STEPS} bs{MAIN_BATCH}", "profile.txt",
-                    card)
+    profile_summary(torch, prof, wall_us, f"DDIM-{PROFILE_SAMPLE_STEPS} bs{MAIN_BATCH}",
+                    "profile.txt", card)
 
 
 def read_metrics(run_dir: Path) -> list:
@@ -1954,7 +1977,8 @@ def transformer_breakdown(torch, card: str, path: TransformerPath, steps: int = 
                           repeats: int = 3) -> dict:
     """Train images/s at bs128, bf16, with the model built and warmed up (median of
     ``repeats`` timings of ``steps`` steps), one step under torch.profiler; then the
-    path's sampler's samples/s at DIT_BATCH, and one batch under torch.profiler."""
+    path's sampler's samples/s at DIT_BATCH, and one batch of PROFILE_SAMPLE_STEPS steps
+    under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightning_generative_models_tpu_torch.config import load_config
@@ -2011,10 +2035,12 @@ def transformer_breakdown(torch, card: str, path: TransformerPath, steps: int = 
           f"{card}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sample()
+        model.sample(gen, DIT_BATCH, steps=PROFILE_SAMPLE_STEPS)
+        torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    summary = profile_summary(torch, prof, wall_us, f"{path.name} {path.sampler} "
-                              f"bs{DIT_BATCH}", f"{path.out}_sample_profile.txt", card)
+    summary = profile_summary(torch, prof, wall_us, f"{path.name} {path.sampler} at "
+                              f"{PROFILE_SAMPLE_STEPS} steps bs{DIT_BATCH}",
+                              f"{path.out}_sample_profile.txt", card)
     out.update({f"sample_{k}": v for k, v in summary.items()})
     return out
 
@@ -3174,10 +3200,11 @@ def check_resume_restores_autoencoder(torch, model) -> None:
 
 
 def sample_breakdown(torch, card: str, config_path: Path, label: str, out_name: str,
-                     repeats: int = 3, precision: str = "bf16", **sample_kwargs) -> dict:
+                     repeats: int = 3, precision: str = "bf16",
+                     profile_steps: Optional[int] = None, **sample_kwargs) -> dict:
     """Samples/s at bs64 of the config's model built (EMA weights from a seed), median of
-    ``repeats`` after a warm-up, then one batch under torch.profiler; ``precision`` labels
-    the printout."""
+    ``repeats`` after a warm-up, then one batch under torch.profiler (of
+    ``profile_steps`` sampler steps, when given); ``precision`` labels the printout."""
     from torch.profiler import ProfilerActivity, profile
 
     from lightning_generative_models_tpu_torch.config import load_config
@@ -3200,6 +3227,9 @@ def sample_breakdown(torch, card: str, config_path: Path, label: str, out_name: 
     print(f"  {label} bs{MAIN_BATCH} {precision}: {wall:.4f} s median of "
           f"{[round(w, 4) for w in walls]}"
           f", {MAIN_BATCH / wall:.2f} samples/s on {card}", flush=True)
+    if profile_steps is not None:
+        sample_kwargs["steps"] = profile_steps
+        label = f"{label} at {profile_steps} steps"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -3218,6 +3248,9 @@ FAMILY_BATCH = 8  # [35]
 FAMILY_TOL = 1e-3  # f32 card against CPU: metrics, gradient and update norms, chains
 FLOW_TOL = 1e-4  # the flows' z and log-det (of 1 + |ref|) and inverse(forward(x)) on the card
 PIXELCNN_CHAIN = 32  # [35]: the first pixels of a PixelCNN chain, card against CPU
+# [37]: the raster steps of the profiled PixelCNN batch (784 before the run needed room for
+# [52], [53]; every step is one full forward, [52] times whole batches)
+PIXELCNN_PROFILE_STEPS = 98
 FAMILY_STEPS, FAMILY_RESUME_STEPS = 12, 4  # [36]
 FAMILY_SYNTHETIC = 1024  # [36]: synthetic images a config stages (the data cut, not widths)
 
@@ -3283,12 +3316,14 @@ def pixelcnn_chain(torch, model, gumbel, picks=None) -> tuple:
     with torch.inference_mode():
         images = torch.zeros((gumbel.shape[1], model.img_size, model.img_size,
                               model.img_channels), device=model.device)
-        for idx in range(gumbel.shape[0]):
+        for i in range(gumbel.shape[0]):
+            idx = torch.tensor(i, device=model.device)
             logits = model.pixel_logits(images, idx)
-            pick = torch.argmax(logits + gumbel[idx].to(model.device), dim=-1)
+            pick = torch.argmax(logits + gumbel[i].to(model.device), dim=-1)
             logits_seen.append(logits.cpu())
             own.append(pick.cpu())
-            model.set_pixel(images, idx, pick if picks is None else picks[idx].to(model.device))
+            images = model.set_pixel(images, idx,
+                                     pick if picks is None else picks[i].to(model.device))
     return torch.stack(logits_seen), torch.stack(own), images.cpu()
 
 
@@ -3499,10 +3534,39 @@ def glow_syncs(torch, configs: dict) -> dict:
     return out
 
 
+def pixelcnn_sample_profile(torch, card: str) -> dict:
+    """[37]: PixelCNN's sampling chain at bs64, its first PIXELCNN_PROFILE_STEPS raster
+    steps (each one full forward) under torch.profiler: [36]'s generate warmed the shapes,
+    and [52] times whole 784-step batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
+        Segment,
+        run_chain,
+    )
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    model = load_model(load_config(FAMILY_CONFIGS["PixelCNN"])["model"], device="cuda")
+    chain = model.sample_chain(MAIN_BATCH)
+    seg, k = chain.segments[0], PIXELCNN_PROFILE_STEPS
+    head = chain._replace(segments=[Segment(seg.step, {n: c[:k] for n, c in seg.rows.items()},
+                                            seg.draws[:k])])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode(), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_chain(head, torch.zeros(chain.shape, device="cuda"), gen)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return profile_summary(torch, prof, wall_us, f"PixelCNN sample bs{MAIN_BATCH}, the first "
+                           f"{k} of 784 raster steps", "pixelcnn_sample_profile.txt", card)
+
+
 def family_breakdown(torch, card: str, configs: dict) -> dict:
     """[37]: Glow CIFAR-10 training at bs128; Glow's sample at bs64; PixelCNN training at
-    bs64; PixelCNN sampling at bs64 (after a warm-up batch, one batch of 784 forwards
-    timed, one under torch.profiler); the host syncs of NICE's and Glow's steps."""
+    bs64; PixelCNN sampling at bs64 (``pixelcnn_sample_profile``); the host syncs of NICE's
+    and Glow's steps."""
     stats = {"glow_train": train_breakdown(
         torch, card, steps=20, repeats=3, config_path=configs["Glow"], precision="f32",
         out_name="glow_train_profile.txt")}
@@ -3512,9 +3576,7 @@ def family_breakdown(torch, card: str, configs: dict) -> dict:
     stats["pixelcnn_train"] = train_breakdown(
         torch, card, steps=20, repeats=2, config_path=configs["PixelCNN"],
         precision="f32", out_name="pixelcnn_train_profile.txt")
-    stats["pixelcnn_sample"] = sample_breakdown(
-        torch, card, FAMILY_CONFIGS["PixelCNN"], "PixelCNN sample (784 forwards)",
-        "pixelcnn_sample_profile.txt", repeats=1, precision="f32")
+    stats["pixelcnn_sample"] = pixelcnn_sample_profile(torch, card)
     stats["syncs"] = glow_syncs(torch, configs)
     return stats
 
@@ -3918,7 +3980,7 @@ GRAPH_MOMENT_TOL = 1e-6  # [45] if not bit-identical: Adam's moments, of 1 + |re
 GRAPH_UPDATE_TOL = 1e-3  # [45] if not bit-identical: each parameter's update, by its norm
 ADAM_CARD_TOL = 1e-5  # [46]: a bf16-moment Adam step, card against CPU (f32 weights)
 INTERP_TOL = 1e-4  # [48]: the four processes' interpolate, card against CPU, of 1 + |ref|
-INTERP_DDPM_T = 99  # [48]: DDPM's chain from step 99 ([51] runs the 1,000-step chain)
+INTERP_DDPM_T = 99  # [48]: DDPM's chain from step 99 ([51] runs a whole ancestral chain)
 INTERP_N = 8  # [48]: generate --interpolate
 THROUGHPUT_STEPS = 20  # [47]: steps a timing (5 dispatches of 4)
 LA_COUNTERS = ("linear_attention", "linear_attention_bwd")
@@ -4520,7 +4582,10 @@ def interpolation_paths(torch, card: str) -> dict:
 NATIVE_SHAPE = ((1024, 218, 178, 3), 64)  # [49]: CelebA's aligned images to 64 px
 NATIVE_INT_SHAPE = ((1024, 64, 64, 3), 32)  # [49]: an integer factor
 SERVE_BATCH = 64  # [51]: DDIM-50 and the DiT's guided DDIM-50
-SERVE_ANCESTRAL_BATCH = 16  # [51]: the ancestral 1,000-step chain
+SERVE_ANCESTRAL_BATCH = 16  # [51]: the ancestral chain
+# [51]: the ancestral chain's depth: [6]'s weights in a derived config of this many
+# diffusion steps (the UNet unchanged; 1,000 before the run needed room for [52], [53]).
+SERVE_ANCESTRAL_T = 250
 SERVE_TIMED_CALLS = 3  # [51]: calls timed for samples/s, artifact and live in turns
 SERVE_DIR = ROOT / "experiments" / "chip_smoke_serving"  # [51]: the CPU-exported artifact
 
@@ -4641,26 +4706,31 @@ def opcheck_ops(torch) -> dict:
 
 def serving_case(torch, label: str, model, batch: int, expected: dict, card: str,
                  labels=None, path: Optional[Path] = None, timed: bool = False,
-                 calls: int = 1, **kwargs) -> dict:
+                 calls: int = 1, phase: str = "[51]", save_to: Optional[Path] = None,
+                 **kwargs) -> dict:
     """Load the artifact at ``path`` that the export CLI wrote, or export ``model``'s
     sampler and run the program as exported (the save and load round trip is the CLI
-    cases'), call it ``calls`` times (seeds 0, 1, ...), each with every launch count set
-    to 0 just before and held to ``expected`` ({counter: launches a batch}; the others 0)
-    just after, and each against the live sampler from the same seed: bit for bit under
-    cudnn.deterministic. With ``timed``, samples/s of the artifact and the live sampler in
-    turns (SERVE_TIMED_CALLS each)."""
+    cases'; ``save_to``: also saved there, for its MB), call it ``calls`` times (seeds 0,
+    1, ...), each with every launch count set to 0 just before and held to ``expected``
+    ({counter: launches a batch}; the others 0) just after, and each against the live
+    sampler from the same seed: bit for bit under cudnn.deterministic; each call's walls,
+    artifact then live, in ``call_walls_s``. With ``timed``, samples/s of the artifact and
+    the live sampler in turns (SERVE_TIMED_CALLS each)."""
     from lightning_generative_models_tpu_torch.serving import (
         ServingArtifact,
         export_sampler,
         load_artifact,
+        save_artifact,
     )
 
-    stats = {}
+    stats = {"call_walls_s": []}
     t_case = time.perf_counter()
     if path is None:
         t0 = time.perf_counter()
         exported = export_sampler(model, batch, labels=labels, **kwargs)
         stats["export_s"] = time.perf_counter() - t0
+        if save_to is not None:
+            stats["artifact_mb"] = save_artifact(exported, save_to)["size_bytes"] / 1e6
         artifact = ServingArtifact(exported.program, {"draw_plan": exported.draw_plan},
                                    torch.device(exported.device), exported.program.module())
     else:
@@ -4690,13 +4760,14 @@ def serving_case(torch, label: str, model, batch: int, expected: dict, card: str
         torch.cuda.synchronize()
         live_s = time.perf_counter() - t0
         err = float((out.float() - ref.float()).abs().max())
-        print(f"  [51] {label} call {seed}: {tuple(out.shape)} in {call_s:.2f} s (live "
+        stats["call_walls_s"].append((call_s, live_s))
+        print(f"  {phase} {label} call {seed}: {tuple(out.shape)} in {call_s:.2f} s (live "
               f"{live_s:.2f} s), max |artifact - live| {err:.3e}, launches "
               f"{({k: v for k, v in counts.items() if v})}", flush=True)
         if counts != want:
-            fail(f"[51] {label}: the artifact launched {counts}, expected {want} a batch")
+            fail(f"{phase} {label}: the artifact launched {counts}, expected {want} a batch")
         if err != 0.0 or not bool(torch.isfinite(out).all()):
-            fail(f"[51] {label}: the artifact differs from the live sampler by {err:.3e}")
+            fail(f"{phase} {label}: the artifact differs from the live sampler by {err:.3e}")
         stats.setdefault("launches_per_batch", counts)
         stats["max_abs_err"] = max(err, stats.get("max_abs_err", 0.0))
     if timed:
@@ -4710,13 +4781,13 @@ def serving_case(torch, label: str, model, batch: int, expected: dict, card: str
                 walls[which].append(time.perf_counter() - t0)
         stats["samples_per_s"] = {k: batch / statistics.median(v) for k, v in walls.items()}
         stats["walls_s"] = walls
-        print(f"  [51] {label}: artifact {stats['samples_per_s']['artifact']:.2f} samples/s, "
+        print(f"  {phase} {label}: artifact {stats['samples_per_s']['artifact']:.2f} samples/s, "
               f"live sample {stats['samples_per_s']['live']:.2f} samples/s (median of "
               f"{SERVE_TIMED_CALLS} in turns) on {card}", flush=True)
     stats["case_s"] = time.perf_counter() - t_case
-    saved = (f", load {stats['load_s']:.1f} s, artifact {stats['artifact_mb']:.1f} MB"
-             if "load_s" in stats else "")
-    print(f"  [51] {label}: export {stats['export_s']:.1f} s{saved}; the case took "
+    saved = (f", load {stats['load_s']:.1f} s" if "load_s" in stats else "") + (
+        f", artifact {stats['artifact_mb']:.1f} MB" if "artifact_mb" in stats else "")
+    print(f"  {phase} {label}: export {stats['export_s']:.1f} s{saved}; the case took "
           f"{stats['case_s']:.1f} s", flush=True)
     return stats
 
@@ -4771,10 +4842,15 @@ def serving_paths(torch, card: str, latent_config: Path) -> dict:
             torch, "ddim50_bs64", model, SERVE_BATCH, {"linear_attention": blocks * DDIM_STEPS},
             card, path=ddim_path, timed=True, calls=2, method="ddim", steps=DDIM_STEPS)
         out["ddim50_bs64"]["cli_s"] = cli_s
-        steps = model.diffusion.num_timesteps
-        out["ancestral_bs16"] = serving_case(
-            torch, "ancestral_bs16", model, SERVE_ANCESTRAL_BATCH,
-            {"linear_attention": blocks * steps}, card, method="ddpm")
+        del model
+        short = json.loads(CONFIG.read_text())
+        short["model"]["args"]["diffusion_timesteps"] = SERVE_ANCESTRAL_T
+        short_config = OUT_DIR / f"{CONFIG.stem}_t{SERVE_ANCESTRAL_T}.json"
+        short_config.write_text(json.dumps(short, indent=2))
+        model = restored(torch, short_config, TRAIN_RUN)
+        out[f"ancestral{SERVE_ANCESTRAL_T}_bs16"] = serving_case(
+            torch, f"ancestral{SERVE_ANCESTRAL_T}_bs16", model, SERVE_ANCESTRAL_BATCH,
+            {"linear_attention": blocks * SERVE_ANCESTRAL_T}, card, method="ddpm")
         del model
 
         dit = restored(torch, DIT_CONFIG, DIT_RUN)
@@ -4820,6 +4896,112 @@ def serving_paths(torch, card: str, latent_config: Path) -> dict:
         fail("[51] a CPU-exported artifact was not refused on the card")
     out["cpu_artifact_refused_on_cuda"] = True
     return out
+
+
+def sampler_serving_paths(torch, card: str, family_configs: dict) -> dict:
+    """[52]: the frozen samplers of the eight families whose draws are not one normal
+    start, from the runs the earlier phases trained (module doc)."""
+    from lightning_generative_models_tpu_torch import export
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    cases = [("VAE", VAE_CONFIG, "chip_smoke_vae"), ("VQVAE", VQVAE_CONFIG, AE_RUN),
+             ("VQGAN", OUT_DIR / f"vqgan_disc_start_{VQGAN_DISC_START}.json",
+              "chip_smoke_vqgan"),
+             *((name, family_configs[name], f"chip_smoke_{name.lower()}")
+               for name in ("DAE", "NICE", "PixelCNN")),
+             ("InfoGAN", OUT_DIR / "gan" / "infogan.json", "chip_smoke_infogan")]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        glow_path = export.main(["--config_path", str(family_configs["Glow"]),
+                                 "--experiment_name", "chip_smoke_glow", "--batch",
+                                 str(SERVE_BATCH), "--smoke"])
+        cli_s = time.perf_counter() - t0
+        glow = restored(torch, family_configs["Glow"], "chip_smoke_glow")
+        out["glow_bs64"] = serving_case(torch, "glow_bs64", glow, SERVE_BATCH, {}, card,
+                                        path=glow_path, timed=True, phase="[52]")
+        out["glow_bs64"]["cli_s"] = cli_s
+        del glow
+        for name, config, run in cases:
+            label = f"{name.lower()}_bs64"
+            model = restored(torch, config, run)
+            out[label] = serving_case(torch, label, model, SERVE_BATCH, {}, card, phase="[52]",
+                                      save_to=SERVE_DIR / f"{label}.pt2")
+            del model
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    call_s, live_s = out["pixelcnn_bs64"]["call_walls_s"][0]
+    out["pixelcnn_bs64"]["samples_per_s"] = {"artifact": SERVE_BATCH / call_s,
+                                             "live": SERVE_BATCH / live_s}
+    print(f"  [52] pixelcnn_bs64: artifact {SERVE_BATCH / call_s:.2f} samples/s, live sample "
+          f"{SERVE_BATCH / live_s:.2f} samples/s (one batch each, in turns) on {card}",
+          flush=True)
+    return out
+
+
+NAN_RUN = "chip_smoke_dcgan_nans"  # experiments/DCGAN/<this>: [53]
+NAN_STEPS = 3 * UNROLL  # [53]: three dispatches: eager, captured, replayed
+
+
+def debug_nans_path(torch, card: str) -> dict:
+    """[53]: DCGAN through the train entry point with --debug_nans --unroll_steps UNROLL
+    for NAN_STEPS steps (its graph captured, every kernel counter 0); then its checkpoint
+    with the first weight of G set to NaN: the resumed train step and the trainer's sample
+    grid each raise FloatingPointError naming their phase."""
+    from lightning_generative_models_tpu_torch import train
+    from lightning_generative_models_tpu_torch.train import graphs
+    from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
+    from lightning_generative_models_tpu_torch.train.trainer import Trainer
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    run_dir = EXPERIMENT_DIR / "DCGAN" / NAN_RUN
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--config_path", str(DCGAN_CONFIG), "--device", "cuda", "--experiment_name",
+            NAN_RUN, "--unroll_steps", str(UNROLL), "--sample_every_n_steps", "0",
+            "--debug_nans"]
+    captured, capture = [], graphs.StepGraphs._capture
+
+    def counted(self, key, stacked):
+        captured.append(key)
+        return capture(self, key, stacked)
+
+    graphs.StepGraphs._capture = counted
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        model = train.main(argv + ["--max_steps", str(NAN_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        graphs.StepGraphs._capture = capture
+    print(f"  [53] DCGAN --debug_nans --unroll_steps {UNROLL}: {model.step} steps in "
+          f"{wall:.1f} s (validation included), {len(captured)} graph(s) captured, "
+          f"counters {counts}", flush=True)
+    if model.step != NAN_STEPS or not captured or any(counts.values()):
+        fail(f"[53] the --debug_nans DCGAN run: step {model.step}, captures {captured}, "
+             f"launches {counts}")
+
+    with torch.no_grad():
+        next(model.G.parameters()).view(-1)[0] = float("nan")
+    CheckpointManager(run_dir / "checkpoints").save_last(model, model.step, 0)
+    raised = {}
+    try:
+        train.main(argv + ["--max_steps", str(NAN_STEPS + UNROLL), "--resume"])
+    except FloatingPointError as e:
+        raised["train"] = str(e)
+    trainer = Trainer(model, None, run_dir / "grid", debug_nans=True)
+    try:
+        trainer._log_samples()
+    except FloatingPointError as e:
+        raised["sample_grid"] = str(e)
+    print(f"  [53] a NaN weight in G: {raised}", flush=True)
+    if "train step" not in raised.get("train", "") or \
+            "sample grid" not in raised.get("sample_grid", ""):
+        fail(f"[53] --debug_nans did not raise in the train step and the sample grid: {raised}")
+    return {"wall_s": wall, "graphs": len(captured), "counts": counts, "raised": raised}
 
 
 def main() -> None:
@@ -5023,7 +5205,8 @@ def main() -> None:
         "edm_train": train_breakdown(torch, card, steps=10, repeats=2, config_path=EDM_CONFIG,
                                      out_name="edm_train_profile.txt"),
         "edm_heun18": sample_breakdown(torch, card, EDM_CONFIG, "EDM Heun-18",
-                                       "edm_sample_profile.txt", repeats=2),
+                                       "edm_sample_profile.txt", repeats=2,
+                                       profile_steps=PROFILE_SAMPLE_STEPS),
         "ct_train": train_breakdown(torch, card, steps=10, repeats=2, config_path=CT_CONFIG,
                                     out_name="ct_train_profile.txt"),
         "ldm_train": train_breakdown(torch, card, steps=10, repeats=2,
@@ -5123,6 +5306,16 @@ def main() -> None:
     serving_stats = serving_paths(torch, card, latent_configs["ldm"][0])
     print(f"  [51] took {time.perf_counter() - t0:.1f} s; phases 49-51 took "
           f"{time.perf_counter() - t_serving:.1f} s", flush=True)
+    print("[52] serving: VAE, VQ-VAE, VQGAN, DAE, NICE, Glow, PixelCNN and InfoGAN frozen at "
+          f"bs{SERVE_BATCH} from the runs above", flush=True)
+    t_samplers = t0 = time.perf_counter()
+    sampler_serving = sampler_serving_paths(torch, card, family_configs)
+    print(f"  [52] took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[53] --debug_nans: DCGAN --unroll_steps {UNROLL}, then a NaN weight", flush=True)
+    t0 = time.perf_counter()
+    nan_stats = debug_nans_path(torch, card)
+    print(f"  [53] took {time.perf_counter() - t0:.1f} s; phases 52-53 took "
+          f"{time.perf_counter() - t_samplers:.1f} s", flush=True)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
     slice_counts = {f"{key}_{run}": got for key, res in slice_runs.items()
                     for run, got in res["counts"].items()}
@@ -5334,7 +5527,8 @@ def main() -> None:
                       "ddpm_unroll": ddpm_unroll, "dcgan_unroll_walls_s": dcgan_unroll,
                       "unrolled_dispatches": name_unroll, "unroll_throughput": unroll_stats,
                       "interpolation": interp_stats, "native_loader": native_stats,
-                      "opcheck": opcheck_stats, "serving": serving_stats}))
+                      "opcheck": opcheck_stats, "serving": serving_stats,
+                      "sampler_serving": sampler_serving, "debug_nans": nan_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,8 @@ or ACGAN takes ``--label``; CycleGAN, which translates, raises ``NotImplementedE
 its ``sample`` does); each sampling family (diffusion, flow matching, EDM, consistency)
 refuses the others' sampler names with the JAX package's messages. A latent model's
 ``--weights`` is its whole flattened ``TrainState``, the autoencoder inside it.
+``--save_individual`` also writes one PNG a sample, ``sample_{i:04d}.png`` beside the grid,
+each ``(clip(img, 0, 1) * 255).astype(uint8)`` (truncated, as the JAX CLI writes them).
 ``--experiment_name`` (with ``--which`` last or best) restores instead a port run's
 checkpoint from ``experiments/<MODEL>/<experiment_name>/``, its optimizer with the run's
 Adam moment dtypes (the run's ``args.json``).
@@ -72,6 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=str, default=None,
                         help="output directory (default: experiments/<MODEL>/generated_torch)")
+    parser.add_argument("--save_individual", action="store_true",
+                        help="also write one PNG per sample")
     parser.add_argument("--weights", type=str, default=None,
                         help=".npz read by the model's load_flax_weights (default: "
                         "weights from --seed)")
@@ -280,6 +284,11 @@ def main(argv=None) -> np.ndarray:
     grid_path = out_dir / "grid.png"
     _write_png(grid_path, make_grid(images))
     print(f"Wrote {grid_path}")
+    if args.save_individual:
+        for i, img in enumerate(images):
+            _write_png(out_dir / f"sample_{i:04d}.png",
+                       (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        print(f"Wrote {len(images)} individual samples to {out_dir}")
     return images
 
 

@@ -21,9 +21,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lightning_generative_models_tpu_torch.models.base import AdamModel
+from lightning_generative_models_tpu_torch.models.base import AdamModel, refuse_sampler_options
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import call_chain
 from lightning_generative_models_tpu_torch.models.modules.layers import Dense
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
+from lightning_generative_models_tpu_torch.utils.draws import Draw
 
 _WIDTHS = (256, 128, 256)
 
@@ -124,4 +126,14 @@ class DAE(AdamModel):
         if noise is None:
             noise = torch.randn((num_samples, *self.image_shape()), generator=generator,
                                 device=self.device)
-        return self.to_image_space(self.net(noise.to(self.device)))
+        return self._decode(noise.to(self.device))
+
+    def _decode(self, noise: torch.Tensor) -> torch.Tensor:
+        return self.to_image_space(self.net(noise))
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, parts)`` of ``sample`` for ``serving.export_sampler``: a normal draw
+        of the images' shape through the net."""
+        refuse_sampler_options(self, method, steps)
+        return (call_chain(self._decode, Draw("noise", (batch_size, *self.image_shape()))),
+                {"net": self.net})

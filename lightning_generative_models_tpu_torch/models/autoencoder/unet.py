@@ -110,3 +110,7 @@ class UNetAE(AdamModel):
 
     def sample(self, generator: Optional[torch.Generator], num_samples: int):
         raise NotImplementedError("UNet autoencoder has no generative prior")
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """No sampler to freeze: what ``sample`` raises."""
+        raise NotImplementedError("UNet autoencoder has no generative prior")

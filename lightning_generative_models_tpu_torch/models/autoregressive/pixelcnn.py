@@ -10,9 +10,12 @@ the masked taps' gradient is exactly 0 and Adam never moves them. Each masked co
 its own kernel and bias (flax's ``MaskedConv_k/{kernel, bias}``), drawn as flax's
 ``lecun_normal``: a normal truncated at two standard deviations over the fan-in.
 
-``sample`` runs the raster loop with one full forward per pixel. JAX draws each pixel with
-``jax.random.categorical``, which is the Gumbel-max pick argmax(logits + g): ``gumbel``
-([H W, n, C, L], pixel by pixel in raster order) is passed in, or drawn from the generator.
+``sample`` runs the raster loop with one full forward per pixel, as a ``Chain`` of h w
+steps (the same steps a serving artifact runs as one scan): the pixel is picked with
+``index_select`` and written with ``torch.where`` on a one-hot mask, so a step makes a new
+image and reads no Python index. JAX draws each pixel with ``jax.random.categorical``,
+which is the Gumbel-max pick argmax(logits + g): ``gumbel`` ([H W, n, C, L], pixel by pixel
+in raster order) is passed in, or drawn from the generator.
 """
 
 from __future__ import annotations
@@ -24,8 +27,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lightning_generative_models_tpu_torch.models.base import AdamModel
+from lightning_generative_models_tpu_torch.models.base import AdamModel, refuse_sampler_options
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import (
+    Chain,
+    Segment,
+    rows_on,
+    run_chain,
+)
 from lightning_generative_models_tpu_torch.models.modules.layers import Conv
+from lightning_generative_models_tpu_torch.utils.draws import Draw
 
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2] (flax's rescale)
 
@@ -139,31 +149,53 @@ class PixelCNN(AdamModel):
                   ) -> Dict[str, torch.Tensor]:
         return self.prefix_metrics(self._loss(torch.as_tensor(batch["image"]))[1], "val")
 
-    def pixel_logits(self, images: torch.Tensor, idx: int) -> torch.Tensor:
-        """One full forward of ``images``: the logits [n, C, L] of raster pixel ``idx``."""
-        return self.net(images)[:, idx // self.img_size, idx % self.img_size]
+    def pixel_logits(self, images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """One full forward of ``images``: the logits [n, C, L] of raster pixel ``idx`` (a
+        0-d int64 tensor), selected by ``index_select``."""
+        logits = self.net(images)
+        n, h, w, c, levels = logits.shape
+        return logits.reshape(n, h * w, c, levels).index_select(1, idx.reshape(1))[:, 0]
 
-    def set_pixel(self, images: torch.Tensor, idx: int, levels: torch.Tensor) -> None:
-        """In place: raster pixel ``idx`` of ``images`` to the level centres
-        (levels + 0.5) / L ([n, C] integer levels)."""
-        images[:, idx // self.img_size, idx % self.img_size] = (
-            (levels.float() + 0.5) / self.num_levels)
+    def set_pixel(self, images: torch.Tensor, idx: torch.Tensor,
+                  levels: torch.Tensor) -> torch.Tensor:
+        """``images`` with raster pixel ``idx`` set to the level centres (levels + 0.5) / L
+        ([n, C] integer levels): a new tensor, by ``torch.where`` on a one-hot mask."""
+        n, h, w, c = images.shape
+        here = (torch.arange(h * w, device=images.device) == idx).reshape(1, h, w, 1)
+        value = ((levels.float() + 0.5) / self.num_levels).reshape(n, 1, 1, c)
+        return torch.where(here, value, images)
+
+    def sample_chain(self, num_samples: int) -> Chain:
+        """Raster-order ancestral sampling as a chain: it starts from zeros (nothing
+        drawn), and step idx (one full forward) sets pixel idx to argmax(logits + g), g
+        the step's Gumbel draw [n, C, L] (``utils/draws.py``)."""
+        h = w = self.img_size
+        c, levels = self.img_channels, self.num_levels
+
+        def step(images, row):
+            logits = self.pixel_logits(images, row["idx"])
+            return self.set_pixel(images, row["idx"], torch.argmax(logits + row["noise"], dim=-1))
+
+        rows = rows_on(self.device, idx=np.arange(h * w))
+        return Chain(lambda images: images, [Segment(step, rows, list(range(h * w)))],
+                     lambda images: torch.clamp(images, 0.0, 1.0), (num_samples, h, w, c),
+                     starts=[Draw("images", (num_samples, h, w, c), "zeros")],
+                     step_draw=Draw("gumbel", (num_samples, c, levels), "gumbel"))
 
     @torch.inference_mode()
     def sample(self, generator: Optional[torch.Generator], num_samples: int,
                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Raster-order ancestral sampling, one full forward per pixel; pixel idx takes
-        argmax(logits + gumbel[idx]), with gumbel[idx] ([n, C, L]) drawn as
+        """Raster-order ancestral sampling, one full forward per pixel (``sample_chain``);
+        pixel idx takes argmax(logits + gumbel[idx]), with gumbel[idx] ([n, C, L]) drawn as
         -log(-log(u)) from ``generator`` when ``gumbel`` is None."""
-        h = w = self.img_size
-        images = torch.zeros((num_samples, h, w, self.img_channels), device=self.device)
-        tiny = torch.finfo(torch.float32).tiny
-        for idx in range(h * w):
-            logits = self.pixel_logits(images, idx)
-            if gumbel is None:
-                u = torch.rand(logits.shape, generator=generator, device=self.device)
-                g = -torch.log(-torch.log(u.clamp_min(tiny)))
-            else:
-                g = gumbel[idx].to(self.device)
-            self.set_pixel(images, idx, torch.argmax(logits + g, dim=-1))
-        return torch.clamp(images, 0.0, 1.0)
+        chain = self.sample_chain(num_samples)
+        noise_fn = None if gumbel is None else lambda idx, shape: gumbel[idx]
+        images = torch.zeros(chain.shape, device=self.device)
+        return run_chain(chain, images, generator, noise_fn)
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, parts)`` of ``sample`` for ``serving.export_sampler``: one segment of
+        h w steps (the raster index as its rows) from a zero image, each drawing Gumbel
+        noise [n, C, L]."""
+        refuse_sampler_options(self, method, steps)
+        return self.sample_chain(batch_size), {"net": self.net}

@@ -73,12 +73,10 @@ class GenerativeModel:
         raise NotImplementedError
 
     def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
-        """``(chain, modules)``: the sampler as a ``Chain`` of step functions over explicit
-        draws, and the networks it reads, for ``serving.export_sampler``. A family whose
-        sampler does not export yet raises."""
-        raise NotImplementedError(
-            f"{type(self).__name__}'s sampler does not export to a serving artifact yet "
-            "(ROADMAP.md, Queue 1)")
+        """``(chain, parts)``: the sampler as a ``Chain`` of step functions over explicit
+        draws, and the networks it reads, for ``serving.export_sampler``. A model with no
+        sampler raises what its ``sample`` raises."""
+        raise NotImplementedError(f"{type(self).__name__} has no sampler to export")
 
     def param_counts(self) -> Dict[str, int]:
         raise NotImplementedError
@@ -125,6 +123,13 @@ class GenerativeModel:
 
     def load_state_dict(self, state: dict) -> None:
         raise NotImplementedError
+
+
+def refuse_sampler_options(model, method, steps) -> None:
+    """The TypeError of a sampler that takes no method or step count (JAX's ``sample``
+    has no such arguments)."""
+    if method is not None or steps:
+        raise TypeError(f"{type(model).__name__} samples in one call: no method or steps")
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
+from lightning_generative_models_tpu_torch.utils.draws import Draw, make_draw
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
 NoiseFn = Callable[[int, tuple], torch.Tensor]
@@ -46,9 +47,9 @@ def normal_draw(given: Optional[torch.Tensor], shape: tuple, generator,
 class Segment(NamedTuple):
     """Steps of one kind: ``step(carry, row) -> carry`` over ``rows`` ({name: [T, ...]
     tensor}; a row is each one's slice at a step). ``draws`` holds, per step, the key of
-    the normal draw of the sample's shape that the step takes as ``row["noise"]`` (the
-    argument a ``noise_fn`` gets) or None for a step that takes none; None for a segment
-    whose steps draw nothing."""
+    the chain's step draw that the step takes as ``row["noise"]`` (the argument a
+    ``noise_fn`` gets) or None for a step that takes none; None for a segment whose steps
+    draw nothing."""
 
     step: Callable
     rows: Dict[str, torch.Tensor]
@@ -56,15 +57,24 @@ class Segment(NamedTuple):
 
 
 class Chain(NamedTuple):
-    """A sampler as data: ``init(x_T) -> carry``, its segments in order, and
-    ``out(carry) -> sample``. ``shape`` is x_T's, and that of every per-step draw;
-    ``start`` names x_T in a serving artifact's draw plan."""
+    """A sampler as data: ``init(*starts) -> carry``, its segments in order, and
+    ``out(carry) -> sample``. ``starts`` are the draws ``init`` takes, in the live
+    sampler's order (``Draw``: name, shape, distribution); by default one standard normal
+    x_T of ``shape``. ``step_draw`` is each drawing step's draw, by default a standard
+    normal of ``shape``."""
 
     init: Callable
     segments: List[Segment]
     out: Callable
     shape: tuple
-    start: str = "x_T"
+    starts: Optional[List[Draw]] = None
+    step_draw: Optional[Draw] = None
+
+    def start_draws(self) -> List[Draw]:
+        return self.starts if self.starts is not None else [Draw("x_T", tuple(self.shape))]
+
+    def step_spec(self) -> Draw:
+        return self.step_draw or Draw("noise", tuple(self.shape))
 
     def steps(self) -> int:
         return sum(len(next(iter(seg.rows.values()))) for seg in self.segments)
@@ -80,6 +90,12 @@ class Chain(NamedTuple):
         return found
 
 
+def call_chain(out: Callable, *starts: Draw) -> Chain:
+    """The chain of a sampler that takes no steps: ``out(*draws)`` on its ``starts``."""
+    return Chain(lambda *draws: draws, [], lambda draws: out(*draws), tuple(starts[0].shape),
+                 list(starts))
+
+
 def rows_on(device, **columns) -> Dict[str, torch.Tensor]:
     """Host columns (numpy or lists) as a segment's device rows: floats f32, ints int64,
     bools bool."""
@@ -92,23 +108,26 @@ def rows_on(device, **columns) -> Dict[str, torch.Tensor]:
     return out
 
 
-def run_chain(chain: Chain, x_T: torch.Tensor, generator: Optional[torch.Generator] = None,
+def run_chain(chain: Chain, x_T, generator: Optional[torch.Generator] = None,
               noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
-    """The chain's steps in a Python loop: step i's draw is ``noise_fn(key, shape)`` or a
-    standard normal from ``generator``, drawn just before the step."""
-    carry = chain.init(x_T)
+    """The chain's steps in a Python loop on its start ``x_T`` (a tuple when the chain
+    takes several): step i's draw is ``noise_fn(key, shape)`` or the chain's step draw
+    from ``generator``, drawn just before the step."""
+    starts = tuple(x_T) if isinstance(x_T, (tuple, list)) else (x_T,)
+    device, spec = starts[0].device, chain.step_spec()
+    carry = chain.init(*starts)
     for seg in chain.segments:
         for j in range(len(next(iter(seg.rows.values())))):
             row = {name: col[j] for name, col in seg.rows.items()}
             if seg.draws is not None:
                 key = seg.draws[j]
                 if key is None:
-                    row["noise"] = torch.zeros(chain.shape, device=x_T.device)
+                    row["noise"] = torch.zeros(spec.shape, device=device)
                 elif noise_fn is not None:
-                    row["noise"] = noise_fn(key, chain.shape).to(x_T.device, torch.float32)
+                    row["noise"] = noise_fn(key, spec.shape).to(device, torch.float32)
                 else:
-                    row["noise"] = torch.randn(chain.shape, generator=generator,
-                                               device=x_T.device)
+                    row["noise"] = make_draw(spec.distribution, spec.shape, generator,
+                                             device, spec.high)
             carry = seg.step(carry, row)
     return chain.out(carry)
 

@@ -34,8 +34,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lightning_generative_models_tpu_torch.models.base import AdamModel
+from lightning_generative_models_tpu_torch.models.base import AdamModel, refuse_sampler_options
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import call_chain
 from lightning_generative_models_tpu_torch.models.modules.layers import Conv
+from lightning_generative_models_tpu_torch.utils.draws import Draw
 
 LOG_2PI = float(np.log(2 * np.pi))
 
@@ -293,8 +295,17 @@ class Glow(AdamModel):
         (from ``generator`` when None), plus 0.5, clipped to [0, 1]."""
         if z is None:
             z = torch.randn((num_samples, self.dim), generator=generator, device=self.device)
-        x = self.net.inverse(z.to(self.device) * self.sample_temperature)
+        return self._decode(z.to(self.device))
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        x = self.net.inverse(z * self.sample_temperature)
         return torch.clamp(x + 0.5, 0.0, 1.0)
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, parts)`` of ``sample`` for ``serving.export_sampler``: z [n, dim]
+        normal, times the temperature (a constant), through the levels' inverse."""
+        refuse_sampler_options(self, method, steps)
+        return call_chain(self._decode, Draw("z", (batch_size, self.dim))), {"net": self.net}
 
     @torch.inference_mode()
     def log_likelihood(self, batch: Dict) -> torch.Tensor:

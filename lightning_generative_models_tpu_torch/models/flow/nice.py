@@ -23,8 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lightning_generative_models_tpu_torch.models.base import AdamModel
+from lightning_generative_models_tpu_torch.models.base import AdamModel, refuse_sampler_options
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import call_chain
 from lightning_generative_models_tpu_torch.models.modules.layers import Dense
+from lightning_generative_models_tpu_torch.utils.draws import Draw
 
 LOG_2PI = float(np.log(2 * np.pi))
 
@@ -147,8 +149,17 @@ class NICE(AdamModel):
         [0, 1], as images."""
         if z is None:
             z = torch.randn((num_samples, self.dim), generator=generator, device=self.device)
-        x = torch.clamp(self.net.inverse(z.to(self.device)), 0.0, 1.0)
-        return x.reshape(num_samples, *self.image_shape())
+        return self._decode(z.to(self.device))
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        x = torch.clamp(self.net.inverse(z), 0.0, 1.0)
+        return x.reshape(z.shape[0], *self.image_shape())
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, parts)`` of ``sample`` for ``serving.export_sampler``: z [n, dim]
+        normal through the inverse, clipped, as images."""
+        refuse_sampler_options(self, method, steps)
+        return call_chain(self._decode, Draw("z", (batch_size, self.dim))), {"net": self.net}
 
     @torch.inference_mode()
     def log_likelihood(self, batch: Dict) -> torch.Tensor:

@@ -244,3 +244,7 @@ class CycleGAN(AdversarialModel):
 
     def sample(self, generator: Optional[torch.Generator], num_samples: int) -> torch.Tensor:
         raise NotImplementedError("CycleGAN translates images; use translate()")
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """No sampler to freeze: what ``sample`` raises."""
+        raise NotImplementedError("CycleGAN translates images; use translate()")

@@ -33,8 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lightning_generative_models_tpu_torch.models.base import GenerativeModel, bce_with_logits
-from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import Chain
+from lightning_generative_models_tpu_torch.models.base import (
+    GenerativeModel,
+    bce_with_logits,
+    refuse_sampler_options,
+)
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import call_chain
 from lightning_generative_models_tpu_torch.models.modules.layers import (
     BatchNorm,
     Dense,
@@ -47,6 +51,7 @@ from lightning_generative_models_tpu_torch.train.state import (
     count_params,
     make_adam,
 )
+from lightning_generative_models_tpu_torch.utils.draws import Draw
 from lightning_generative_models_tpu_torch.weights import load_flax_train_state
 
 
@@ -272,13 +277,12 @@ class GAN(AdversarialModel):
     def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
         """``(chain, modules)`` of ``sample`` for ``serving.export_sampler``: ``z`` (the
         draw ``sample_z`` makes) as the chain's start, G in eval mode, no steps."""
-        if method is not None or steps:
-            raise TypeError(f"{type(self).__name__} samples in one G call: no method or steps")
+        refuse_sampler_options(self, method, steps)
         if labels is not None:
             raise ValueError(f"{type(self).__name__} has no sample_classes")
         self.G.eval()
-        return (Chain(lambda z: z, [], lambda z: self.to_image_space(self.G(z)),
-                      (batch_size, self.latent_dim), "z"), {"G": self.G})
+        return (call_chain(lambda z: self.to_image_space(self.G(z)),
+                           Draw("z", (batch_size, self.latent_dim))), {"G": self.G})
 
     @torch.inference_mode()
     def sample(self, generator: Optional[torch.Generator], num_samples: int,
@@ -313,8 +317,7 @@ class ClassConditional:
     def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
         """``(chain, modules)`` of ``sample_classes`` on ``labels`` (``sample``'s cycling
         labels when None) for ``serving.export_sampler``: ``z`` as the chain's start."""
-        if method is not None or steps:
-            raise TypeError(f"{type(self).__name__} samples in one G call: no method or steps")
+        refuse_sampler_options(self, method, steps)
         self.G.eval()
 
         def out(z):
@@ -322,7 +325,7 @@ class ClassConditional:
                    if labels is None else torch.as_tensor(labels, device=self.device))
             return self.to_image_space(self._generate(z, lab.long()))
 
-        return Chain(lambda z: z, [], out, (batch_size, self.latent_dim), "z"), {"G": self.G}
+        return call_chain(out, Draw("z", (batch_size, self.latent_dim))), {"G": self.G}
 
     def validation_grids(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         labels = torch.arange(self.num_classes, device=self.device).repeat_interleave(8)

@@ -24,11 +24,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lightning_generative_models_tpu_torch.models.base import refuse_sampler_options
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import call_chain
 from lightning_generative_models_tpu_torch.models.gan.acgan import ConvFeatures
 from lightning_generative_models_tpu_torch.models.gan.dcgan import ConvGenerator
 from lightning_generative_models_tpu_torch.models.gan.gan import GAN
 from lightning_generative_models_tpu_torch.models.modules.layers import BatchNorm, Dense
 from lightning_generative_models_tpu_torch.train.state import make_adam
+from lightning_generative_models_tpu_torch.utils.draws import Draw
 
 Codes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -118,16 +121,23 @@ class InfoGAN(GAN):
         dev = self.device
         z = torch.randn(n, self.latent_dim, generator=generator, device=dev)
         if structured:
-            step = max(n // self.categorical_code_dim, 1)
-            cats = (torch.arange(n, device=dev) // step) % self.categorical_code_dim
             start = torch.rand(1, self.continuous_code_dim, generator=generator, device=dev)
             end = torch.rand(1, self.continuous_code_dim, generator=generator, device=dev)
-            alpha = torch.linspace(0, 1, n, device=dev)[:, None]
-            cont = start * (1 - alpha) + end * alpha
-        else:
-            cats = torch.randint(0, self.categorical_code_dim, (n,), generator=generator,
-                                 device=dev)
-            cont = torch.rand(n, self.continuous_code_dim, generator=generator, device=dev)
+            return self._structured_codes(z, start, end)
+        cats = torch.randint(0, self.categorical_code_dim, (n,), generator=generator,
+                             device=dev)
+        cont = torch.rand(n, self.continuous_code_dim, generator=generator, device=dev)
+        return z, F.one_hot(cats, self.categorical_code_dim).float(), cont
+
+    def _structured_codes(self, z: torch.Tensor, start: torch.Tensor, end: torch.Tensor
+                          ) -> Codes:
+        """The structured codes of ``z``'s n rows: the categories step every n // cat
+        rows, the continuous codes go linearly from ``start`` to ``end`` [1, cont]."""
+        n, dev = z.shape[0], z.device
+        step = max(n // self.categorical_code_dim, 1)
+        cats = (torch.arange(n, device=dev) // step) % self.categorical_code_dim
+        alpha = torch.linspace(0, 1, n, device=dev)[:, None]
+        cont = start * (1 - alpha) + end * alpha
         return z, F.one_hot(cats, self.categorical_code_dim).float(), cont
 
     def _codes(self, generator, n: int, codes: Optional[Codes], structured: bool = False):
@@ -181,10 +191,17 @@ class InfoGAN(GAN):
                                     "loss": g_metrics["g_loss"]}, "val")
 
     def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
-        """InfoGAN samples its structured code grid (``sample``): not exported yet."""
-        raise NotImplementedError(
-            "InfoGAN's sampler (the structured code grid) does not export to a serving "
-            "artifact yet (ROADMAP.md, Queue 1)")
+        """``(chain, parts)`` of ``sample`` (the code-transition grid) for
+        ``serving.export_sampler``: z normal [n, latent], then the continuous codes' ends
+        ``start`` and ``end`` uniform [1, cont], as ``generate_codes`` draws them; the
+        categories and the interpolation are constants of the batch size; G in eval mode."""
+        refuse_sampler_options(self, method, steps)
+        self.G.eval()
+        cont = (1, self.continuous_code_dim)
+        chain = call_chain(lambda *draws: self._generate(*self._structured_codes(*draws)),
+                           Draw("z", (batch_size, self.latent_dim)),
+                           Draw("start", cont, "uniform"), Draw("end", cont, "uniform"))
+        return chain, {"G": self.G}
 
     @torch.inference_mode()
     def sample(self, generator: Optional[torch.Generator], num_samples: int,
@@ -193,6 +210,9 @@ class InfoGAN(GAN):
         mode; images in [0, 1]."""
         z, cat, cont = self._codes(generator, num_samples, codes, structured=True)
         self.G.eval()
+        return self._generate(z, cat, cont)
+
+    def _generate(self, z: torch.Tensor, cat: torch.Tensor, cont: torch.Tensor) -> torch.Tensor:
         return self.to_image_space(self.G(torch.cat([z, cat, cont], dim=1)))
 
     def validation_grids(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:

@@ -21,7 +21,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lightning_generative_models_tpu_torch.models.base import GenerativeModel
+from lightning_generative_models_tpu_torch.models.base import (
+    GenerativeModel,
+    refuse_sampler_options,
+)
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import call_chain
 from lightning_generative_models_tpu_torch.models.modules.layers import Dense, init_params
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
@@ -30,6 +34,7 @@ from lightning_generative_models_tpu_torch.train.state import (
     count_params,
     make_adam,
 )
+from lightning_generative_models_tpu_torch.utils.draws import Draw
 from lightning_generative_models_tpu_torch.weights import load_flax_train_state
 
 _WIDTHS = (512, 256, 128)
@@ -184,7 +189,17 @@ class VAE(GenerativeModel):
         if z is None:
             z = torch.randn((num_samples, self.latent_dim), generator=generator,
                             device=self.device)
-        return self.to_image_space(self.decoder(z.to(self.device)))
+        return self._decode(z.to(self.device))
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.to_image_space(self.decoder(z))
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, parts)`` of ``sample`` for ``serving.export_sampler``: z [n, latent]
+        normal to the decoder."""
+        refuse_sampler_options(self, method, steps)
+        return (call_chain(self._decode, Draw("z", (batch_size, self.latent_dim))),
+                {"decoder": self.decoder})
 
     @torch.inference_mode()
     def reconstruct(self, batch: Dict, generator: Optional[torch.Generator] = None,

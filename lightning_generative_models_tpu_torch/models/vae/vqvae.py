@@ -23,7 +23,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lightning_generative_models_tpu_torch.models.base import GenerativeModel
+from lightning_generative_models_tpu_torch.models.base import (
+    GenerativeModel,
+    refuse_sampler_options,
+)
+from lightning_generative_models_tpu_torch.models.diffusion.gaussian_diffusion import call_chain
 from lightning_generative_models_tpu_torch.models.modules.layers import (
     Conv,
     ConvTranspose,
@@ -41,6 +45,7 @@ from lightning_generative_models_tpu_torch.train.state import (
     count_params,
     make_adam,
 )
+from lightning_generative_models_tpu_torch.utils.draws import Draw
 from lightning_generative_models_tpu_torch.weights import load_flax_train_state
 
 
@@ -236,9 +241,10 @@ class VQVAE(GenerativeModel):
     @torch.inference_mode()
     def decode_codes(self, indices: torch.Tensor) -> torch.Tensor:
         """Codebook indices [N, h, w] -> images [N, H, W, C] in [0, 1]."""
-        indices = torch.as_tensor(indices, device=self.device).long()
-        q = F.embedding(indices, self.vq.codebook)
-        return self.to_image_space(self.decoder(q))
+        return self._decode(torch.as_tensor(indices, device=self.device).long())
+
+    def _decode(self, indices: torch.Tensor) -> torch.Tensor:
+        return self.to_image_space(self.decoder(F.embedding(indices, self.vq.codebook)))
 
     @torch.inference_mode()
     def sample(self, generator: Optional[torch.Generator],
@@ -248,6 +254,15 @@ class VQVAE(GenerativeModel):
                                 (num_samples, self.latent_hw, self.latent_hw),
                                 generator=generator, device=self.device)
         return self.decode_codes(indices)
+
+    def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):
+        """``(chain, parts)`` of ``sample`` for ``serving.export_sampler``: codes [n, h, w]
+        uniform below ``num_embeddings`` (a randint draw) through ``decode_codes``' math;
+        the codebook is not searched."""
+        refuse_sampler_options(self, method, steps)
+        codes = Draw("codes", (batch_size, self.latent_hw, self.latent_hw), "randint",
+                     self.num_embeddings)
+        return call_chain(self._decode, codes), {"decoder": self.decoder, "vq": self.vq}
 
     def codebook_table(self) -> np.ndarray:
         """The codebook [K, D] for table logging."""

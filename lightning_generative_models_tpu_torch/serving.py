@@ -8,11 +8,13 @@ config, no checkpoint on the serving side (``load_artifact`` imports only the ke
 module, whose custom ops the program calls on the card).
 
 ``torch.export`` takes no ``torch.Generator``, so the exported program takes its random
-draws as inputs: the start (``x_T``, or a GAN's ``z``) and the per-step draws stacked as
-``[steps, ...]``. The sidecar records the *draw plan* (each input's name, shape,
-distribution and order, and which steps draw), and ``ServingArtifact(seed)`` draws the plan
-from a ``torch.Generator`` on the artifact's device seeded with ``seed``, one call per draw
-in the live sampler's order, so that ``artifact(s)`` equals
+draws as inputs: the starts (``x_T``, a GAN's ``z``, InfoGAN's z and code ends, VQ codes,
+PixelCNN's zero image) and the per-step draws stacked as ``[steps, ...]``. The sidecar
+records the *draw plan* (each input's name, shape, distribution (``utils/draws.py``:
+normal, uniform, randint below ``high``, gumbel, or zeros, which draws nothing) and order,
+and which steps draw), and ``ServingArtifact(seed)`` draws the plan from a
+``torch.Generator`` on the artifact's device seeded with ``seed``, one call per draw in the
+live sampler's order, so that ``artifact(s)`` equals
 ``model.sample(torch.Generator(device).manual_seed(s), B, ...)``.
 
 The sampler's loop is a ``Chain`` (``models/diffusion/gaussian_diffusion.py``): the same
@@ -37,6 +39,7 @@ import torch.utils._pytree as pytree
 from torch.nn.utils import stateless
 
 from lightning_generative_models_tpu_torch.ops.common import register_ops, resolve_device
+from lightning_generative_models_tpu_torch.utils.draws import make_draw, zeros_like_draw
 
 __all__ = [
     "ExportedSampler",
@@ -62,18 +65,17 @@ class ExportedSampler:
 
 def draw(plan: List[dict], generator: torch.Generator, device) -> List[torch.Tensor]:
     """The plan's inputs drawn from ``generator``, one call per draw in order: a start
-    tensor as one normal; a per-step stack with a normal at each of its ``draw_steps``
-    (zeros at the steps that take none)."""
+    tensor as one draw of its distribution; a per-step stack with a draw at each of its
+    ``draw_steps`` (zeros at the steps that take none)."""
     inputs = []
     for entry in plan:
-        if entry["distribution"] != "normal":
-            raise ValueError(f"unknown distribution {entry['distribution']!r} in the draw plan")
+        dist, high = entry["distribution"], entry.get("high")
         if "draw_steps" not in entry:
-            inputs.append(torch.randn(entry["shape"], generator=generator, device=device))
+            inputs.append(make_draw(dist, entry["shape"], generator, device, high))
             continue
-        stack = torch.zeros(entry["shape"], device=device)
+        stack = zeros_like_draw(dist, entry["shape"], device)
         for i in entry["draw_steps"]:
-            stack[i] = torch.randn(entry["shape"][1:], generator=generator, device=device)
+            stack[i] = make_draw(dist, entry["shape"][1:], generator, device, high)
         inputs.append(stack)
     return inputs
 
@@ -180,12 +182,15 @@ class _Sampler(torch.nn.Module):
         out = scan_op(body, c_leaves, x_leaves, additional_inputs=tuple(state.values()))
         return pytree.tree_unflatten(list(out[:nc]), c_spec)
 
-    def forward(self, start: torch.Tensor, noise: Optional[torch.Tensor] = None):
-        """The chain's segments, each one scan; ``noise`` is the [steps, *shape] stack of
-        every step's draw (zeros where a step draws nothing), None when no step draws."""
+    def forward(self, *draws: torch.Tensor):
+        """The chain's segments, each one scan, on the plan's inputs: the chain's starts,
+        then, when a step draws, the [steps, *shape] stack of every step's draw (zeros
+        where a step draws nothing)."""
         chain, parts = self.build()
+        n_starts = len(chain.start_draws())
+        starts, noise = draws[:n_starts], draws[n_starts] if len(draws) > n_starts else None
         with self._holders_swapped(parts):
-            carry, begin = chain.init(start), 0
+            carry, begin = chain.init(*starts), 0
             for seg in chain.segments:
                 n = len(next(iter(seg.rows.values())))
                 xs = dict(seg.rows)
@@ -200,26 +205,37 @@ def _tensor_attrs(obj) -> List[str]:
     return [a for a, v in vars(obj).items() if isinstance(v, torch.Tensor)]
 
 
-def _warm(chain, start: torch.Tensor) -> None:
+def _warm(chain, starts: Sequence[torch.Tensor]) -> None:
     """One step of each segment, on zeros: what the networks make at first use (the
     DiT's position table) exists before the trace, as a buffer that it lifts."""
+    spec = chain.step_spec()
     with torch.no_grad():
-        carry = chain.init(start)
+        carry = chain.init(*starts)
         for seg in chain.segments:
             row = {name: col[0] for name, col in seg.rows.items()}
             if seg.draws is not None:
-                row["noise"] = torch.zeros_like(start)
+                row["noise"] = zeros_like_draw(spec.distribution, spec.shape,
+                                               starts[0].device)
             carry = seg.step(carry, row)
         chain.out(carry)
 
 
+def _plan_entry(spec, shape, order: int) -> dict:
+    entry = {"name": spec.name, "shape": list(shape), "distribution": spec.distribution,
+             "order": order}
+    if spec.high is not None:
+        entry["high"] = int(spec.high)
+    return entry
+
+
 def _draw_plan(chain) -> List[dict]:
-    plan = [{"name": chain.start, "shape": list(chain.shape), "distribution": "normal",
-             "order": 0}]
+    """The chain's starts in order, then the per-step stack when a step draws."""
+    plan = [_plan_entry(spec, spec.shape, i) for i, spec in enumerate(chain.start_draws())]
     steps = chain.draw_steps()
     if steps:
-        plan.append({"name": "noise", "shape": [chain.steps(), *chain.shape],
-                     "distribution": "normal", "order": 1, "draw_steps": steps})
+        spec = chain.step_spec()
+        plan.append({**_plan_entry(spec, [chain.steps(), *spec.shape], len(plan)),
+                     "draw_steps": steps})
     return plan
 
 
@@ -236,7 +252,8 @@ def export_sampler(
 
     The program's inputs are the draw plan's tensors; the weights (the EMA set of a
     diffusion model, a GAN's G in eval mode), the labels and the schedule are constants.
-    A family whose sampler does not export yet raises ``NotImplementedError``."""
+    A model with no sampler (the UNet autoencoder, CycleGAN) raises its ``sample``'s
+    ``NotImplementedError``."""
     if labels is not None:
         if not hasattr(model, "sample_classes"):
             raise ValueError(
@@ -256,8 +273,9 @@ def export_sampler(
 
     chain, _ = build()
     plan = _draw_plan(chain)
-    example = [torch.zeros(entry["shape"], device=target) for entry in plan]
-    _warm(chain, example[0])
+    example = [zeros_like_draw(entry["distribution"], entry["shape"], target)
+               for entry in plan]
+    _warm(chain, example[:len(chain.start_draws())])
     program = torch.export.export(_Sampler(build), tuple(example))
     program.example_inputs = None  # else saved with the program: 196 MB of zeros at 1,000 steps
     out = program.graph_module.graph.find_nodes(op="output")[0].args[0][0].meta["val"]

@@ -72,7 +72,8 @@ def setup_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--ckpt_path", type=str, default=None)
     parser.add_argument("--seed", type=int, default=10)
     parser.add_argument("--debug_nans", action="store_true",
-                        help="torch.autograd anomaly detection")
+                        help="raise FloatingPointError on a NaN in what a step, an "
+                        "evaluation, a sample grid or the metrics return (jax_debug_nans)")
     parser.add_argument("--sample_every_n_steps", type=int, default=1000,
                         help="mid-training sample-grid cadence (0 disables)")
     parser.add_argument("--unroll_steps", type=int, default=1,
@@ -124,7 +125,6 @@ def main(argv=None):
     args = setup_arguments(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
-    torch.autograd.set_detect_anomaly(args.debug_nans)
 
     os.makedirs(args.experiment_dir, exist_ok=True)
     dump = {k: v for k, v in vars(args).items() if k != "config"}
@@ -163,6 +163,7 @@ def main(argv=None):
         strategy=args.strategy,
         unroll_steps=args.unroll_steps,
         profile_steps=args.profile_steps,
+        debug_nans=args.debug_nans,
     )
     try:
         if args.eval_split == "test":

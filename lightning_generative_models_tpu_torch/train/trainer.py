@@ -22,7 +22,12 @@ its k steps in a loop; on CUDA it is one CUDA graph of the k steps (``train/grap
 and a step that cannot be captured raises (there is no eager fallback).
 ``profile_steps`` (start, stop) opens one ``torch.profiler`` window a run (CPU and CUDA
 activities) from the first dispatch at or past ``start`` to the first past ``stop``, and
-writes its chrome trace under ``experiment_dir/profile/``. At fit start the trainer logs
+writes its chrome trace under ``experiment_dir/profile/``. ``debug_nans`` raises
+``FloatingPointError`` where the JAX trainer under ``jax_debug_nans`` raises: on a NaN in
+what a computation of the run returns (each dispatch's metrics and the model's state
+after it, read after a CUDA graph's replay and never inside the capture; each evaluation
+batch's metrics; each sample grid; FID/KID/IS's fakes and InceptionV3 outputs; the
+latent table), naming the phase and the step; off, it reads nothing back. At fit start the trainer logs
 the parameter counts, the parameter table and the per-layer tables of the model's
 ``summary_spec`` (``utils/summary.py``); a summary that fails warns and training goes on.
 
@@ -43,6 +48,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from lightning_generative_models_tpu_torch.data.pipeline import prefetch_to_device
 from lightning_generative_models_tpu_torch.experiment.logger import ExperimentLogger
@@ -88,6 +94,7 @@ class Trainer:
         strategy: str = "data_parallel",
         unroll_steps: int = 1,
         profile_steps: Optional[Tuple[int, int]] = None,
+        debug_nans: bool = False,
     ):
         if strategy in NOT_PORTED_STRATEGIES:
             raise NotImplementedError(
@@ -123,6 +130,7 @@ class Trainer:
         if self.unroll_steps > 1 and self.device.type == "cuda":
             self._graphs = StepGraphs(model, self.unroll_steps, model.train_step, self.device)
         self.profile_steps = profile_steps
+        self.debug_nans = debug_nans
         self._profiler: Optional[torch.profiler.profile] = None
         self._profiled = False
         self.ckpt = CheckpointManager(self.experiment_dir / "checkpoints",
@@ -183,6 +191,21 @@ class Trainer:
                     module, args, compute_flops=self.device.type == "cpu", **kwargs))
         except Exception as e:  # summaries must never stop training
             logger.warning("model summary failed: %s", e)
+
+    def _check_nans(self, phase: str, *trees) -> None:
+        """``debug_nans``: ``FloatingPointError`` when a floating tensor or array among
+        ``trees``' leaves holds a NaN (one host read); nothing when the flag is off."""
+        if not self.debug_nans:
+            return
+        found, flags = False, {}
+        for leaf in pytree.tree_leaves(trees):
+            if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+                flags.setdefault(leaf.device, []).append(torch.isnan(leaf).any())
+            elif isinstance(leaf, np.ndarray) and np.issubdtype(leaf.dtype, np.floating):
+                found = found or bool(np.isnan(leaf).any())
+        if found or any(bool(torch.stack(f).any()) for f in flags.values()):
+            raise FloatingPointError(f"--debug_nans: NaN in the {phase} at step "
+                                     f"{self.global_step}")
 
     def _resolve_accum_mode(self, mode: str) -> str:
         if mode not in ("auto", "concat", "scan"):
@@ -309,6 +332,7 @@ class Trainer:
                 metrics = self._dispatch(batch)
                 prev_step = self.global_step
                 self.global_step += self.unroll_steps
+                self._check_nans("train step", metrics, self.model.state_dict())
                 is_last = self.max_steps > 0 and self.global_step >= self.max_steps
                 if crossed(self.log_every_n_steps, prev_step, self.global_step) \
                         or prev_step == 0 or is_last:
@@ -358,14 +382,15 @@ class Trainer:
         else:
             logger.warning("No '%s' checkpoint under %s; testing freshly initialized "
                            "weights.", which, self.ckpt.directory)
-        means = self._eval_over(self.datamodule.test_batches())
+        means = self._eval_over(self.datamodule.test_batches(), "test")
         renamed = {(k.replace("val_", "test_", 1) if k.startswith("val_") else f"test_{k}"): v
                    for k, v in means.items()}
         if renamed:
             self.logger.log_metrics(renamed, self.global_step)
         return renamed
 
-    def _eval_over(self, batches: Iterator[Any]) -> Dict[str, float]:
+    def _eval_over(self, batches: Iterator[Any], split: str = "validation"
+                   ) -> Dict[str, float]:
         """Mean per-batch eval metrics, and the generative metrics the model asks for,
         over a batch iterator (validation and the test split)."""
         sums: Dict[str, float] = {}
@@ -373,6 +398,7 @@ class Trainer:
         gen_metrics = self._generative_metrics()
         for batch in prefetch_to_device(batches, self.device):
             metrics = self.model.eval_step(batch, self._generator(_VAL, count))
+            self._check_nans(f"{split} batch {count}", metrics)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             if gen_metrics:
@@ -394,6 +420,8 @@ class Trainer:
         if not hasattr(self, "_gen_metric_objs"):
             wanted = getattr(self.model, "metrics", None) or []
             extractor = inception.InceptionFeatureExtractor(device=self.device)
+            if self.debug_nans:
+                extractor = self._checked(extractor, "InceptionV3 features")
             objs: Dict[str, Any] = {}
             if "fid" in wanted:
                 objs["fid"] = FrechetInceptionDistance(extractor)
@@ -407,7 +435,9 @@ class Trainer:
     def _update_generative_metrics(self, batch: Dict, generator: torch.Generator,
                                    objs: Dict[str, Any]) -> None:
         real_u8 = batch["image"]
-        fake_u8 = to_uint8(self.model.sample(generator, real_u8.shape[0]))
+        fakes = self.model.sample(generator, real_u8.shape[0])
+        self._check_nans("generative metrics' fakes", fakes)
+        fake_u8 = to_uint8(fakes)
         for name in ("fid", "kid"):
             if name in objs:
                 objs[name].update(real_u8, real=True)
@@ -435,6 +465,7 @@ class Trainer:
         self.logger.log_metrics(means, self.global_step)
         self._log_samples()
         for name, images in self.model.validation_grids(self._generator(_GRIDS)).items():
+            self._check_nans(f"{name} grid", images)
             grid = make_grid(images.float().cpu().numpy(), nrow=8)
             self.logger.log_image(name, grid, self.global_step)
         self._log_tables()
@@ -446,6 +477,7 @@ class Trainer:
         if hasattr(self.model, "encode_for_logging"):
             batch = next(iter(self.datamodule.val_batches()))
             latents = self.model.encode_for_logging(batch)
+            self._check_nans("latent table", latents)
             cols = [f"z{i}" for i in range(latents.shape[1])] + ["label"]
             rows = [list(map(float, z)) + [int(label)]
                     for z, label in zip(latents[:256], np.asarray(batch["label"])[:256])]
@@ -460,8 +492,18 @@ class Trainer:
             images = self.model.sample(self._generator(_SAMPLE), self.num_sample_images)
         except NotImplementedError:  # a model with no random generation (CycleGAN)
             return
+        self._check_nans("sample grid", images)
         grid = make_grid(images.float().cpu().numpy())
         self.logger.log_image("random_generation", grid, self.global_step)
+
+
+    def _checked(self, fn, phase: str):
+        """``fn`` with its outputs checked by ``_check_nans``."""
+        def checked(*args):
+            out = fn(*args)
+            self._check_nans(phase, out)
+            return out
+        return checked
 
 
 def _group(iterator: Iterator[Any], k: int) -> Iterator[List[Any]]:
