@@ -201,7 +201,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      --unroll_steps 4 (train, resume, generate); then every other trainable registry name
      from its run's last checkpoint: 2 dispatches of the trainer at --unroll_steps 2,
      captured or not, graphs, launches per replay;
- 47. train throughput at --unroll_steps 1 and 4, interleaved, 3 repeats: DDPM and DCGAN
+ 47. train throughput at --unroll_steps 1 and 4, interleaved, 2 repeats: DDPM and DCGAN
      at bs128 bf16 (ms a step, images/s; a dispatch's worth of steps profiled: device
      busy, kernel launches and CUDA runtime calls a step);
  48. interpolation: the four processes card against CPU (f32, dim 64, explicit draws,
@@ -235,7 +235,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      completes, its graph captured and every kernel counter 0 as without the flag; its
      checkpoint with one weight of G set to NaN raises FloatingPointError in the resumed
      train step and in the trainer's sample grid;
- 54. a JSON line of the kernels, the card's line, and the last line
+ 54. scale-out through torchrun subprocesses (``chip_smoke.py --scale_out_rank nccl|gloo``)
+     at the configs' widths: at world size 1 over NCCL, 2 f32 DDPM steps under ddp and
+     under fsdp bit for bit the steps with no strategy (cudnn.deterministic, TF32 off), the
+     ddp bf16 step's time against no strategy's; the train entry point on
+     ddpm_cifar10.json under ddp and fsdp (8 steps), dit_cifar10_tp.json under tp
+     --tp_size 1, dit_moe_cifar10.json under tp (4 steps), dit_cifar10_pp.json with
+     "pp_fused_attn" (4 stages x 16 microbatches on the card, 1 step), every kernel counter
+     zeroed just before each run and held to its steps, validation and grids; the pipeline's f32
+     step against the sequential DiT with the same weights (loss and gradient within 1e-3)
+     and both bf16 step times; --unroll_steps 4 under ddp, the graph holding the NCCL
+     all-reduce, against the eager steps; 2 gloo ranks sharing the card (64 rows each)
+     against one process on the batch (the loss, and the gradient by its norm through
+     Adam's first moment); then the ddp run resumed here with no strategy;
+ 55. a JSON line of the kernels, the card's line, and the last line
      {"ok": true, "device": {...}}.
 It needs no network and exits non-zero, printing no result, without a CUDA GPU or
 outside a checkout of the repo.
@@ -3568,7 +3581,7 @@ def family_breakdown(torch, card: str, configs: dict) -> dict:
     bs64; PixelCNN sampling at bs64 (``pixelcnn_sample_profile``); the host syncs of NICE's
     and Glow's steps."""
     stats = {"glow_train": train_breakdown(
-        torch, card, steps=20, repeats=3, config_path=configs["Glow"], precision="f32",
+        torch, card, steps=20, repeats=2, config_path=configs["Glow"], precision="f32",
         out_name="glow_train_profile.txt")}
     stats["glow_sample"] = sample_breakdown(torch, card, FAMILY_CONFIGS["Glow"], "Glow sample",
                                             "glow_sample_profile.txt", repeats=2,
@@ -4585,7 +4598,7 @@ SERVE_BATCH = 64  # [51]: DDIM-50 and the DiT's guided DDIM-50
 SERVE_ANCESTRAL_BATCH = 16  # [51]: the ancestral chain
 # [51]: the ancestral chain's depth: [6]'s weights in a derived config of this many
 # diffusion steps (the UNet unchanged; 1,000 before the run needed room for [52], [53]).
-SERVE_ANCESTRAL_T = 250
+SERVE_ANCESTRAL_T = 100
 SERVE_TIMED_CALLS = 3  # [51]: calls timed for samples/s, artifact and live in turns
 SERVE_DIR = ROOT / "experiments" / "chip_smoke_serving"  # [51]: the CPU-exported artifact
 
@@ -5004,6 +5017,394 @@ def debug_nans_path(torch, card: str) -> dict:
     return {"wall_s": wall, "graphs": len(captured), "counts": counts, "raised": raised}
 
 
+# -- [54] scale-out ------------------------------------------------------------------------
+SCALE_DDPM_BASE = ROOT / "configs" / "diffusion" / "ddpm_cifar10.json"
+SCALE_TP_BASE = ROOT / "configs" / "diffusion" / "dit_cifar10_tp.json"
+SCALE_PP_BASE = ROOT / "configs" / "diffusion" / "dit_cifar10_pp.json"
+# Derived into OUT_DIR: the configs' models at their widths on 1,280 synthetic images
+# (8 train and 2 validation batches of 128), their grids sampled DDIM-SCALE_SAMPLING
+# (a depth cut for room: DDPM's 1,000-step ancestral chain, the DiTs' DDIM-50); the
+# pipeline's with "pp_fused_attn": true.
+SCALE_CONFIGS = {"ddpm": OUT_DIR / "ddpm_cifar10_scale_out.json",
+                 "tp": OUT_DIR / "dit_cifar10_tp_scale_out.json",
+                 "moe": OUT_DIR / "dit_moe_cifar10_scale_out.json",
+                 "pp_fused": OUT_DIR / "dit_cifar10_pp_fused.json"}
+SCALE_SYNTHETIC = 1280
+SCALE_SAMPLING = 10
+SCALE_STEPS = 8  # ddp and fsdp through the train entry point, then SCALE_RESUME without
+SCALE_RESUME = 2
+SCALE_DIT_STEPS = 4  # tp and DiT-MoE under tp
+SCALE_PP_STEPS = 1  # the fused pipeline: ~2 s a step, host-paced (16 x 12 block calls)
+SCALE_EXACT_STEPS = 2  # f32 steps held bit for bit against the same steps with no strategy
+SCALE_TIMED_STEPS = 3  # per timing, in turns: A, B, B, A
+SCALE_RUNS = {"ddp": "chip_smoke_ddp", "fsdp": "chip_smoke_fsdp", "tp": "chip_smoke_tp",
+              "moe": "chip_smoke_moe_tp", "pp_fused": "chip_smoke_pp_fused"}
+PP_TOL = 1e-3  # the f32 pipeline step against the sequential DiT: loss, gradient norm
+GLOO_TOL = 1e-3  # 2 gloo ranks against one process on the card: the gradient by its norm
+
+
+def derive_scale_out_configs() -> None:
+    for key, base, extra in (
+            ("ddpm", SCALE_DDPM_BASE, {}), ("tp", SCALE_TP_BASE, {}),
+            ("moe", DIT_MOE_CONFIG, {}), ("pp_fused", SCALE_PP_BASE, {"pp_fused_attn": True})):
+        config = json.loads(base.read_text())
+        config["model"]["args"].update(extra, sampling_timesteps=SCALE_SAMPLING)
+        config["dataset"]["synthetic_size"] = SCALE_SYNTHETIC
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        SCALE_CONFIGS[key].write_text(json.dumps(config, indent=4) + "\n")
+
+
+def scale_model(torch, key: str, seed: int, **overrides):
+    """The model of SCALE_CONFIGS[key] (``overrides`` on its args), drawn from ``seed``."""
+    from lightning_generative_models_tpu_torch.config import load_config
+    from lightning_generative_models_tpu_torch.registry import load_model
+
+    config = load_config(SCALE_CONFIGS[key])
+    config["model"]["args"].update(overrides)
+    model = load_model(config["model"], device="cuda")
+    model.init_params(torch.Generator().manual_seed(seed))
+    return model, config
+
+
+def first_batch(torch, config: dict, on_card: bool = True) -> dict:
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+
+    batch = next(DataModule(**config["dataset"]).train_batches(0))
+    return {k: torch.as_tensor(v).cuda() if on_card else v for k, v in batch.items()}
+
+
+def timed_in_turns(torch, models: dict, batch: dict, steps: int = SCALE_TIMED_STEPS) -> dict:
+    """{name: [ms a train step, ...]} of ``models`` {name: (model, ambient mesh)}: host
+    wall per step (the steps end in a synchronize), two models timed in turns A, B, B, A
+    after a warm-up step each, each under its mesh (its optimizer reads it)."""
+    from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {name: [] for name in models}
+    a, b = models
+    for name in (a, b, b, a):
+        model, mesh = models[name]
+        mesh_lib.set_mesh(mesh)
+        if not out[name]:
+            model.train_step(batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.train_step(batch, gen)
+        torch.cuda.synchronize()
+        out[name].append(round(1e3 * (time.perf_counter() - t0) / steps, 2))
+    mesh_lib.set_mesh(None)
+    return out
+
+
+def scale_expected(key: str, steps: int, val_batches: int) -> dict:
+    """The kernel launches of a [54] train run: its steps, its closing validation (one
+    forward a batch) and the grids it samples (DDIM-50; the DiTs guided: the random grid
+    of 64 and the per-class grid of 40, 50 evaluations each)."""
+    grid = SCALE_SAMPLING
+    if key in ("ddp", "fsdp"):
+        return {"linear_attention": 6 * (steps + val_batches + grid),
+                "linear_attention_bwd": 6 * steps}
+    if key in ("tp", "moe"):
+        return {"fused_attention_qkv": 12 * (steps + val_batches + 2 * grid),
+                "fused_attention_qkv_bwd": 12 * steps}
+    # The fused pipeline, 4 stages x 3 blocks: every microbatch through 12 blocks, a train
+    # step's forward recomputed in its backward; M = gcd(rows, 16) = 16 for 128, 128 and
+    # 80 rows (a train or validation batch, the guided grids).
+    per_forward = 16 * 12
+    return {"fused_attention_qkv": per_forward * (2 * steps + val_batches + 2 * grid),
+            "fused_attention_qkv_bwd": per_forward * steps}
+
+
+def grads_gap(torch, a: list, b: list) -> float:
+    ga = torch.cat([g.reshape(-1).double() for g in a])
+    gb = torch.cat([g.reshape(-1).double() for g in b])
+    return float((ga - gb).norm() / ga.norm())
+
+
+def pipeline_against_sequential(torch, card: str) -> dict:
+    """dit_cifar10_pp.json (4 stages x 16 microbatches, the schedule on this card) in f32
+    against the sequential DiT with the same weights (every weight moved by N(0, 0.02^2)
+    so that the zero-initialised branches open): one step's loss and gradient; then both
+    in the config's bf16, the step times."""
+    model, config = scale_model(torch, "pp_fused", 54, use_bf16=False, pp_fused_attn=False)
+    seq, _ = scale_model(torch, "pp_fused", 54, use_bf16=False, pp_fused_attn=False,
+                         pipeline_stages=0)
+    per = 12 // 4
+    gen = torch.Generator().manual_seed(540)
+    with torch.no_grad():
+        for p in model.unet.parameters():
+            p.add_((torch.randn(p.shape, generator=gen) * 0.02).cuda())
+        named = dict(seq.unet.named_parameters())
+        for name, p in model.unet.named_parameters():
+            if name.startswith("pipeline.stages."):
+                _, _, s, block, rest = name.split(".", 4)
+                name = f"block_{int(s) * per + int(block.split('_')[1])}.{rest}"
+            named[name].copy_(p)
+    batch = first_batch(torch, config)
+    out = []
+    for m in (model, seq):
+        grads, metrics = m.grad_step(batch, torch.Generator(device="cuda").manual_seed(541))
+        out.append((grads if m is seq else _sequential_order(model, grads), metrics))
+    loss_rel = abs(float(out[0][1]["loss"]) - float(out[1][1]["loss"])) / abs(
+        float(out[1][1]["loss"]))
+    gap = grads_gap(torch, out[1][0], out[0][0])
+    del model, seq
+    timed = timed_in_turns(torch, {
+        name: (scale_model(torch, "pp_fused", 54, pp_fused_attn=False,
+                           pipeline_stages=stages)[0], None)
+        for name, stages in (("pipeline", 4), ("sequential", 0))}, batch, steps=1)
+    torch.cuda.empty_cache()
+    print(f"  pipeline 4x16 f32 step against the sequential DiT: loss rel {loss_rel:.3e}, "
+          f"gradient by its norm {gap:.3e} (tol {PP_TOL}); bf16 ms a step, in turns: "
+          f"pipeline {timed['pipeline']}, sequential {timed['sequential']}, bs{TRAIN_BATCH} "
+          f"on {card}", flush=True)
+    return {"loss_rel": loss_rel, "grad_gap": gap, "step_ms": timed}
+
+
+def _sequential_order(model, grads: list) -> list:
+    """The pipeline DiT's gradients in the sequential DiT's parameter order (blocks by
+    global index, between the conditioning and the final layer)."""
+    names = [n for n, p in model.unet.named_parameters() if p.requires_grad]
+    by_name = dict(zip(names, grads))
+    head = [n for n in names if not n.startswith("pipeline.")]
+    blocks = [n for n in names if n.startswith("pipeline.")]
+    split = head.index("final_modulation.weight")
+    return [by_name[n] for n in head[:split] + blocks + head[split:]]
+
+
+def scale_out_rank(case: str) -> None:
+    """A ``torchrun`` rank of [54] (``chip_smoke.py --scale_out_rank nccl|gloo``); rank 0
+    writes OUT_DIR/scale_out_<case>.json."""
+    import torch
+
+    from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.initialize_distributed("cuda", "gloo" if case == "gloo" else "nccl",
+                                    timeout_s=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = scale_out_nccl(torch) if case == "nccl" else scale_out_gloo(torch)
+    if mesh_lib.is_main_process():
+        (OUT_DIR / f"scale_out_{case}.json").write_text(json.dumps(out, indent=1))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def scale_out_nccl(torch) -> dict:
+    """[54] at world size 1 over NCCL: the exact steps, the step times, the entry points'
+    runs and their launches, the pipeline against the sequential DiT, --unroll_steps
+    under ddp."""
+    from lightning_generative_models_tpu_torch import train
+    from lightning_generative_models_tpu_torch.data.datamodule import DataModule
+    from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    card = card_line()
+    out = {"backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size()}
+    # Exact: the same f32 steps with no strategy, under ddp and under fsdp.
+    states = {}
+    for strategy in (None, "ddp", "fsdp"):
+        mesh_lib.set_mesh(None)
+        model, config = scale_model(torch, "ddpm", 54, use_bf16=False)
+        if strategy:
+            mesh_lib.shard_model(model, strategy, mesh_lib.strategy_mesh(strategy))
+        batch = first_batch(torch, config)
+        zero_counts()
+        for i in range(SCALE_EXACT_STEPS):
+            model.train_step(batch, torch.Generator(device="cuda").manual_seed(540 + i))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        states[strategy] = snapshot(model)[0]
+        if strategy:
+            worst, differ = state_diff(torch, states[None], states[strategy])
+            out[f"exact_{strategy}"] = {"max_abs_diff": worst, "differ": len(differ),
+                                        "tensors": len(states[None]),
+                                        "launches": counts}
+            print(f"  {strategy} over NCCL, world 1: {SCALE_EXACT_STEPS} f32 steps against no "
+                  f"strategy: max |diff| {worst:.3e} over {len(states[None])} state tensors; "
+                  f"launches {counts}", flush=True)
+        del model
+    mesh_lib.set_mesh(None)
+    # The bf16 step's time, ddp at world 1 against no strategy, in turns.
+    models = {}
+    for name, mesh in (("none", None), ("ddp", mesh_lib.strategy_mesh("ddp"))):
+        model, config = scale_model(torch, "ddpm", 54)
+        models[name] = (model, mesh)
+    timed = timed_in_turns(torch, models, first_batch(torch, config))
+    del models
+    out["ddp_step_ms"] = timed
+    print(f"  DDPM bs{TRAIN_BATCH} bf16 ms a step, in turns: ddp over NCCL (world 1) "
+          f"{timed['ddp']}, no strategy {timed['none']} on {card}", flush=True)
+    # The entry point under each strategy, every launch count zeroed just before.
+    runs = {}
+    for key, flags, steps in (("ddp", ["--strategy", "ddp"], SCALE_STEPS),
+                              ("fsdp", ["--strategy", "fsdp"], SCALE_STEPS),
+                              ("tp", ["--strategy", "tp", "--tp_size", "1"], SCALE_DIT_STEPS),
+                              ("moe", ["--strategy", "tp"], SCALE_DIT_STEPS),
+                              ("pp_fused", [], SCALE_PP_STEPS)):
+        config_key = "ddpm" if key in ("ddp", "fsdp") else key
+        path = SCALE_CONFIGS[config_key]
+        shutil.rmtree(EXPERIMENT_DIR / "DDPM" / SCALE_RUNS[key], ignore_errors=True)
+        val_batches = len(list(DataModule(**json.loads(path.read_text())["dataset"])
+                               .val_batches()))
+        argv = ["--config_path", str(path), "--device", "cuda", "--experiment_name",
+                SCALE_RUNS[key], "--check_val_every_n_epoch", "1000",
+                "--sample_every_n_steps", "0", "--max_steps", str(steps)] + flags
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        model = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        want = scale_expected(key, steps, val_batches)
+        records = read_metrics(EXPERIMENT_DIR / "DDPM" / SCALE_RUNS[key])
+        losses = [r["train_loss"] for r in records if "train_loss" in r]
+        runs[key] = {"steps": model.step, "launches": counts, "expected": want,
+                     "wall_s": wall, "val_batches": val_batches, "train_loss": losses,
+                     "ok": counts == want and model.step == steps and bool(losses)
+                     and all(v == v for v in losses)}
+        print(f"  train {' '.join(flags) or '(4 stages on one card)'} on "
+              f"{path.name}: {model.step} steps in {wall:.1f} s (build, data, validation, "
+              f"grids, checkpoint); launches {counts} (expected {want})", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    out["pipeline"] = pipeline_against_sequential(torch, card)
+    # --unroll_steps under ddp: one CUDA graph of UNROLL steps holds the NCCL all-reduce.
+    mesh_lib.set_mesh(mesh_lib.strategy_mesh("ddp"))
+    out["unroll_ddp"] = graph_against_eager(torch, "DDPM bs128 bf16 under ddp over NCCL",
+                                            SCALE_CONFIGS["ddpm"], {}, TRAIN_BATCH, UNROLL)
+    mesh_lib.set_mesh(None)
+    return out
+
+
+def _gradient_gap(torch, ref: dict, got: dict) -> float:
+    """||mu_got - mu_ref|| / ||mu_ref|| over every weight's Adam first moment after one
+    step from a fresh state: mu = (1 - b1) g there, the gradient that each side averaged
+    over its ranks, so a rank that skipped the all-reduce (its rows' gradient alone)
+    misses by about the gradient's own size."""
+    d = torch.cat([(got[k] - r).double().reshape(-1) for k, r in ref.items()])
+    return float(d.norm() / torch.cat([r.double().reshape(-1) for r in ref.values()]).norm())
+
+
+def _first_moments(torch, model) -> dict:
+    """{name: Adam's first moment} of every UNet weight, whole (``gathered``), on the
+    card."""
+    from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
+
+    state = model.optimizer.state
+    with mesh_lib.gathered(model):
+        return {name: state[p]["exp_avg"].float().clone()
+                for name, p in model.unet.named_parameters() if "exp_avg" in state.get(p, {})}
+
+
+def scale_out_gloo(torch) -> dict:
+    """[54] on 2 gloo ranks sharing the card (gloo takes CUDA tensors): an f32 ddp step
+    of the DDPM at bs128 (64 rows a rank) against the one-process step on the batch."""
+    from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
+
+    records = {}
+    for strategy in (None, "ddp"):
+        mesh_lib.set_mesh(None)
+        model, config = scale_model(torch, "ddpm", 54, use_bf16=False)
+        batch = first_batch(torch, config, on_card=False)
+        if strategy:
+            mesh_lib.shard_model(model, strategy, mesh_lib.strategy_mesh(strategy))
+        local = {k: torch.as_tensor(v).cuda() for k, v in mesh_lib.local_rows(batch).items()}
+        with mesh_lib.global_draws(local["image"].shape[0]):
+            m = model.train_step(local, torch.Generator(device="cuda").manual_seed(550))
+        loss = float(mesh_lib.data_mean(m["train_loss"]))
+        records[strategy] = (_first_moments(torch, model), loss)
+    mesh_lib.set_mesh(None)
+    ref, ref_loss = records[None]
+    got, loss = records["ddp"]
+    gap = _gradient_gap(torch, ref, got)
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"  2 gloo ranks on the card, ddp, an f32 step bs{TRAIN_BATCH}: loss rel "
+          f"{loss_rel:.3e}, gradient (Adam's first moment) by its norm {gap:.3e} (tol "
+          f"{GLOO_TOL}) against one process", flush=True)
+    return {"backend": torch.distributed.get_backend(),
+            "world": torch.distributed.get_world_size(), "loss_rel": loss_rel,
+            "gradient_gap": gap, "ok": gap <= GLOO_TOL and loss_rel <= 1e-4}
+
+
+def torchrun(nproc: int, case: str, timeout: int) -> float:
+    """``chip_smoke.py --scale_out_rank case`` on ``nproc`` ranks through torchrun (its
+    output streamed); fails the run on a non-zero exit. Returns the wall in seconds."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           f"--nproc_per_node={nproc}", str(ROOT / "chip_smoke.py"),
+                           "--scale_out_rank", case], cwd=ROOT, timeout=timeout)
+    if done.returncode:
+        fail(f"[54] torchrun of {nproc} rank(s) ({case}) exited {done.returncode}")
+    return time.perf_counter() - t0
+
+
+def scale_launches(stats: dict, counter: str) -> dict:
+    """{"<strategy>_train": launches} of ``counter`` in [54]'s entry-point runs (and the
+    resume with no strategy), for the kernels line's launches_by_path."""
+    names = {"ddp": "ddp_train", "fsdp": "fsdp_train", "tp": "tp_train",
+             "moe": "dit_moe_tp_train", "pp_fused": "pp_fused_one_card_train"}
+    out = {names[key]: run["launches"][counter]
+           for key, run in stats["nccl"]["runs"].items() if run["launches"].get(counter)}
+    if stats["resume_launches"].get(counter):
+        out["ddp_resume_no_strategy"] = stats["resume_launches"][counter]
+    return out
+
+
+def scale_out_path(torch, card: str) -> dict:
+    """[54]: torchrun subprocesses at the configs' widths: world size 1 over NCCL (the
+    strategies' exact steps, times, entry-point runs and launches, the pipeline against
+    the sequential DiT, --unroll_steps under ddp), 2 gloo ranks on the card; then the ddp
+    run resumed here with no strategy."""
+    from lightning_generative_models_tpu_torch import train
+    from lightning_generative_models_tpu_torch.utils.path import EXPERIMENT_DIR
+
+    derive_scale_out_configs()
+    walls = {"nccl": torchrun(1, "nccl", 600), "gloo": torchrun(2, "gloo", 300)}
+    nccl = json.loads((OUT_DIR / "scale_out_nccl.json").read_text())
+    gloo = json.loads((OUT_DIR / "scale_out_gloo.json").read_text())
+    for strategy in ("ddp", "fsdp"):
+        if nccl[f"exact_{strategy}"]["max_abs_diff"] != 0:
+            fail(f"[54] {strategy}'s f32 steps differ from no strategy's: "
+                 f"{nccl[f'exact_{strategy}']}")
+    bad = {k: v for k, v in nccl["runs"].items() if not v["ok"]}
+    if bad:
+        fail(f"[54] train runs: {bad}")
+    pp = nccl["pipeline"]
+    if pp["loss_rel"] > PP_TOL or pp["grad_gap"] > PP_TOL:
+        fail(f"[54] the pipeline's f32 step against the sequential DiT: {pp}")
+    if not gloo["ok"]:
+        fail(f"[54] 2 gloo ranks against one process: {gloo}")
+    # The ddp run resumed with no strategy: the whole checkpoint, in one process.
+    val_batches = nccl["runs"]["ddp"]["val_batches"]
+    argv = ["--config_path", str(SCALE_CONFIGS["ddpm"]), "--device", "cuda",
+            "--experiment_name", SCALE_RUNS["ddp"], "--check_val_every_n_epoch", "1000",
+            "--sample_every_n_steps", "0", "--resume",
+            "--max_steps", str(SCALE_STEPS + SCALE_RESUME)]
+    torch.cuda.synchronize()
+    zero_counts()
+    model = train.main(argv)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = scale_expected("ddp", SCALE_RESUME, val_batches)
+    step = model.step
+    print(f"  resumed the ddp run with no strategy: step {step}, launches {counts} "
+          f"(expected {want}); torchrun walls {walls}", flush=True)
+    if step != SCALE_STEPS + SCALE_RESUME or counts != want:
+        fail(f"[54] the resume without a strategy: step {step}, launches {counts}")
+    del model
+    torch.cuda.empty_cache()
+    for run in SCALE_RUNS.values():  # full-width checkpoints: keep the copy small
+        shutil.rmtree(EXPERIMENT_DIR / "DDPM" / run / "checkpoints", ignore_errors=True)
+    return {"nccl": nccl, "gloo": gloo, "resume_launches": counts, "walls_s": walls}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -5283,7 +5684,7 @@ def main() -> None:
     print(f"[47] throughput at --unroll_steps 1 and {UNROLL}: DDPM and DCGAN bs{TRAIN_BATCH} "
           "bf16", flush=True)
     t0 = time.perf_counter()
-    unroll_stats = unroll_throughput(torch, card)
+    unroll_stats = unroll_throughput(torch, card, repeats=2)
     print(f"  [47] took {time.perf_counter() - t0:.1f} s", flush=True)
     print("[48] interpolation: the four processes card against CPU; generate --interpolate "
           f"{INTERP_N}", flush=True)
@@ -5316,6 +5717,11 @@ def main() -> None:
     nan_stats = debug_nans_path(torch, card)
     print(f"  [53] took {time.perf_counter() - t0:.1f} s; phases 52-53 took "
           f"{time.perf_counter() - t_samplers:.1f} s", flush=True)
+    print("[54] scale-out: ddp, fsdp, tp (DiT, DiT-MoE) and the pipeline DiT through "
+          "torchrun at world size 1 over NCCL, 2 gloo ranks on the card", flush=True)
+    t0 = time.perf_counter()
+    scale_stats = scale_out_path(torch, card)
+    print(f"  [54] took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"  all phases took {time.perf_counter() - started:.1f} s", flush=True)
     slice_counts = {f"{key}_{run}": got for key, res in slice_runs.items()
                     for run, got in res["counts"].items()}
@@ -5340,7 +5746,8 @@ def main() -> None:
                              "train": train_counts["train"]["forward"],
                              "resume": train_counts["resume"]["forward"]}
                             | {k: v["linear_attention"] for k, v in slice_counts.items()}
-                            | per_artifact("linear_attention"),
+                            | per_artifact("linear_attention")
+                            | scale_launches(scale_stats, "linear_attention"),
         "max_abs_err": la_stats["max_abs_err"],
         "ms": la_stats["ms"],
         "plain_ms": la_stats["plain_ms"],
@@ -5363,7 +5770,8 @@ def main() -> None:
         "launches_by_path": {"generate": 0,
                              "train": train_counts["train"]["backward"],
                              "resume": train_counts["resume"]["backward"]}
-                            | {k: v["linear_attention_bwd"] for k, v in slice_counts.items()},
+                            | {k: v["linear_attention_bwd"] for k, v in slice_counts.items()}
+                            | scale_launches(scale_stats, "linear_attention_bwd"),
         "max_abs_err": bwd_stats["max_abs_err"],
         "ms": bwd_stats["ms"],
         "plain_ms": bwd_stats["plain_ms"],
@@ -5415,7 +5823,8 @@ def main() -> None:
                              "dit_moe_generate": moe_counts["generate"]["fused_attention_qkv"],
                              "dit_moe_train": moe_counts["train"]["fused_attention_qkv"],
                              "dit_moe_resume": moe_counts["resume"]["fused_attention_qkv"]}
-                            | per_artifact("fused_attention_qkv"),
+                            | per_artifact("fused_attention_qkv")
+                            | scale_launches(scale_stats, "fused_attention_qkv"),
         "max_abs_err": attn_stats["max_abs_err"],
         "ms": attn_stats["ms"],
         "plain_ms": attn_stats["plain_ms"],
@@ -5444,7 +5853,8 @@ def main() -> None:
                              "fm_flash_resume": fm_counts["resume"]["flash_attention_bwd_cuda"],
                              "dit_moe_generate": moe_counts["generate"]["fused_attention_qkv_bwd"],
                              "dit_moe_train": moe_counts["train"]["fused_attention_qkv_bwd"],
-                             "dit_moe_resume": moe_counts["resume"]["fused_attention_qkv_bwd"]},
+                             "dit_moe_resume": moe_counts["resume"]["fused_attention_qkv_bwd"]}
+                            | scale_launches(scale_stats, "fused_attention_qkv_bwd"),
         "launches_by_path_are": "its own entry in the DiT runs; in the FM-DiT flash runs the "
                                 "flash path's backward route (flash_attention_bwd_cuda's count)",
         "max_abs_err": attn_stats["bwd_max_abs_err"],
@@ -5528,7 +5938,8 @@ def main() -> None:
                       "unrolled_dispatches": name_unroll, "unroll_throughput": unroll_stats,
                       "interpolation": interp_stats, "native_loader": native_stats,
                       "opcheck": opcheck_stats, "serving": serving_stats,
-                      "sampler_serving": sampler_serving, "debug_nans": nan_stats}))
+                      "sampler_serving": sampler_serving, "debug_nans": nan_stats,
+                      "scale_out": scale_stats}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -5537,4 +5948,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--scale_out_rank"]:
+        scale_out_rank(sys.argv[2])
+    else:
+        main()

@@ -23,6 +23,12 @@ Adam moment dtypes (the run's ``args.json``).
     python -m lightning_generative_models_tpu_torch.generate \
         --config_path configs/diffusion/ddim_cifar10.json --num_samples 64 [--device cuda]
 
+Under ``torchrun`` the sampling is sharded over the ranks, as the JAX ``generate.py``
+shards it over the devices: each rank draws the global start noise (and every later
+draw) and keeps its rows, the rows are gathered, and rank 0 writes; the samples are one
+device's (a batch the ranks do not divide is sampled whole on every rank). ``--fid``
+samples its fakes the same way; every rank runs InceptionV3 on all of them.
+
 ``--interpolate N`` writes instead a one-row grid of N blends of two samples
 (``interpolation_<which>_step<step>.png``, JAX's name; ``--interpolate_t`` the noising
 time), through the model's ``interpolate``; a model without one exits with JAX's message.
@@ -57,6 +63,7 @@ from lightning_generative_models_tpu_torch.metrics.generative import (
     to_uint8,
 )
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 from lightning_generative_models_tpu_torch.registry import load_model
 from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
 from lightning_generative_models_tpu_torch.train.state import (
@@ -155,7 +162,8 @@ def compute_fid(model, config: dict, args: argparse.Namespace, step: int, which:
         seed = np.random.SeedSequence([args.seed, i]).generate_state(1)[0]
         generator = torch.Generator(device=device).manual_seed(int(seed))
         t0 = time.perf_counter()
-        fake_u8 = to_uint8(model.sample(generator, b, **sample_kwargs))
+        fake_u8 = to_uint8(mesh_lib.sample_rows(
+            lambda rows: model.sample(generator, rows, **sample_kwargs), b))
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the sampling's time, apart from InceptionV3's
         t1 = time.perf_counter()
@@ -184,10 +192,11 @@ def compute_fid(model, config: dict, args: argparse.Namespace, step: int, which:
     }
     suffix = "" if args.sampler == "auto" and not args.sampling_steps else (
         f"_{args.sampler}{args.sampling_steps or ''}")
-    out_dir.mkdir(parents=True, exist_ok=True)
     out_path = out_dir / f"fid_{n}_{which}_step{step}{suffix}.json"
-    with open(out_path, "w") as f:
-        json.dump(artifact, f, indent=2)
+    if mesh_lib.is_main_process():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(artifact, f, indent=2)
     kind = "pretrained" if extractor.pretrained else (
         "He-scaled random-init (relative tracking only — drop "
         "pt_inception-2015-12-05.pth for published-comparable numbers, "
@@ -225,10 +234,11 @@ def interpolate(model, args: argparse.Namespace, generator: torch.Generator, out
     blend_generator = torch.Generator(device=model.device).manual_seed(int(seed))
     images = model.interpolate(x1, x2, blend_generator, t=args.interpolate_t,
                                lam=lam).float().cpu().numpy()
-    out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"interpolation_{which}_step{step}.png"
-    _write_png(path, make_grid(images, nrow=n))
-    print(f"Wrote {path}")
+    if mesh_lib.is_main_process():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        _write_png(path, make_grid(images, nrow=n))
+        print(f"Wrote {path}")
     return images
 
 
@@ -236,7 +246,8 @@ def main(argv=None) -> np.ndarray:
     """Run the CLI; returns the sampled images, [N, H, W, C] in [0, 1] (with ``--fid``,
     the FID artifact)."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(mesh_lib.initialize_distributed(args.device))
+    mesh_lib.set_mesh(mesh_lib.create_mesh())
     config = load_config(args.config_path)
     run_dir = EXPERIMENT_DIR / config["model"]["name"] / (args.experiment_name or "")
     if args.experiment_name:
@@ -270,16 +281,20 @@ def main(argv=None) -> np.ndarray:
         return compute_fid(model, config, args, step, which, out_dir, kwargs)
     if args.interpolate:
         return interpolate(model, args, generator, out_dir, which, step)
-    if args.label is not None:
-        labels = torch.full((args.num_samples,), args.label, dtype=torch.long)
-        if args.guidance_scale is not None:
-            if "guidance_scale" not in inspect.signature(model.sample_classes).parameters:
-                raise SystemExit(f"{name} does not support --guidance_scale")
-            kwargs["guidance_scale"] = args.guidance_scale
-        images = model.sample_classes(generator, labels, **kwargs)
-    else:
-        images = model.sample(generator, args.num_samples, **kwargs)
-    images = images.float().cpu().numpy()
+    if args.label is not None and args.guidance_scale is not None:
+        if "guidance_scale" not in inspect.signature(model.sample_classes).parameters:
+            raise SystemExit(f"{name} does not support --guidance_scale")
+        kwargs["guidance_scale"] = args.guidance_scale
+
+    def draw(n: int) -> torch.Tensor:
+        if args.label is None:
+            return model.sample(generator, n, **kwargs)
+        return model.sample_classes(
+            generator, torch.full((n,), args.label, dtype=torch.long), **kwargs)
+
+    images = mesh_lib.sample_rows(draw, args.num_samples).float().cpu().numpy()
+    if not mesh_lib.is_main_process():
+        return images
     out_dir.mkdir(parents=True, exist_ok=True)
     grid_path = out_dir / "grid.png"
     _write_png(grid_path, make_grid(images))

@@ -18,6 +18,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
+
 
 def matrix_sqrt_psd(mat: np.ndarray) -> np.ndarray:
     """Symmetric PSD matrix square root by eigendecomposition."""
@@ -42,6 +44,20 @@ def to_uint8(images01):
     if torch.is_tensor(images01):
         return torch.clamp(images01.float() * 255.0, 0, 255).to(torch.uint8)
     return np.clip(np.asarray(images01, np.float32) * 255.0, 0, 255).astype(np.uint8)
+
+
+def over_data_ranks(extract: Callable, device) -> Callable:
+    """``extract`` with its features and logits gathered over the ambient mesh's data
+    ranks (``parallel/mesh.py``), in rank order: each rank runs InceptionV3 on its rows,
+    and every rank's metrics see the global batch's, as one device's do."""
+    if mesh_lib.data_size() == 1:
+        return extract
+
+    def gathered(images_u8):
+        return tuple(mesh_lib.to_host(torch.as_tensor(np.asarray(a), device=device))
+                     for a in extract(images_u8))
+
+    return gathered
 
 
 def _default_extractor() -> Callable:

@@ -30,6 +30,7 @@ from lightning_generative_models_tpu_torch.models.diffusion.unet import UNet
 from lightning_generative_models_tpu_torch.models.modules.layers import init_params
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 from lightning_generative_models_tpu_torch.train.state import count_params, ema_update, make_adam
 from lightning_generative_models_tpu_torch.weights import load_flax_params
 
@@ -98,8 +99,8 @@ class DDPM(GenerativeModel):
         ``network`` picks the UNet or the DiT (``dim`` is then the hidden width, and
         ``patch_size``/``depth``/``num_heads``/``mlp_ratio``/``qkv_layout`` its shape).
         With ``num_experts`` the DiT's MoE blocks add ``moe_aux_weight`` times their
-        mean load-balancing loss to the training loss. The DiT's pipeline stages are not
-        ported yet and raise.
+        mean load-balancing loss to the training loss; ``pipeline_stages`` runs the DiT's
+        blocks as a GPipe pipeline.
         The weights start from ``init_params`` with seed 0; ``init_params(generator)``
         redraws them."""
         super().__init__(img_channels, img_size)
@@ -408,7 +409,7 @@ class DDPM(GenerativeModel):
         with ``steps`` model evaluations. Conditional models sample cycling labels
         0..num_classes-1 with classifier-free guidance."""
         if self.num_classes:
-            labels = torch.arange(num_samples, device=self.device) % self.num_classes
+            labels = mesh_lib.example_ids(num_samples, self.device) % self.num_classes
             return self.sample_classes(
                 generator, labels, method=method, steps=steps, x_T=x_T
             )
@@ -496,7 +497,7 @@ class DDPM(GenerativeModel):
                    **kwargs) -> torch.Tensor:
         """Sampling with the raw (non-EMA) weights, for diagnostics."""
         if self.num_classes:
-            labels = torch.arange(num_samples, device=self.device) % self.num_classes
+            labels = mesh_lib.example_ids(num_samples, self.device) % self.num_classes
             apply_fn = self._guided_apply_fn(self.unet, labels, self.guidance_scale)
         else:
             apply_fn = self._apply_fn(self.unet)

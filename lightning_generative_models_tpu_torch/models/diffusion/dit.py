@@ -21,9 +21,18 @@ kernel on the card at n >= 256, the plain attention otherwise.
 With ``num_experts > 0`` the MLP of every ``moe_every``-th block, counted from the last,
 is a top-1 ``MoEMlp`` (``block_{i}/moe/{router,wi,bi,wo,bo}``, flax's names);
 ``forward(..., return_aux=True)`` also returns the mean of those layers' load-balancing
-losses, which flax sows. Not ported yet: ``pipeline_stages`` (raises
-``NotImplementedError``, see ROADMAP.md). ``seq_parallel`` is accepted and does nothing on
-one device, as the JAX package's ``seq_shard`` off a tensor-parallel mesh.
+losses, which flax sows. With ``pipeline_stages = S > 0`` the ``depth`` blocks are S
+stages of ``depth / S`` blocks (``pipeline/stages/{s}/block_{j}``) run as the GPipe
+schedule of ``models/diffusion/pipeline.py``; the same math as the sequential stack.
+
+Under ``--strategy tp`` (``parallel/mesh.py:shard_model`` sets ``tensor_parallel``) each
+model rank holds ``heads / tp`` whole heads of the "h3d" ``qkv`` and its rows of ``proj``,
+and its columns of ``fc1`` and rows of ``fc2`` (Megatron's two all-reduces a block: the
+residual stream stays whole on every rank); MoE blocks run their ``e / tp`` experts.
+``seq_parallel`` adds Megatron's sequence parallelism there: between the blocks' matmuls
+the residual stream is this rank's ``n / tp`` tokens, the tokens all-gathered before
+``qkv``/``fc1`` and reduce-scattered after ``proj``/``fc2``; on one device it does nothing,
+as the JAX package's ``seq_shard`` off a tensor-parallel mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lightning_generative_models_tpu_torch.models.diffusion.pipeline import PipelineBlocks
 from lightning_generative_models_tpu_torch.models.modules.layers import Dense, Embed, LayerNorm
 from lightning_generative_models_tpu_torch.models.modules.moe import MoEMlp
 from lightning_generative_models_tpu_torch.models.modules.time_embedding import (
@@ -45,6 +55,8 @@ from lightning_generative_models_tpu_torch.ops.attention import (
     fused_attention_qkv,
     scaled_dot_product_attention,
 )
+from lightning_generative_models_tpu_torch.parallel import collectives as C
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 
 
 def posemb_sincos_2d(h: int, w: int, dim: int) -> np.ndarray:
@@ -77,14 +89,17 @@ class DiTBlock(nn.Module):
     affine; shift, scale and gate of both branches come from a zero-initialised Dense of
     SiLU(c), so the block is the identity at init. With ``num_experts > 0`` the MLP is a
     top-1 ``MoEMlp``; ``forward`` returns the block's output and its MoE load-balancing
-    loss (None for a dense MLP)."""
+    loss (None for a dense MLP). With ``tensor_parallel`` the collectives of the module
+    doc run over the ambient mesh's ``model`` axis."""
 
     def __init__(self, hidden: int, heads: int, mlp_ratio: float = 4.0, flash: bool = False,
                  dtype: torch.dtype = torch.float32, qkv_layout: str = "s3hd",
                  einsum_attn: bool = False, num_experts: int = 0,
-                 capacity_factor: float = 1.25):
+                 capacity_factor: float = 1.25, seq_parallel: bool = False):
         super().__init__()
         self.heads = heads
+        self.seq_parallel = seq_parallel
+        self.tensor_parallel = False  # set by parallel/mesh.py:shard_model
         self.flash = flash
         self.dtype = dtype
         self.qkv_layout = qkv_layout
@@ -104,40 +119,69 @@ class DiTBlock(nn.Module):
             self.fc2 = Dense(mlp_dim, hidden, dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor):
+        tp = mesh_lib.group(mesh_lib.MODEL_AXIS) if self.tensor_parallel else None
+        sp = self.tensor_parallel and self.seq_parallel
         mod = self.adaLN_modulation(F.silu(c))
+        if sp:  # used on this rank's tokens only: its gradient sums over the ranks
+            mod = C.copy_to(mod, tp)
         sh_a, sc_a, gate_a, sh_m, sc_m, gate_m = mod.chunk(6, dim=-1)
 
         h = modulate(self.norm1(x), sh_a, sc_a).to(self.dtype)
-        qkv = self.qkv(h)
+        qkv = self.qkv(self._enter(h, tp, sp))
+        heads = self.heads // C.size(tp)
         if self.flash:
-            att = self._flash_attention(qkv)
+            att = self._flash_attention(qkv, heads)
         else:
             attend = attention_qkv_plain if self.einsum_attn else fused_attention_qkv
-            att = attend(qkv, self.heads, self.qkv_layout)
-        att = self.proj(att)
+            att = attend(qkv, heads, self.qkv_layout)
+        att = self._leave(self.proj, att, tp, sp)
         x = x + gate_a[:, None, :].to(x.dtype) * att.to(x.dtype)
 
         h = modulate(self.norm2(x), sh_m, sc_m).to(self.dtype)
         aux = None
         if self.moe is not None:
-            h, aux = self.moe(h)
+            # The router reads every token: the experts' region is whole, then split.
+            h, aux = self.moe(C.join_tokens(h, tp) if sp else h)
+            h = C.split_tokens(h, tp) if sp else h
         else:
-            h = self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
+            h = self._leave(self.fc2, F.gelu(self.fc1(self._enter(h, tp, sp)),
+                                             approximate="tanh"), tp, sp)
         return x + gate_m[:, None, :].to(x.dtype) * h.to(x.dtype), aux
 
-    def _flash_attention(self, qkv: torch.Tensor) -> torch.Tensor:
+    def _enter(self, h: torch.Tensor, tp, sp: bool) -> torch.Tensor:
+        """The input of a column-parallel Dense: every token (all-gathered under
+        sequence parallelism), its gradient summed over the model ranks."""
+        if not self.tensor_parallel:
+            return h
+        return C.gather_tokens(h, tp) if sp else C.copy_to(h, tp)
+
+    def _leave(self, dense: Dense, h: torch.Tensor, tp, sp: bool) -> torch.Tensor:
+        """A row-parallel Dense: this rank's rows, the partial products summed over the
+        model ranks (reduce-scattered over the tokens under sequence parallelism), then
+        the whole bias."""
+        if not self.tensor_parallel:
+            return dense(h)
+        if dense.dtype == torch.float32:
+            y = F.linear(h.float(), dense.weight)
+        else:
+            y = F.linear(h.to(dense.dtype), dense.weight.to(dense.dtype))
+        y = C.scatter_tokens(y, tp) if sp else C.reduce_from(y, tp)
+        bias = C.copy_to(dense.bias, tp) if sp else dense.bias
+        return y + bias.to(y.dtype)
+
+    def _flash_attention(self, qkv: torch.Tensor, heads: int) -> torch.Tensor:
         """The JAX block's flash branch: [b, h, n, d] views of q, k and v in the packed
         qkv, the SDPA dispatcher, and the output back to [b, n, h*d]."""
         b, n, w3 = qkv.shape
-        d = w3 // (3 * self.heads)
+        d = w3 // (3 * heads)
         if self.qkv_layout == "h3d":
-            qkv5 = qkv.reshape(b, n, self.heads, 3, d)
+            qkv5 = qkv.reshape(b, n, heads, 3, d)
             q, k, v = (qkv5[..., i, :].transpose(1, 2) for i in range(3))
         else:
-            qkv5 = qkv.reshape(b, n, 3, self.heads, d)
+            qkv5 = qkv.reshape(b, n, 3, heads, d)
             q, k, v = (qkv5[:, :, i].transpose(1, 2) for i in range(3))
         att = scaled_dot_product_attention(q, k, v, use_pallas=True)
-        return att.transpose(1, 2).reshape(b, n, self.heads * d)
+        return att.transpose(1, 2).reshape(b, n, heads * d)
 
 
 class DiT(nn.Module):
@@ -166,15 +210,12 @@ class DiT(nn.Module):
         einsum_attn: bool = False,
         pp_fused_attn: bool = False,
     ):
-        """The JAX module's fields. ``seq_parallel``, ``pipeline_microbatches`` and
-        ``pp_fused_attn`` change nothing on one device without pipeline stages; block i
-        is MoE when ``num_experts > 0`` and ``(depth - 1 - i) % moe_every == 0``, so the
-        last block always is."""
+        """The JAX module's fields. ``seq_parallel`` changes nothing on one device;
+        block i is MoE when ``num_experts > 0`` and ``(depth - 1 - i) % moe_every == 0``,
+        so the last block always is. ``pipeline_stages > 0`` builds the pipeline
+        (``pipeline_microbatches`` 0: one a stage; the stages' attention is plain unless
+        ``pp_fused_attn``), with the JAX module's checks."""
         super().__init__()
-        if pipeline_stages > 0:
-            raise NotImplementedError(
-                "DiT(pipeline_stages > 0) is not yet ported to the PyTorch package; "
-                "see ROADMAP.md")
         if hidden % heads:
             raise ValueError(f"hidden {hidden} not divisible by heads {heads}")
         self.hidden = hidden
@@ -184,7 +225,11 @@ class DiT(nn.Module):
         self.num_classes = num_classes
         self.output_channels = out_channels or channels
         self.dtype = dtype
+        self.qkv_layout = qkv_layout
+        self.seq_parallel = seq_parallel
         self.num_experts = num_experts
+        self.pipeline_stages = pipeline_stages
+        self.tensor_parallel = False  # set by parallel/mesh.py:shard_model
         p = patch_size
 
         self.patch_embed = Dense(p * p * channels, hidden, dtype)
@@ -194,12 +239,29 @@ class DiT(nn.Module):
         if num_classes is not None:
             self.class_emb = Embed(num_classes + 1, hidden, std=0.02)
         self.blocks = []
-        for i in range(depth):
-            moe_here = num_experts > 0 and (depth - 1 - i) % moe_every == 0
-            block = DiTBlock(hidden, heads, mlp_ratio, flash_attn, dtype, qkv_layout,
-                             einsum_attn, num_experts if moe_here else 0, capacity_factor)
-            self.add_module(f"block_{i}", block)
-            self.blocks.append(block)
+        if pipeline_stages > 0:
+            s = pipeline_stages
+            if depth % s:
+                raise ValueError(f"depth {depth} not divisible by pipeline_stages={s}")
+            if num_experts or seq_parallel or flash_attn:
+                raise ValueError(
+                    "pipeline_stages is incompatible with num_experts, "
+                    "seq_parallel and flash_attn (stages must be "
+                    "structurally identical; see models/diffusion/"
+                    "pipeline.py)"
+                )
+            self.pipeline = PipelineBlocks(
+                s, pipeline_microbatches or s, depth // s, hidden, heads, mlp_ratio,
+                dtype, qkv_layout, einsum_attn or not pp_fused_attn)
+        else:
+            self.pipeline = None
+            for i in range(depth):
+                moe_here = num_experts > 0 and (depth - 1 - i) % moe_every == 0
+                block = DiTBlock(hidden, heads, mlp_ratio, flash_attn, dtype, qkv_layout,
+                                 einsum_attn, num_experts if moe_here else 0,
+                                 capacity_factor, seq_parallel)
+                self.add_module(f"block_{i}", block)
+                self.blocks.append(block)
         self.final_modulation = Dense(hidden, 2 * hidden, zero_init=True)
         self.final_norm = LayerNorm()
         self.head = Dense(hidden, p * p * self.output_channels, zero_init=True)
@@ -261,11 +323,19 @@ class DiT(nn.Module):
                 )
             c = c + self.class_emb(labels)
 
+        tp = mesh_lib.group(mesh_lib.MODEL_AXIS) if self.tensor_parallel else None
+        sp = self.tensor_parallel and self.seq_parallel
+        if sp:  # the residual stream: this rank's tokens between the blocks
+            tok = C.split_tokens(tok, tp)
         auxes = []
+        if self.pipeline is not None:
+            tok = self.pipeline(tok, c)
         for block in self.blocks:
             tok, aux = block(tok, c)
             if aux is not None:
                 auxes.append(aux)
+        if sp:
+            tok = C.join_tokens(tok, tp)
 
         # final layer: adaLN (zero-init) -> zero-init linear head
         shift, scale = self.final_modulation(F.silu(c)).chunk(2, dim=-1)

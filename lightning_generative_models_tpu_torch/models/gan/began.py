@@ -23,6 +23,7 @@ from torch import nn
 
 from lightning_generative_models_tpu_torch.models.gan.gan import GAN
 from lightning_generative_models_tpu_torch.models.modules.layers import Conv, Dense
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 
 
 class BEGANDecoder(nn.Module):
@@ -131,7 +132,8 @@ class BEGAN(GAN):
         g_loss = self._ae_loss(x_hat)
         self._optimize("G", g_loss, self.G)
         with torch.no_grad():
-            balance = self.gamma * l_real - g_loss
+            # The global batch's balance: the losses' means over the data ranks.
+            balance = mesh_lib.data_mean(self.gamma * l_real - g_loss)
             self.k_t.copy_(torch.clamp(k_t + self.lambda_k * balance, 0.0, 1.0))
         self.step += 1
         metrics = {"d_loss": d_loss, "g_loss": g_loss, "l_real": l_real,

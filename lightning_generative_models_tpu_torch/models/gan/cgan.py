@@ -112,9 +112,10 @@ class CGAN(ClassConditional, GAN):
         return self.D(torch.cat([x, planes], dim=-1), keep)
 
     def dropout_masks(self, generator: Optional[torch.Generator], n: int) -> torch.Tensor:
-        """Three keep-masks [3, n, features] (the real, fake and G-phase passes)."""
-        return torch.rand(3, n, self.D.num_features, generator=generator,
-                          device=self.device) < 1.0 - DROPOUT
+        """Three keep-masks [3, n, features] (the real, fake and G-phase passes), drawn
+        example-major so that a data rank's rows are the global batch's."""
+        return torch.rand(n, 3, self.D.num_features, generator=generator,
+                          device=self.device).transpose(0, 1) < 1.0 - DROPOUT
 
     def train_step(self, batch: Dict, generator: Optional[torch.Generator] = None,
                    flip: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None,

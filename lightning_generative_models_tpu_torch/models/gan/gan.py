@@ -46,6 +46,7 @@ from lightning_generative_models_tpu_torch.models.modules.layers import (
 )
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
 from lightning_generative_models_tpu_torch.ops.preprocess import prepare_batch
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 from lightning_generative_models_tpu_torch.train.state import (
     apply_grads,
     count_params,
@@ -311,7 +312,7 @@ class ClassConditional:
 
     def sample(self, generator: Optional[torch.Generator], num_samples: int,
                z: Optional[torch.Tensor] = None) -> torch.Tensor:
-        labels = torch.arange(num_samples, device=self.device) % self.num_classes
+        labels = mesh_lib.example_ids(num_samples, self.device) % self.num_classes
         return self.sample_classes(generator, labels, z=z)
 
     def serving_chain(self, batch_size: int, method=None, steps=None, labels=None):

@@ -30,6 +30,7 @@ from lightning_generative_models_tpu_torch.models.gan.acgan import ConvFeatures
 from lightning_generative_models_tpu_torch.models.gan.dcgan import ConvGenerator
 from lightning_generative_models_tpu_torch.models.gan.gan import GAN
 from lightning_generative_models_tpu_torch.models.modules.layers import BatchNorm, Dense
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 from lightning_generative_models_tpu_torch.train.state import make_adam
 from lightning_generative_models_tpu_torch.utils.draws import Draw
 
@@ -121,8 +122,11 @@ class InfoGAN(GAN):
         dev = self.device
         z = torch.randn(n, self.latent_dim, generator=generator, device=dev)
         if structured:
-            start = torch.rand(1, self.continuous_code_dim, generator=generator, device=dev)
-            end = torch.rand(1, self.continuous_code_dim, generator=generator, device=dev)
+            with mesh_lib.replicated_draws():  # the grid's two ends, every rank's alike
+                start = torch.rand(1, self.continuous_code_dim, generator=generator,
+                                   device=dev)
+                end = torch.rand(1, self.continuous_code_dim, generator=generator,
+                                 device=dev)
             return self._structured_codes(z, start, end)
         cats = torch.randint(0, self.categorical_code_dim, (n,), generator=generator,
                              device=dev)
@@ -132,11 +136,15 @@ class InfoGAN(GAN):
     def _structured_codes(self, z: torch.Tensor, start: torch.Tensor, end: torch.Tensor
                           ) -> Codes:
         """The structured codes of ``z``'s n rows: the categories step every n // cat
-        rows, the continuous codes go linearly from ``start`` to ``end`` [1, cont]."""
+        rows, the continuous codes go linearly from ``start`` to ``end`` [1, cont]. Under
+        ``global_draws`` the rows are this rank's of the global batch's grid."""
         n, dev = z.shape[0], z.device
-        step = max(n // self.categorical_code_dim, 1)
-        cats = (torch.arange(n, device=dev) // step) % self.categorical_code_dim
-        alpha = torch.linspace(0, 1, n, device=dev)[:, None]
+        total = mesh_lib.global_rows(n)
+        ids = mesh_lib.example_ids(n, dev)
+        step = max(total // self.categorical_code_dim, 1)
+        cats = (ids // step) % self.categorical_code_dim
+        alpha = torch.linspace(0, 1, total, device=dev)
+        alpha = (alpha if total == n else alpha[ids])[:, None]
         cont = start * (1 - alpha) + end * alpha
         return z, F.one_hot(cats, self.categorical_code_dim).float(), cont
 

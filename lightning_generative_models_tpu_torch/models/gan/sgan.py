@@ -20,6 +20,7 @@ from lightning_generative_models_tpu_torch.models.gan.acgan import ConvFeatures
 from lightning_generative_models_tpu_torch.models.gan.dcgan import ConvGenerator
 from lightning_generative_models_tpu_torch.models.gan.gan import GAN
 from lightning_generative_models_tpu_torch.models.modules.layers import Dense
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 
 
 class ClassifierDiscriminator(ConvFeatures):
@@ -79,18 +80,23 @@ class SGAN(GAN):
         self.D.train()
         x_hat = self.G(z)
 
-        n_labeled = max(int(b * self.labeled_fraction), 1)
-        labeled = (torch.arange(b, device=self.device) < n_labeled).float()
+        # The labeled rows are the global batch's first ones; the supervised mean is over
+        # all of them (each data rank's share of the sum, over the global count, times the
+        # ranks the optimizer's average divides by).
+        ranks = mesh_lib.data_size()
+        n_labeled = max(int(b * ranks * self.labeled_fraction), 1)
+        labeled = (mesh_lib.example_ids(b, self.device) < n_labeled).float()
         fake_labels = torch.full((b,), self.num_classes, dtype=torch.long, device=self.device)
         logits_real = self.D(x)
         logits_fake = self.D(x_hat.detach())
         ce_real = F.cross_entropy(logits_real, labels, reduction="none")
-        supervised = torch.sum(ce_real * labeled) / torch.sum(labeled)
+        count = mesh_lib.data_mean(torch.sum(labeled)) * ranks
+        supervised = ranks * torch.sum(ce_real * labeled) / count
         unsup_real = -torch.mean(torch.log(1.0 - self._p_fake(logits_real) + 1e-8))
         unsup_fake = F.cross_entropy(logits_fake, fake_labels)
         d_loss = supervised + unsup_real + unsup_fake
         hits = (logits_real[:, :self.num_classes].argmax(-1) == labels).float()
-        acc = torch.sum(hits * labeled) / torch.sum(labeled)
+        acc = ranks * torch.sum(hits * labeled) / count
         self._optimize("D", d_loss, self.D)
 
         g_loss, _ = self._g_loss(x_hat)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
+
 
 def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     """Fill ``t`` from N(0, std^2), drawn on the CPU generator ``generator`` so that a
@@ -221,8 +223,9 @@ class BatchNorm(nn.Module):
     every axis but the last (NHWC maps, [B, F] features), statistics and output in f32.
 
     In train mode (``module.train()``) it normalizes by the batch's mean and its biased
-    variance E[x^2] - E[x]^2 clipped at 0, and moves the running buffers ``mean`` and
-    ``var`` (flax's ``batch_stats``) as ``ra = 0.99 ra + 0.01 batch``. torch's
+    variance E[x^2] - E[x]^2 clipped at 0 (over the ambient mesh's data ranks, the global
+    batch's, as JAX's one program on the sharded batch), and moves the running buffers
+    ``mean`` and ``var`` (flax's ``batch_stats``) as ``ra = 0.99 ra + 0.01 batch``. torch's
     ``BatchNorm2d`` keeps the unbiased variance with momentum 0.1, so the buffers move by
     hand here. In eval mode it normalizes by the buffers. The scale starts at
     1 + N(0, scale_std^2) (0: ones), the bias at 0.
@@ -262,8 +265,15 @@ class BatchNorm(nn.Module):
         x = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            if mesh_lib.data_size() > 1:
+                # The global batch's statistics: sums over the data ranks' rows.
+                count = x.numel() // x.shape[-1] * mesh_lib.data_size()
+                sums = mesh_lib.data_sum_grad(torch.stack([x.sum(dim=dims),
+                                                           (x * x).sum(dim=dims)]))
+                mean, mean2 = sums[0] / count, sums[1] / count
+            else:
+                mean, mean2 = x.mean(dim=dims), (x * x).mean(dim=dims)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             if self.move_stats:
                 self._move(mean, var)
         else:

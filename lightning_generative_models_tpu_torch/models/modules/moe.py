@@ -13,6 +13,13 @@ combine are JAX's two one-hot einsums, plain products on the card. The expert we
 are expert-major, as flax keeps them: ``wi [e, d, f]``, ``bi [e, f]``, ``wo [e, f, d]``,
 ``bo [e, d]``. The forward returns ``(out, aux)``: the aux loss is handed back, where
 flax sows it.
+
+Over torch.distributed ranks (``parallel/mesh.py``): ``f`` and ``P`` are means over the
+global batch, summed over the data ranks before their product (JAX takes them inside
+one program on the sharded batch). Under ``--strategy tp`` (``tensor_parallel``) each
+model rank holds ``e / tp`` experts (``wi``/``wo``/``bi``/``bo`` sliced on dim 0) and
+runs them on every token routed to them; the router stays whole and every rank routes
+alike, the combine is summed over the model ranks (expert parallelism).
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lightning_generative_models_tpu_torch.models.modules.layers import Dense, normal_
+from lightning_generative_models_tpu_torch.parallel import collectives as C
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 
 
 class MoEMlp(nn.Module):
@@ -38,6 +47,7 @@ class MoEMlp(nn.Module):
         self.bi = nn.Parameter(torch.zeros(num_experts, mlp_dim))
         self.wo = nn.Parameter(torch.empty(num_experts, mlp_dim, hidden))
         self.bo = nn.Parameter(torch.zeros(num_experts, hidden))
+        self.tensor_parallel = False  # set by parallel/mesh.py:shard_model
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         # flax's lecun_normal on a 3-d kernel counts the expert axis into the fan-in.
@@ -60,7 +70,11 @@ class MoEMlp(nn.Module):
         cap = self.capacity(n)
         onehot = F.one_hot(choice, e).float()
         gate = probs.gather(-1, choice[..., None])[..., 0]
-        aux = e * torch.sum(onehot.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+        f, p_mean = onehot.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+        if mesh_lib.data_size() > 1:
+            fp = mesh_lib.data_sum_grad(torch.stack([f, p_mean])) / mesh_lib.data_size()
+            f, p_mean = fp[0], fp[1]
+        aux = e * torch.sum(f * p_mean)
         # 0-based rank of each token within its expert; a rank >= cap matches no slot.
         slot = (torch.cumsum(onehot, dim=1) * onehot).sum(-1).long() - 1
         slots = torch.arange(cap, device=probs.device)
@@ -68,13 +82,25 @@ class MoEMlp(nn.Module):
         return dispatch, dispatch * gate[:, :, None, None], aux
 
     def forward(self, x: torch.Tensor):
-        """x [b, n, d] -> (out [b, n, d] in ``dtype``, the load-balancing loss)."""
+        """x [b, n, d] -> (out [b, n, d] in ``dtype``, the load-balancing loss). Under
+        tensor parallelism ``x`` is whole on every model rank and ``out`` is summed over
+        them."""
         probs, choice = self.route(x)
         dispatch, combine, aux = self.dispatch(probs, choice)
         dt = self.dtype
+        g = mesh_lib.group(mesh_lib.MODEL_AXIS) if self.tensor_parallel else None
+        if self.tensor_parallel:
+            # This rank's experts; the gradients of x and of the gates that leave
+            # through them are summed over the model ranks.
+            lo = C.rank(g) * self.wi.shape[0]
+            local = slice(lo, lo + self.wi.shape[0])
+            dispatch = dispatch[:, :, local]
+            combine = C.copy_to(combine, g)[:, :, local]
+            x = C.copy_to(x, g)
         xin = torch.einsum("bnec,bnd->ebcd", dispatch.to(dt), x.to(dt))
         h = torch.einsum("ebcd,edf->ebcf", xin, self.wi.to(dt))
         h = F.gelu(h + self.bi.to(dt)[:, None, None, :], approximate="tanh")
         out = torch.einsum("ebcf,efd->ebcd", h, self.wo.to(dt))
         out = out + self.bo.to(dt)[:, None, None, :]
-        return torch.einsum("bnec,ebcd->bnd", combine.to(dt), out), aux
+        out = torch.einsum("bnec,ebcd->bnd", combine.to(dt), out)
+        return C.reduce_from(out, g), aux

@@ -4,7 +4,8 @@ Counterpart of ``lightning_generative_models_tpu/models/modules/vector_quantizer
 nearest-code assignment through ``ops/vq.py`` (the CUDA kernel on the card), the
 straight-through estimator, the VQ loss with the reference's term naming, codebook
 perplexity, and the EMA variant's Laplace-smoothed cluster sizes and embedding sums,
-updated in place and only in training mode.
+updated in place and only in training mode. Over data ranks the counts and sums are the
+global batch's (summed over the ranks before the update and the perplexity).
 
 The JAX package keeps the EMA codebook in a flax ``codebook`` collection; here it is
 three buffers (``embedding``, ``ema_cluster_size``, ``ema_embedding``), which
@@ -21,6 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lightning_generative_models_tpu_torch.ops.vq import nearest_codes
+from lightning_generative_models_tpu_torch.parallel import collectives as C
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _assign_codes(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -40,6 +43,20 @@ def _counts(indices: torch.Tensor, num_embeddings: int) -> torch.Tensor:
     ones = torch.ones(indices.shape[0], dtype=torch.float32, device=indices.device)
     return torch.zeros(num_embeddings, dtype=torch.float32,
                        device=indices.device).index_add_(0, indices.long(), ones)
+
+
+def _global_sums(counts: torch.Tensor, dw, rows: int):
+    """(code counts, the EMA's embedding sums, rows) of the global batch: summed over
+    the ambient mesh's data ranks (one collective), so that N ranks move the codebook as
+    one device does; unchanged on one rank."""
+    ranks = mesh_lib.data_size()
+    if ranks == 1:
+        return counts, dw, rows
+    packed = counts if dw is None else torch.cat([counts[:, None], dw], dim=1)
+    packed = C.all_reduce_(packed.detach().contiguous(), mesh_lib.group(mesh_lib.DATA_AXIS))
+    if dw is None:
+        return packed, None, rows * ranks
+    return packed[:, 0].contiguous(), packed[:, 1:].contiguous(), rows * ranks
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
@@ -79,8 +96,9 @@ class VectorQuantizer(nn.Module):
         q_latent_loss = torch.mean((quantized.detach() - latents) ** 2)
         vq_loss = e_latent_loss + self.commitment_cost * q_latent_loss
 
-        perplexity = perplexity_from_counts(_counts(indices, self.num_embeddings),
-                                            flat.shape[0])
+        counts, _, rows = _global_sums(_counts(indices, self.num_embeddings), None,
+                                       flat.shape[0])
+        perplexity = perplexity_from_counts(counts, rows)
         quantized = latents + (quantized - latents).detach()  # straight-through
         return quantized, vq_loss, perplexity
 
@@ -120,17 +138,21 @@ class VectorQuantizerEMA(nn.Module):
         flat = latents.reshape(-1, d)
         indices = _assign_codes(flat, self.embedding)
         counts = _counts(indices, self.num_embeddings)
-        perplexity = perplexity_from_counts(counts, flat.shape[0])
-
+        dw = None
         if self.training:
             with torch.no_grad():
                 one_hot = F.one_hot(indices.long(), self.num_embeddings).to(flat.dtype)
+                dw = one_hot.T @ flat.detach()  # [K, D]
+        counts, dw, rows = _global_sums(counts, dw, flat.shape[0])
+        perplexity = perplexity_from_counts(counts, rows)
+
+        if self.training:
+            with torch.no_grad():
                 decay = self.decay
                 new_cluster = self.ema_cluster_size * decay + counts * (1 - decay)
                 n = torch.sum(new_cluster)
                 cluster_weights = ((new_cluster + self.epsilon)
                                    / (n + self.num_embeddings * self.epsilon) * n)
-                dw = one_hot.T @ flat.detach()  # [K, D]
                 new_ema_emb = self.ema_embedding * decay + dw * (1 - decay)
                 self.ema_cluster_size.copy_(new_cluster)
                 self.ema_embedding.copy_(new_ema_emb)

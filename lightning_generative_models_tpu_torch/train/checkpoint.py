@@ -8,6 +8,13 @@ weights, optimizer state, step) written to a temporary file and moved into place
 with ``os.replace``, so an interrupted save never leaves half a checkpoint. Restore
 reads it back with ``torch.load(..., weights_only=True)``. The JAX package's
 migration of pre-round-2 orbax layouts has nothing to migrate here.
+
+Over torch.distributed ranks every rank saves together: the model's state is made
+whole on every rank (``parallel/mesh.py:gathered``: tensor-parallel and ``fsdp`` shards
+and their moments all-gathered, pipeline stages broadcast from their ranks), rank 0
+writes it in the format above, and the others wait at a barrier. A restore reads the whole state on
+every rank before the trainer lays it out, so a sharded run's checkpoint resumes on one
+device, and a single device's under any strategy, as JAX's layout-independent restore.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from pathlib import Path
 from typing import Any, Tuple
 
 import torch
+
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 
 logger = logging.getLogger(__name__)
 
@@ -59,9 +68,12 @@ class CheckpointManager:
     def _save(self, which: str, model: Any, step: int, epoch: int) -> None:
         path = self.directory / which
         tmp = path.with_name(f"{which}.tmp")
-        torch.save(model.state_dict(), tmp)
-        os.replace(tmp, path)
-        self._write_meta(which, step, epoch)
+        with mesh_lib.gathered(model):
+            if mesh_lib.is_main_process():
+                torch.save(model.state_dict(), tmp)
+                os.replace(tmp, path)
+                self._write_meta(which, step, epoch)
+        mesh_lib.barrier()
 
     def save_last(self, model: Any, step: int, epoch: int) -> None:
         self._save("last", model, step, epoch)

@@ -9,9 +9,15 @@ default; cpu only when asked). ``--eval test`` evaluates the test split from the
 ``--unroll_steps k`` runs k optimisation steps a dispatch (one CUDA graph of k steps on
 the card, a loop on the CPU), ``--profile_steps start:stop`` writes one profiler trace
 under ``<run>/profile/``, and ``--mu_dtype`` / ``--nu_dtype bfloat16`` keep Adam's
-moments in bf16 (a resume must pass the same dtypes). ``--strategy`` fsdp/tp/pp raises
-``NotImplementedError`` naming ROADMAP.md (the port trains on one device). Runs write to
-``experiments/<model name>/<experiment_name>/``: ``metrics.jsonl``,
+moments in bf16 (a resume must pass the same dtypes). ``--strategy`` picks the layout
+over the ranks (``--tp_size``, ``--pp_size``), as the root ``train.py``'s does over the
+devices; launched by ``torchrun`` each rank joins its process group (NCCL on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and rank 0 writes:
+
+    torchrun --nproc_per_node 4 -m lightning_generative_models_tpu_torch.train \
+        --config_path configs/diffusion/dit_cifar10_tp.json --strategy tp --tp_size 2
+
+Runs write to ``experiments/<model name>/<experiment_name>/``: ``metrics.jsonl``,
 ``samples/*.png``, ``checkpoints/{last,best}`` and their meta files.
 """
 
@@ -34,6 +40,10 @@ from lightning_generative_models_tpu_torch.data.datamodule import (
 )
 from lightning_generative_models_tpu_torch.experiment.logger import ExperimentLogger
 from lightning_generative_models_tpu_torch.ops.common import resolve_device
+from lightning_generative_models_tpu_torch.parallel.mesh import (
+    initialize_distributed,
+    is_main_process,
+)
 from lightning_generative_models_tpu_torch.registry import load_model, resolve_model_class
 from lightning_generative_models_tpu_torch.train.state import (
     set_default_mu_dtype,
@@ -53,12 +63,30 @@ def setup_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--check_val_every_n_epoch", type=int, default=5)
     parser.add_argument("--max_epochs", type=int, default=-1)
     parser.add_argument("--max_steps", type=int, default=-1)
-    parser.add_argument("--strategy", type=str, default="data_parallel",
-                        choices=("data_parallel", "ddp", "auto", "fsdp", "tp", "pp"),
-                        help="data_parallel/ddp/auto: one device; fsdp/tp/pp are not "
-                        "ported")
-    parser.add_argument("--tp_size", type=int, default=0, help="for --strategy tp")
-    parser.add_argument("--pp_size", type=int, default=0, help="for --strategy pp")
+    parser.add_argument(
+        "--strategy", type=str, default="data_parallel",
+        choices=("data_parallel", "ddp", "auto", "fsdp", "tp", "pp"),
+        help="data_parallel/ddp/auto: params replicated, batch sharded over "
+        "the device mesh (reference DDP autodetect). fsdp: additionally "
+        "shard params/optimizer state/EMA over the data axis (ZeRO-3: params "
+        "all-gathered at use, gradients reduce-scattered) — identical math, "
+        "per-device state memory divided by the mesh size. tp: Megatron tensor parallelism "
+        "over a (data, model) mesh for DiT-backbone models (requires "
+        "qkv_layout='h3d' in the model config; --tp_size sets the model "
+        "axis). pp: GPipe pipeline parallelism over a (data, stage) mesh "
+        "for DiT-backbone models (requires pipeline_stages == --pp_size in "
+        "the model config).",
+    )
+    parser.add_argument(
+        "--tp_size", type=int, default=0,
+        help="model-axis size for --strategy tp (0 = all devices); must "
+        "divide both the device count and the DiT head count",
+    )
+    parser.add_argument(
+        "--pp_size", type=int, default=0,
+        help="stage-axis size for --strategy pp (0 = all devices); must "
+        "divide the device count and equal the model's pipeline_stages",
+    )
     parser.add_argument("--accumulate_grad_batches", type=int, default=1)
     parser.add_argument("--precision", type=str, default=None,
                         help="'bf16' forces bfloat16 compute, '32' float32, for models "
@@ -106,13 +134,7 @@ def setup_arguments(argv=None) -> argparse.Namespace:
     return args
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    def refuse(what: str) -> None:
-        raise NotImplementedError(f"{what} is not ported to the PyTorch package; see "
-                                  "ROADMAP.md, Queue 1")
-
-    if args.strategy in ("fsdp", "tp", "pp"):
-        refuse(f"--strategy {args.strategy} (#11, scale-out)")
+def _check_options(args: argparse.Namespace) -> None:
     resolve_model_class(args.config["model"]["name"])  # raises for an unknown name
     set_default_mu_dtype(None if args.mu_dtype == "float32" else args.mu_dtype)
     set_default_nu_dtype(None if args.nu_dtype == "float32" else args.nu_dtype)
@@ -121,17 +143,20 @@ def _refuse_unported(args: argparse.Namespace) -> None:
 def main(argv=None):
     """Run the CLI; returns the trained model (with ``--eval test``, the test
     metrics)."""
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     args = setup_arguments(argv)
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    _check_options(args)
+    device = resolve_device(initialize_distributed(args.device))
+    main_rank = is_main_process()
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
+                        format="%(levelname)s %(name)s: %(message)s")
 
     os.makedirs(args.experiment_dir, exist_ok=True)
-    dump = {k: v for k, v in vars(args).items() if k != "config"}
-    with open(os.path.join(args.experiment_dir, "args.json"), "w") as f:
-        json.dump(dump, f, indent=2, default=str)
-    with open(os.path.join(args.experiment_dir, Path(args.config_path).name), "w") as f:
-        json.dump(args.config, f, indent=2)
+    if main_rank:
+        dump = {k: v for k, v in vars(args).items() if k != "config"}
+        with open(os.path.join(args.experiment_dir, "args.json"), "w") as f:
+            json.dump(dump, f, indent=2, default=str)
+        with open(os.path.join(args.experiment_dir, Path(args.config_path).name), "w") as f:
+            json.dump(args.config, f, indent=2)
 
     cls = resolve_model_class(args.config["model"]["name"])
     if args.precision and "use_bf16" in inspect.signature(cls.__init__).parameters:
@@ -147,7 +172,7 @@ def main(argv=None):
         args.experiment_dir, project=args.project, name=args.experiment_name,
         config={**args.config["model"], "dataset": args.config["dataset"]},
         use_wandb=args.wandb, resume=args.resume, run_id=args.id,
-    )
+    ) if main_rank else None
     trainer = Trainer(
         model=model,
         datamodule=datamodule,
@@ -161,6 +186,8 @@ def main(argv=None):
         sample_every_n_steps=args.sample_every_n_steps,
         grad_accum_mode=args.grad_accum_mode,
         strategy=args.strategy,
+        tp_size=args.tp_size,
+        pp_size=args.pp_size,
         unroll_steps=args.unroll_steps,
         profile_steps=args.profile_steps,
         debug_nans=args.debug_nans,
@@ -172,4 +199,5 @@ def main(argv=None):
             return metrics
         return trainer.fit(ckpt_path=args.ckpt_path, resume=args.resume)
     finally:
-        exp_logger.finish()
+        if exp_logger is not None:
+            exp_logger.finish()

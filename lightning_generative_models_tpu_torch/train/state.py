@@ -6,7 +6,11 @@ modules and its optimizer, and the EMA update is in place. ``Adam`` is optax's
 ``scale_by_adam`` chain written out with foreach ops, its step count on the device (so
 that a CUDA graph of k steps replays each step's bias correction), and its moments in
 the process-wide dtypes of ``set_default_mu_dtype`` / ``set_default_nu_dtype``
-(``--mu_dtype`` / ``--nu_dtype bfloat16``), rounded where optax rounds them.
+(``--mu_dtype`` / ``--nu_dtype bfloat16``), rounded where optax rounds them. Both
+optimizers average the gradients over the ambient mesh's data ranks before they update
+(``parallel/mesh.py:grads_for_update``; under ``fsdp`` a large leaf, its gradient and its
+moments are this rank's shard), so a model's step on N ranks is one device's on the
+global batch.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 
 # Process-wide dtypes of Adam's moments, read by ``make_adam`` when a model builds its
 # optimizer: None keeps the parameters' dtype (float32), as optax's default does.
@@ -86,7 +92,8 @@ class Adam(torch.optim.Optimizer):
     def _shared_step(self, params: list) -> torch.Tensor:
         """The parameters' step count: one 0-dim f32 tensor on their device that every
         state holds (made at 0, or from the count that a checkpoint or a JAX state left
-        in the states), and their moments, made at zero where missing."""
+        in the states), and their moments, made at zero where missing in the shape of
+        the parameters (under ``fsdp``, a shard)."""
         states = [self.state[p] for p in params]
         found = [s["step"] for s in states if "step" in s]
         step = found[0] if found else None
@@ -118,8 +125,8 @@ class Adam(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
+            grads = mesh_lib.grads_for_update(params)
             step = self._shared_step(params)
-            grads = [p.grad for p in params]
             b1, b2 = group["betas"]
             if group["weight_decay"]:
                 grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
@@ -198,7 +205,7 @@ class RMSprop(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            grads = [p.grad for p in params]
+            grads = mesh_lib.grads_for_update(params)
             nus = []
             for p in params:
                 if "nu" not in self.state[p]:

@@ -1,4 +1,4 @@
-"""Trainer: the fit loop on one device.
+"""Trainer: the fit loop, on one device or over torch.distributed ranks.
 
 Counterpart of ``lightning_generative_models_tpu/train/trainer.py`` with the fit
 loop's semantics kept: max epochs / max steps, ``check_val_every_n_epoch``,
@@ -34,8 +34,23 @@ the parameter counts, the parameter table and the per-layer tables of the model'
 Randomness: where the JAX trainer folds the step into its run key, each step here
 draws from a generator seeded by (seed, stream, step), so a resumed run draws what
 the uninterrupted run would have drawn, and an unrolled dispatch what its k single steps
-would have drawn; each evaluation batch's fakes come from their own generator. Not
-ported: meshes and the fsdp/tp/pp strategies; see ROADMAP.md.
+would have drawn; each evaluation batch's fakes come from their own generator.
+
+Strategies (JAX ``trainer.py``; ``parallel/mesh.py``): ``data_parallel``/``ddp``/``auto``
+average the gradients over the data ranks, ``fsdp`` also shards the large weights, the
+EMA weights and Adam's moments over them (ZeRO-3), ``tp`` is Megatron tensor parallelism
+of a DiT over a (data, model) mesh (``tp_size`` ranks on ``model``, 0: all), ``pp`` the
+GPipe pipeline of a DiT over a (data, stage) mesh (``pp_size``, 0: all;
+``pipeline_stages == pp_size``), with the JAX trainer's checks and texts. Every rank reads the identical seeded global batch and keeps
+its data rank's rows; a step draws the global batch's draws and keeps its rows
+(``global_draws``), so a step on N ranks is one device's on the global batch. The
+logged metrics and the evaluation means are means over the data ranks; the sample grid
+and FID's fakes are sampled sharded over them and gathered. Rank 0 writes the logs,
+images and checkpoints (whole tensors: a sharded run resumes on one device and the
+reverse). ``unroll_steps`` on the card captures the steps' NCCL collectives in the CUDA
+graph; under ``pp`` over more than one stage rank, whose stages send and receive, it runs
+the k steps as an eager loop, decided by strategy before the run and logged
+(``unroll_in_graph``).
 """
 
 from __future__ import annotations
@@ -57,9 +72,11 @@ from lightning_generative_models_tpu_torch.metrics.generative import (
     FrechetInceptionDistance,
     InceptionScore,
     KernelInceptionDistance,
+    over_data_ranks,
     to_uint8,
 )
 from lightning_generative_models_tpu_torch.models.base import GenerativeModel
+from lightning_generative_models_tpu_torch.parallel import mesh as mesh_lib
 from lightning_generative_models_tpu_torch.train.checkpoint import CheckpointManager
 from lightning_generative_models_tpu_torch.train.graphs import StepGraphs
 from lightning_generative_models_tpu_torch.utils import summary
@@ -68,11 +85,19 @@ from lightning_generative_models_tpu_torch.utils.seed import seed_everything
 
 logger = logging.getLogger(__name__)
 
-STRATEGIES = ("data_parallel", "ddp", "auto")
-NOT_PORTED_STRATEGIES = ("fsdp", "tp", "pp")
+STRATEGIES = ("data_parallel", "ddp", "auto", "fsdp", "tp", "pp")
 
 # Seed streams of the run's generators.
 _TRAIN, _VAL, _SAMPLE, _GRIDS, _FAKES = 0, 1, 2, 3, 4
+
+
+def unroll_in_graph(strategy: str, mesh: mesh_lib.Mesh) -> bool:
+    """Whether ``--unroll_steps`` runs its k steps on the card as one CUDA graph, decided
+    by strategy before the run: every strategy's collectives are NCCL all-reduces,
+    all-gathers and reduce-scatters, which a graph captures, except ``pp`` over more than
+    one stage rank, whose stages send and receive activations; there the k steps are an
+    eager loop."""
+    return not (strategy == "pp" and mesh.size(mesh_lib.STAGE_AXIS) > 1)
 
 
 class Trainer:
@@ -95,18 +120,34 @@ class Trainer:
         unroll_steps: int = 1,
         profile_steps: Optional[Tuple[int, int]] = None,
         debug_nans: bool = False,
+        tp_size: int = 0,
+        pp_size: int = 0,
     ):
-        if strategy in NOT_PORTED_STRATEGIES:
-            raise NotImplementedError(
-                f"strategy {strategy!r} is not ported to the PyTorch package (it trains "
-                "on one device); see ROADMAP.md, Queue 1 #11"
-            )
         if strategy not in STRATEGIES:
-            raise ValueError(f"strategy must be data_parallel|ddp|auto, got {strategy!r}")
+            raise ValueError(
+                "strategy must be data_parallel|ddp|auto|fsdp|tp|pp, "
+                f"got {strategy!r}"
+            )
         self.model = model
         self.datamodule = datamodule
         self.experiment_dir = Path(experiment_dir)
-        self.logger = exp_logger or ExperimentLogger(self.experiment_dir)
+        self.strategy = strategy
+        self.mesh = mesh_lib.strategy_mesh(strategy, tp_size, pp_size)
+        if strategy == "tp":
+            mesh_lib.validate_tp(model, self.mesh)
+        elif strategy == "pp":
+            mesh_lib.validate_pp(model, self.mesh)
+        elif getattr(getattr(model, "unet", None), "seq_parallel", False):
+            logger.warning(
+                "model config sets seq_parallel=true but strategy=%r — "
+                "sequence parallelism only takes effect under --strategy tp",
+                strategy,
+            )
+        self.main = mesh_lib.is_main_process()
+        if self.main:
+            self.logger = exp_logger or ExperimentLogger(self.experiment_dir)
+        else:  # rank 0 writes
+            self.logger = _NullLogger()
         self.device = model.device
         self.max_epochs = max_epochs
         self.max_steps = max_steps
@@ -128,7 +169,14 @@ class Trainer:
             raise ValueError("unroll_steps>1 is incompatible with scan grad-accum")
         self._graphs: Optional[StepGraphs] = None
         if self.unroll_steps > 1 and self.device.type == "cuda":
-            self._graphs = StepGraphs(model, self.unroll_steps, model.train_step, self.device)
+            if unroll_in_graph(strategy, self.mesh):
+                self._graphs = StepGraphs(model, self.unroll_steps, model.train_step,
+                                          self.device)
+            else:
+                logger.info("unroll_steps %d under pp over %d stage ranks: an eager loop "
+                            "of %d steps a dispatch (no CUDA graph holds the stages' "
+                            "send/recv)", self.unroll_steps,
+                            self.mesh.size(mesh_lib.STAGE_AXIS), self.unroll_steps)
         self.profile_steps = profile_steps
         self.debug_nans = debug_nans
         self._profiler: Optional[torch.profiler.profile] = None
@@ -144,6 +192,7 @@ class Trainer:
     # -- public ------------------------------------------------------------------
     def fit(self, ckpt_path: Optional[str] = None, resume: bool = False) -> Any:
         seed_everything(self.seed)
+        mesh_lib.set_mesh(None)  # whole weights until shard_model
         self.model.init_params(torch.Generator().manual_seed(self.seed))
         start_epoch = 0
         self.global_step = 0
@@ -154,6 +203,7 @@ class Trainer:
             mgr = CheckpointManager(Path(ckpt_path).parent, monitor=self.model.monitor)
             self.global_step, start_epoch = mgr.restore(self.model, Path(ckpt_path).name)
         self._log_model_summary()
+        mesh_lib.shard_model(self.model, self.strategy, self.mesh)
 
         prev_handler = signal.getsignal(signal.SIGTERM)
         signal.signal(signal.SIGTERM, self._handle_sigterm)
@@ -170,6 +220,11 @@ class Trainer:
     # -- internals -------------------------------------------------------------------
     def _seed(self, stream: int, index: int = 0) -> int:
         return int(np.random.SeedSequence([self.seed, stream, index]).generate_state(1)[0])
+
+    def _rows(self, batch: Any) -> int:
+        """This rank's rows of a batch (a stacked one's second axis)."""
+        first = next(iter((batch[0] if isinstance(batch, list) else batch).values()))
+        return first.shape[1] if self.unroll_steps > 1 else first.shape[0]
 
     def _generator(self, stream: int, index: int = 0) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self._seed(stream, index))
@@ -247,16 +302,17 @@ class Trainer:
         return 1000
 
     def _train_batches(self, epoch: int) -> Iterator[Any]:
-        """Batches on the device: one per step, a list of k micro-batches per step in
-        scan mode, or the k micro-batches merged into one in concat mode."""
-        it = prefetch_to_device(self.datamodule.train_batches(epoch), self.device)
+        """Batches on the device, this rank's rows of each: one per step, a list of k
+        micro-batches per step in scan mode, or the k micro-batches merged into one (on the
+        host, before the rows are cut) in concat mode."""
+        host = self.datamodule.train_batches(epoch)
         k = self.accumulate_grad_batches
-        if k > 1:
-            grouped = _group(it, k)
-            if self.grad_accum_mode == "scan":
-                return grouped
-            it = ({key: torch.cat([b[key] for b in group]) for key in group[0]}
-                  for group in grouped)
+        if k > 1 and self.grad_accum_mode != "scan":
+            host = ({key: np.concatenate([b[key] for b in group]) for key in group[0]}
+                    for group in _group(host, k))
+        it = prefetch_to_device(map(mesh_lib.local_rows, host), self.device)
+        if k > 1 and self.grad_accum_mode == "scan":
+            return _group(it, k)
         if self.unroll_steps > 1:
             # [k, B, ...] stacks of k steps' batches (JAX ``_stack_batches``).
             return ({key: torch.stack([b[key] for b in group]) for key in group[0]}
@@ -266,17 +322,19 @@ class Trainer:
     def _dispatch(self, batch: Any) -> Dict[str, torch.Tensor]:
         """One dispatch: a step, or ``unroll_steps`` steps on a stacked batch (a CUDA
         graph on the card, a loop on the CPU); the last step's metrics."""
-        if self.unroll_steps <= 1:
-            return self._train_step(batch)
-        seeds = [self._seed(_TRAIN, self.global_step + i) for i in range(self.unroll_steps)]
-        if self._graphs is not None:
-            return self._graphs(batch, seeds)
-        metrics = None
-        for i, seed in enumerate(seeds):
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-            metrics = self.model.train_step({key: v[i] for key, v in batch.items()},
-                                            generator)
-        return metrics
+        with mesh_lib.global_draws(self._rows(batch)):
+            if self.unroll_steps <= 1:
+                return self._train_step(batch)
+            seeds = [self._seed(_TRAIN, self.global_step + i)
+                     for i in range(self.unroll_steps)]
+            if self._graphs is not None:
+                return self._graphs(batch, seeds)
+            metrics = None
+            for i, seed in enumerate(seeds):
+                generator = torch.Generator(device=self.device).manual_seed(seed)
+                metrics = self.model.train_step({key: v[i] for key, v in batch.items()},
+                                                generator)
+            return metrics
 
     def _start_profile(self) -> None:
         if self.profile_steps and self._profiler is None and not self._profiled \
@@ -337,7 +395,8 @@ class Trainer:
                 if crossed(self.log_every_n_steps, prev_step, self.global_step) \
                         or prev_step == 0 or is_last:
                     # Reading the metrics waits for the step: only on logging steps.
-                    metrics = {k: float(v) for k, v in metrics.items()}
+                    metrics = {k: float(mesh_lib.data_mean(torch.as_tensor(v)))
+                               for k, v in metrics.items()}
                     dt = time.perf_counter() - t0
                     metrics["images_per_sec"] = images_per_step / max(dt, 1e-9)
                     metrics["epoch"] = epoch
@@ -376,12 +435,14 @@ class Trainer:
         "best"; freshly initialised weights, with a warning, when there is none), as
         validation evaluates; the keys are prefixed ``test_`` and logged."""
         seed_everything(self.seed)
+        mesh_lib.set_mesh(None)
         self.model.init_params(torch.Generator().manual_seed(self.seed))
         if self.ckpt.has_checkpoint(which):
             self.global_step, _ = self.ckpt.restore(self.model, which)
         else:
             logger.warning("No '%s' checkpoint under %s; testing freshly initialized "
                            "weights.", which, self.ckpt.directory)
+        mesh_lib.shard_model(self.model, self.strategy, self.mesh)
         means = self._eval_over(self.datamodule.test_batches(), "test")
         renamed = {(k.replace("val_", "test_", 1) if k.startswith("val_") else f"test_{k}"): v
                    for k, v in means.items()}
@@ -396,20 +457,25 @@ class Trainer:
         sums: Dict[str, float] = {}
         count = 0
         gen_metrics = self._generative_metrics()
-        for batch in prefetch_to_device(batches, self.device):
-            metrics = self.model.eval_step(batch, self._generator(_VAL, count))
-            self._check_nans(f"{split} batch {count}", metrics)
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + float(v)
-            if gen_metrics:
-                # A generator per batch: fakes drawn from one generator state would
-                # repeat one batch, and FID's covariance would be over its copies.
-                self._update_generative_metrics(batch, self._generator(_FAKES, count),
-                                                gen_metrics)
+        for batch in prefetch_to_device(map(mesh_lib.local_rows, batches), self.device):
+            with mesh_lib.global_draws(next(iter(batch.values())).shape[0]):
+                metrics = self.model.eval_step(batch, self._generator(_VAL, count))
+                self._check_nans(f"{split} batch {count}", metrics)
+                for k, v in metrics.items():
+                    sums[k] = sums.get(k, 0.0) + float(v)
+                if gen_metrics:
+                    # A generator per batch: fakes drawn from one generator state would
+                    # repeat one batch, and FID's covariance would be over its copies.
+                    self._update_generative_metrics(
+                        batch, self._generator(_FAKES, count), gen_metrics)
             count += 1
         if count == 0:
             return {}
-        means = {k: v / count for k, v in sums.items()}
+        # The means over the data ranks: the global batches' means.
+        means = dict(zip(sums, (mesh_lib.data_mean(torch.tensor(list(sums.values()),
+                                                                dtype=torch.float64,
+                                                                device=self.device))
+                                / count).tolist()))
         if gen_metrics:
             means.update(self._compute_generative_metrics(gen_metrics))
         return means
@@ -419,7 +485,8 @@ class Trainer:
             return {}
         if not hasattr(self, "_gen_metric_objs"):
             wanted = getattr(self.model, "metrics", None) or []
-            extractor = inception.InceptionFeatureExtractor(device=self.device)
+            extractor = over_data_ranks(inception.InceptionFeatureExtractor(
+                device=self.device), self.device)
             if self.debug_nans:
                 extractor = self._checked(extractor, "InceptionV3 features")
             objs: Dict[str, Any] = {}
@@ -489,7 +556,9 @@ class Trainer:
 
     def _log_samples(self) -> None:
         try:
-            images = self.model.sample(self._generator(_SAMPLE), self.num_sample_images)
+            images = mesh_lib.sample_rows(
+                lambda n: self.model.sample(self._generator(_SAMPLE), n),
+                self.num_sample_images)
         except NotImplementedError:  # a model with no random generation (CycleGAN)
             return
         self._check_nans("sample grid", images)
@@ -504,6 +573,15 @@ class Trainer:
             self._check_nans(phase, out)
             return out
         return checked
+
+
+class _NullLogger:
+    """The logger of a rank other than 0: writes nothing."""
+
+    def log_metrics(self, *args, **kwargs) -> None:
+        pass
+
+    log_image = log_table = finish = log_metrics
 
 
 def _group(iterator: Iterator[Any], k: int) -> Iterator[List[Any]]:

@@ -14,7 +14,10 @@ parameter's (or buffer's) flax path is its module path plus the leaf name that i
 layer declares in ``FLAX_LEAVES`` (conv kernels go from HWIO to OIHW, transposed-conv
 kernels from HWIO to a spatially flipped [in, out, h, w], Dense kernels [in, out] to
 [out, in], GroupNorm ``scale`` to ``weight``). Any missing or left-over key, or a
-shape that does not fit, raises.
+shape that does not fit, raises. A pipeline DiT's stage-stacked leaves
+(``pipeline/stages/block_j/...`` [S, ...], global block ``s depth / S + j``) are read as
+the port's per-stage paths (``pipeline/stages/{s}/block_j/...``), in the weights and in
+Adam's moments alike; the trainer lays the whole tree out for its strategy after.
 """
 
 from __future__ import annotations
@@ -66,12 +69,27 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def unstack_stages(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """JAX's stage-stacked pipeline leaves ``.../pipeline/stages/block_j/...`` [S, ...]
+    as S leaves ``.../pipeline/stages/{s}/block_j/...``; other keys as they are."""
+    out = {}
+    for key, value in flat.items():
+        head, sep, tail = key.partition("pipeline/stages/")
+        if sep and tail.startswith("block_"):
+            for s in range(value.shape[0]):
+                out[f"{head}pipeline/stages/{s}/{tail}"] = value[s]
+        else:
+            out[key] = value
+    return out
+
+
 def read_tree(tree) -> Dict[str, np.ndarray]:
-    """A nested tree, a flat {"a/b": array} dict, or the path of an ``.npz`` -> flat dict."""
+    """A nested tree, a flat {"a/b": array} dict, or the path of an ``.npz`` -> flat dict
+    (stage-stacked pipeline leaves split: ``unstack_stages``)."""
     if isinstance(tree, (str, Path)):
         with np.load(tree) as data:
-            return {k: data[k] for k in data.files}
-    return flatten_tree(tree)
+            return unstack_stages({k: data[k] for k in data.files})
+    return unstack_stages(flatten_tree(tree))
 
 
 def flax_paths(module: nn.Module, buffers: bool = False) -> Dict[str, tuple]:

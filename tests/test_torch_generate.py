@@ -57,10 +57,19 @@ def test_generate_main_on_cpu(tiny_run):
     assert dpmpp.shape == images.shape and not np.array_equal(dpmpp, images)
 
 
-def test_generate_rejects_unported_flags():
-    pp = str(Path(__file__).resolve().parents[1] / "configs" / "diffusion" / "dit_cifar10_pp.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate.main(["--config_path", pp, "--device", "cpu"])
+def test_generate_rejects_unported_flags(tmp_path):
+    """A pipeline config, once refused, samples: dit_cifar10_pp.json's 4 stages (cut to
+    depth 4 and width 32 for the CPU) run the GPipe schedule in one process."""
+    config = json.loads((Path(__file__).resolve().parents[1] / "configs" / "diffusion" /
+                         "dit_cifar10_pp.json").read_text())
+    config["model"]["args"].update(dim=32, depth=4, num_heads=2, img_size=8,
+                                   sampling_timesteps=2, use_bf16=False)
+    config["dataset"]["img_size"] = 8
+    path = tmp_path / "pp.json"
+    path.write_text(json.dumps(config))
+    images = generate.main(["--config_path", str(path), "--device", "cpu", "--num_samples",
+                            "4", "--out", str(tmp_path / "out")])
+    assert images.shape == (4, 8, 8, 3) and np.isfinite(images).all()
 
 
 def test_generate_cuda_without_gpu_raises(tiny_run):

@@ -33,5 +33,6 @@ def test_port_has_modules():
                    "models/autoencoder/unet.py", "models/autoregressive/pixelcnn.py",
                    "models/flow/nice.py", "models/flow/glow.py", "metrics/inception.py",
                    "metrics/generative.py", "metrics/verify.py", "models/modules/moe.py",
-                   "serving.py", "export.py", "data/native.py"):
+                   "serving.py", "export.py", "data/native.py", "parallel/mesh.py",
+                   "parallel/collectives.py", "models/diffusion/pipeline.py"):
         assert PORT / module in FILES, module

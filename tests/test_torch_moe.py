@@ -116,7 +116,7 @@ def test_moe_routing_ties_capacity_and_aux_before_drops():
 def test_dit_moe_blocks_names_and_refusals():
     """Block i is MoE when (depth - 1 - i) % moe_every == 0; the parameter paths and
     shapes are flax's (``block_i/moe/{router,wi,bi,wo,bo}``); the UNet refuses experts and
-    the pipeline stages still raise."""
+    the pipeline stages refuse them with JAX's text."""
     net = TD.DiT(hidden=32, depth=5, heads=2, num_experts=3, moe_every=2, num_classes=3)
     assert [b.moe is not None for b in net.blocks] == [True, False, True, False, True]
     init_params(net, torch.Generator().manual_seed(0))
@@ -131,7 +131,7 @@ def test_dit_moe_blocks_names_and_refusals():
     assert out.shape == (2, 8, 8, 3) and aux.ndim == 0 and float(aux.detach()) > 0
     with pytest.raises(ValueError, match="DiT backbone only"):
         DDPM(img_size=8, dim=16, dim_mults=(1, 2), num_experts=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pipeline_stages is incompatible with num_experts"):
         TD.DiT(hidden=32, depth=2, heads=2, num_experts=2, pipeline_stages=2)
 
 

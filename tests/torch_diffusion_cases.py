@@ -113,7 +113,8 @@ def test_sample_dispatch_and_guidance_checks(models):
 
 
 def test_ddpm_rejects_unported_and_dit_only_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DDPM(network="dit", pipeline_stages=2, device="cpu")
+    piped = DDPM(network="dit", dim=32, depth=2, num_heads=2, pipeline_stages=2,
+                 use_bf16=False, device="cpu")
+    assert len(piped.unet.pipeline.stages) == 2 and not piped.unet.blocks
     with pytest.raises(ValueError, match="DiT backbone only"):
         DDPM(img_size=16, dim=16, dim_mults=(1, 2), num_experts=4, device="cpu")

@@ -193,14 +193,16 @@ def test_three_train_steps_match_jax(jax_ddpm):
 
 
 def test_raised_options(flax_params):
-    """Pipeline stages still raise (MoE builds: ``test_torch_moe.py``); ``flash_attn``
-    builds the flash branch, which on the CPU (8 px: 16 tokens, below the flash gate)
-    matches the packed path with the same weights within the order of f32 sums."""
-    for kw in ({"pipeline_stages": 2}, {"pipeline_stages": 2, "num_experts": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TD.DiT(**NET, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DDPM(**{**DDPM_ARGS, **kw}, device="cpu")
+    """Pipeline stages build (the schedule: ``test_torch_pipeline.py``), and with MoE
+    raise JAX's text (MoE builds: ``test_torch_moe.py``); ``flash_attn`` builds the flash
+    branch, which on the CPU (8 px: 16 tokens, below the flash gate) matches the packed
+    path with the same weights within the order of f32 sums."""
+    assert len(TD.DiT(**NET, pipeline_stages=2).pipeline.stages) == 2
+    assert len(DDPM(**DDPM_ARGS, pipeline_stages=2, device="cpu").unet.pipeline.stages) == 2
+    for build in (lambda: TD.DiT(**NET, pipeline_stages=2, num_experts=8),
+                  lambda: DDPM(**DDPM_ARGS, pipeline_stages=2, num_experts=8, device="cpu")):
+        with pytest.raises(ValueError, match="pipeline_stages is incompatible"):
+            build()
     assert DDPM(**DDPM_ARGS, num_experts=8, device="cpu").unet.blocks[-1].moe is not None
     assert DDPM(**DDPM_ARGS, flash_attn=True, device="cpu").unet.blocks[0].flash
     inp = {k: torch.from_numpy(v) for k, v in _inputs().items()}

@@ -368,10 +368,24 @@ def test_sigterm_saves_first_and_skips_validation(tmp_path, monkeypatch):
     ["--config_path", str(ROOT / "configs" / "diffusion" / "dit_cifar10_pp.json")],
 ])
 def test_refused_flags_raise_not_implemented(tmp_path, monkeypatch, flags):
+    """The flags the port once refused run as the root ``train.py``'s: ``fsdp`` trains two
+    steps and evaluates the test split in one process (a mesh of one rank); ``tp`` and
+    ``pp`` on a UNet, and ``dit_cifar10_pp.json``'s 4 stages on a 1-way stage axis, raise
+    the JAX trainer's ``ValueError``s."""
     monkeypatch.setattr(cli, "EXPERIMENT_DIR", tmp_path / "experiments")
     argv = ["--config_path", str(_tiny_config(tmp_path)), "--device", "cpu"] + flags
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_train.main(argv)
+    if flags[-1].endswith("dit_cifar10_pp.json"):
+        with pytest.raises(ValueError, match="pipeline_stages=4 does not match the 1-way"):
+            port_train.main(argv + ["--strategy", "pp"])
+    elif flags[-1] in ("tp", "pp"):
+        with pytest.raises(ValueError, match=f"strategy='{flags[-1]}' supports the DiT"):
+            port_train.main(argv)
+    elif "--eval" in flags:
+        metrics = port_train.main(argv)
+        assert np.isfinite(metrics["test_loss"])
+    else:
+        model = port_train.main(argv + ["--max_steps", "2"])
+        assert model.step == 2
 
 
 def test_prepare_batch_pallas_backend_matches_default_on_cpu():
